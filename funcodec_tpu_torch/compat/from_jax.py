@@ -1,0 +1,110 @@
+"""Carry weights into the port: from funcodec_tpu parameter pytrees, or from a .pth.
+
+``state_dict_from_jax`` inverts funcodec_tpu/compat/torch_import.py: it walks
+the port's own layer list (the same (kind, spec) list as the JAX package's)
+beside the JAX params and returns a state_dict under the reference FunCodec
+names, which the port's modules carry. The JAX params arrive as numpy
+arrays (``np.asarray`` of each leaf); this module never imports jax.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Sequence
+
+import numpy as np
+import torch
+
+from funcodec_tpu_torch.models.seanet import Layer
+from funcodec_tpu_torch.ops.conv import ConvSpec
+
+RVQ_BUFFERS = ("inited", "cluster_size", "embed", "embed_avg")
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+
+
+def torch_conv_weight(kernel: np.ndarray, spec: ConvSpec) -> np.ndarray:
+    """JAX gather-form kernel -> torch conv weight.
+
+    forward:    (K, Cin/g, Cout) -> (Cout, Cin/g, K)
+    transposed: (K, Cin/g, Cout) -> (Cin, Cout/g, K)  (stored unflipped)
+    """
+    kernel = np.asarray(kernel)
+    if not spec.transposed:
+        return np.transpose(kernel, (2, 1, 0))
+    k, i_per_g, o = kernel.shape
+    g = spec.groups
+    wg = kernel.reshape(k, i_per_g, g, o // g)
+    return np.transpose(wg, (2, 1, 3, 0)).reshape(g * i_per_g, o // g, k)
+
+
+def _conv(sd: Dict[str, torch.Tensor], base: str, spec: ConvSpec, p: Mapping[str, Any]) -> None:
+    if "kernel" not in p:
+        raise NotImplementedError("weight_norm params are not ported yet (ROADMAP.md queue 1)")
+    inner = "convtr" if spec.transposed else "conv"
+    sd[f"{base}.{inner}.{inner}.weight"] = _t(torch_conv_weight(p["kernel"], spec))
+    if "bias" in p:
+        sd[f"{base}.{inner}.{inner}.bias"] = _t(p["bias"])
+    if "norm_scale" in p:
+        sd[f"{base}.{inner}.norm.weight"] = _t(p["norm_scale"])
+        sd[f"{base}.{inner}.norm.bias"] = _t(p["norm_bias"])
+
+
+def _layers(sd: Dict[str, torch.Tensor], prefix: str, layers: Sequence[Layer], params) -> None:
+    for i, ((kind, spec), p) in enumerate(zip(layers, params, strict=True)):
+        base = f"{prefix}.{i}"
+        if kind == "conv":
+            _conv(sd, base, spec, p)
+        elif kind == "lstm":
+            for l, lp in enumerate(p):
+                sd[f"{base}.lstm.weight_ih_l{l}"] = _t(np.asarray(lp["w_ih"]).T)
+                sd[f"{base}.lstm.weight_hh_l{l}"] = _t(np.asarray(lp["w_hh"]).T)
+                sd[f"{base}.lstm.bias_ih_l{l}"] = _t(lp["b_ih"])
+                sd[f"{base}.lstm.bias_hh_l{l}"] = _t(lp["b_hh"])
+        elif kind == "snake":
+            sd[f"{base}.alpha"] = _t(np.asarray(p["alpha"]).reshape(1, -1, 1))
+        elif kind == "resblock":
+            block, shortcut = spec
+            _layers(sd, f"{base}.block", block, p["block"])
+            if shortcut is not None:
+                _conv(sd, f"{base}.shortcut", shortcut, p["shortcut"])
+        elif kind == "act":
+            continue
+        else:
+            raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
+
+
+def state_dict_from_jax(model, params: Mapping[str, Any], rvq_state) -> Dict[str, torch.Tensor]:
+    """funcodec_tpu Encodec (params, rvq_state) as numpy -> the port's state_dict.
+
+    `model` is the port's Encodec (its layer lists drive the walk);
+    `rvq_state` has the four codebook buffers as attributes or keys.
+    """
+    sd: Dict[str, torch.Tensor] = {}
+    _layers(sd, "encoder.model", model.encoder.layers, params["encoder"])
+    _layers(sd, "decoder.model", model.decoder.layers, params["decoder"])
+    qp = params.get("quantizer") or {}
+    for name in ("input_proj", "output_proj"):
+        if name in qp:
+            sd[f"quantizer.{name}.weight"] = _t(np.asarray(qp[name]["kernel"]).T)
+            sd[f"quantizer.{name}.bias"] = _t(qp[name]["bias"])
+    for name in RVQ_BUFFERS:
+        value = rvq_state[name] if isinstance(rvq_state, Mapping) else getattr(rvq_state, name)
+        sd[f"quantizer.rq.model.{name}"] = _t(value)
+    return sd
+
+
+def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """Load a FunCodec .pth state_dict onto the CPU (unwrapping {"model": sd}).
+
+    The codebooks' `inited` flags become an (n_q,) float vector, as
+    funcodec_tpu's importer reads them.
+    """
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "model" in sd and isinstance(sd["model"], dict):
+        sd = sd["model"]
+    sd = dict(sd)
+    for key in [k for k in sd if k.endswith("rq.model.inited")]:
+        sd[key] = sd[key].reshape(-1).float()
+    return sd

@@ -28,6 +28,12 @@ if REFERENCE_ROOT not in sys.path:
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (the port's kernels); skips without one"
+    )
+
+
 @pytest.fixture()
 def torch():
     """Per-test torch with a fixed seed: each test's RNG stream must be
