@@ -1,6 +1,7 @@
 """Batch codec inference: ``Speech2Token`` (port of funcodec_tpu/cli/codec_inference.py).
 
-One process drives one GPU, named by ``device``. The wav.scp -> codecs.txt
+One process drives one GPU, named by ``device`` (default "cuda"; pass "cpu"
+to run on the CPU). The wav.scp -> codecs.txt
 pipeline (``inference_pipeline``, the json/ark writers and ``main``) is
 ROADMAP.md queue 1 item 10 and not ported yet.
 """
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 
 from funcodec_tpu_torch.compat.from_jax import load_torch_state_dict
-from funcodec_tpu_torch.tasks.codec import build_codec_model, load_config
+from funcodec_tpu_torch.tasks.codec import build_codec_model, load_config, resolve_device
 
 _UNSET = object()
 RUN_MODS = ("inference", "encode", "decode", "decode_emb")
@@ -41,7 +42,7 @@ class Speech2Token:
         dtype: str = "float32",
         bit_width: Optional[int] = 8_000,
         *,
-        device: Union[str, torch.device],
+        device: Union[str, torch.device] = "cuda",
     ):
         if dtype not in ("float32", "bfloat16"):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
@@ -49,7 +50,7 @@ class Speech2Token:
             self.config = dict(config_file)
         else:
             self.config = load_config(config_file)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.bit_width = bit_width
         self.dtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
         if self.dtype == torch.float32:

@@ -1,16 +1,18 @@
 """Build the port's CUDA sources with nvcc and bind them with ctypes.
 
-At first use, every ``csrc/*.cu`` is compiled for Hopper (sm_90a) into one
-shared library with a plain C interface::
+At first use, every ``csrc/*.cu`` is compiled for Hopper (sm_90a), one
+``nvcc`` per source, all started together, and the objects are linked into
+one shared library with a plain C interface::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o build/torch_kernels/libfuncodec_kernels-<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
+         -Xptxas -v -c csrc/<name>.cu -o <name>.o          # each source, in parallel
+    nvcc -shared -o build/torch_kernels/libfuncodec_kernels-<hash>.so *.o
 
 The library name carries a hash of the sources and flags, so an edited
 source rebuilds and an unchanged one loads from the cache. The build
 directory sits beside the package (``build/`` at the repository root) and is
-git-ignored. ptxas' register, shared-memory and spill report is kept in a
-``.log`` file next to the library (``build_report()``).
+git-ignored. ptxas' register, shared-memory and spill report of every source is kept
+in a ``.log`` file next to the library (``build_report()``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import shutil
 import subprocess
 import time
 from pathlib import Path
@@ -29,8 +32,22 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 LIB_NAME = "funcodec_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# (restype, argtypes) of every extern "C" entry of csrc/*.cu; pointers and
+# the stream pass as c_void_p, so ctypes never cuts them to 32 bits.
+SIGNATURES = {
+    "funcodec_cuda_error_string": (ctypes.c_char_p, [_I]),
+    "rvq_encode_launch": (_I, [_P] * 5 + [_I] * 3 + [_P]),
+    "rvq_encode_smem_bytes": (_I, []),
+    "conv1d_s1_launch": (_I, [_P] * 4 + [_I] * 10 + [_P]),
+    "conv1d_s1_smem_bytes": (_I, [_I] * 5),
+    "resblock_tgn_launch": (_I, [_I] + [_P] * 10 + [_I] * 9 + [_P]),
+    "resblock_tgn_tile": (_I, [_I] * 3),
+    "resblock_tgn_smem_bytes": (_I, [_I] * 5),
+}
 
 _lib: Optional[ctypes.CDLL] = None
 _report: Dict[str, object] = {}
@@ -65,17 +82,31 @@ def build() -> Path:
         _report.update(path=str(out), seconds=0.0, cached=True,
                        ptxas=log.read_text() if log.exists() else "")
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    obj_dir = BUILD_DIR / f"{out.stem}.{os.getpid()}.obj"
+    obj_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
+    jobs = []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj_dir / f"{src.stem}.o")]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    reports = []
+    for cmd, proc in jobs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{stderr}")
+        reports.append(stdout + stderr)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [nvcc, "-shared", "-o", str(tmp), *sorted(str(o) for o in obj_dir.glob("*.o"))]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
-    log.write_text(proc.stdout + proc.stderr)
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
+    shutil.rmtree(obj_dir, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    ptxas = "".join(reports)
+    log.write_text(ptxas)
     os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
-    _report.update(path=str(out), seconds=seconds, cached=False, ptxas=proc.stdout + proc.stderr)
+    _report.update(path=str(out), seconds=seconds, cached=False, ptxas=ptxas)
     return out
 
 
@@ -88,9 +119,11 @@ def load() -> ctypes.CDLL:
     """The kernels' shared library, built at first use."""
     global _lib
     if _lib is None:
-        _lib = ctypes.CDLL(str(build()))
-        _lib.funcodec_cuda_error_string.argtypes = [ctypes.c_int]
-        _lib.funcodec_cuda_error_string.restype = ctypes.c_char_p
+        lib = ctypes.CDLL(str(build()))
+        for name, (restype, argtypes) in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.restype, fn.argtypes = restype, argtypes
+        _lib = lib
     return _lib
 
 

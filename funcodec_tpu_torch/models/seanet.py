@@ -9,6 +9,14 @@ reference names (``encoder.model.{i}.conv.conv.weight``,
 Inside the stack the layout is torch's (B, C, T). The public contract is the
 JAX one: the encoder maps a waveform (B, T) to latents (B, T', D) and the
 decoder maps (B, T', D) to (B, T, channels).
+
+Fused kernels (ops/conv.py flags): with ``FUSED_RESBLOCK`` each residual
+block first tries ops/resblock_kernel.fused_resblock_tgn; with
+``FUSED_STRIDE1`` a ``LayerStack`` runs an ELU(alpha=1) right before a
+stride-1 conv with K > 1 as one fused kernel (the JAX package's
+``_elu_conv_fusible`` peephole). The JAX peephole's ``C >= 128``, no-packing
+gate on the resblock was a TPU (v5e) lane-width tuning and is not carried
+over: every qualifying block fuses.
 """
 
 from __future__ import annotations
@@ -20,7 +28,9 @@ import torch
 import torch.nn as nn
 
 from funcodec_tpu_torch.ops import activations as act_ops
-from funcodec_tpu_torch.ops.conv import ConvSpec, make_conv
+from funcodec_tpu_torch.ops import conv as conv_ops
+from funcodec_tpu_torch.ops.conv import ConvSpec, SConv1d, make_conv
+from funcodec_tpu_torch.ops.resblock_kernel import fused_resblock_tgn
 from funcodec_tpu_torch.ops.rnn import SLSTM
 
 Layer = Tuple[str, Any]  # kind in {conv, act, snake, lstm, tfm, resblock}
@@ -174,10 +184,44 @@ class Activation(nn.Module):
 
     def __init__(self, name: str, kwargs: Dict[str, Any]):
         super().__init__()
-        self.fn = act_ops.get_activation_fn(name, **dict(kwargs))
+        self.name, self.kwargs = name, dict(kwargs)
+        self.fn = act_ops.get_activation_fn(name, **self.kwargs)
+
+    @property
+    def is_elu1(self) -> bool:
+        """ELU with alpha 1, the activation the fused kernels apply."""
+        return self.name.upper() == "ELU" and self.kwargs.get("alpha", 1.0) == 1.0
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fn(x)
+
+
+def _elu_conv_fusible(layer: nn.Module, nxt: Optional[nn.Module]) -> bool:
+    """ELU(alpha=1) directly before a stride-1, groups-1, K > 1 conv."""
+    if not conv_ops.FUSED_STRIDE1 or not isinstance(layer, Activation) or not layer.is_elu1:
+        return False
+    if not isinstance(nxt, SConv1d):
+        return False
+    spec = nxt.spec
+    return spec.stride == 1 and spec.groups == 1 and spec.kernel_size > 1
+
+
+class LayerStack(nn.Sequential):
+    """nn.Sequential (same indices, so the same state_dict names) whose
+    forward takes the ELU + conv peephole when FUSED_STRIDE1 is on."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        layers = list(self)
+        i = 0
+        while i < len(layers):
+            nxt = layers[i + 1] if i + 1 < len(layers) else None
+            if _elu_conv_fusible(layers[i], nxt):
+                x = nxt.forward_elu(x)
+                i += 2
+            else:
+                x = layers[i](x)
+                i += 1
+        return x
 
 
 class Snake(nn.Module):
@@ -195,7 +239,7 @@ class SEANetResnetBlock(nn.Module):
     def __init__(self, spec, *, device, generator: torch.Generator):
         super().__init__()
         block, shortcut = spec
-        self.block = nn.Sequential(
+        self.block = LayerStack(
             *[make_layer(k, s, device=device, generator=generator) for k, s in block]
         )
         if shortcut is None:
@@ -203,7 +247,24 @@ class SEANetResnetBlock(nn.Module):
         else:
             self.shortcut = make_layer("conv", shortcut, device=device, generator=generator)
 
+    def _fused(self, x: torch.Tensor) -> Optional[torch.Tensor]:
+        """The whole-block kernel for the canonical [ELU, conv(k, d), ELU,
+        conv(1)] + 1x1-shortcut block, or None."""
+        layers = list(self.block)
+        if len(layers) != 4 or not isinstance(self.shortcut, SConv1d):
+            return None
+        act0, conv1, act1, conv2 = layers
+        if not all(isinstance(a, Activation) and a.is_elu1 for a in (act0, act1)):
+            return None
+        if not isinstance(conv1, SConv1d) or not isinstance(conv2, SConv1d):
+            return None
+        return fused_resblock_tgn(x, conv1, conv2, self.shortcut)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if conv_ops.FUSED_RESBLOCK:
+            y = self._fused(x)
+            if y is not None:
+                return y
         return self.shortcut(x) + self.block(x)
 
 
@@ -227,8 +288,8 @@ def make_layer(kind: str, spec, *, device, generator: torch.Generator) -> nn.Mod
     raise ValueError(kind)
 
 
-def _build_stack(layers: List[Layer], device, generator) -> nn.Sequential:
-    return nn.Sequential(
+def _build_stack(layers: List[Layer], device, generator) -> LayerStack:
+    return LayerStack(
         *[make_layer(k, s, device=device, generator=generator) for k, s in layers]
     )
 

@@ -11,6 +11,13 @@ checkpoint loads with plain ``load_state_dict``.
 
 Only the 1D subset with norms ``none`` and ``time_group_norm`` is ported;
 2D convs come with slice C of ROADMAP.md.
+
+``FUSED_STRIDE1`` routes each stride-1 conv with K > 1 (and, through
+``apply_sconv1d_act``, an ELU right before it) to the fused pad + conv
+kernel of ops/conv_kernel.py; ``FUSED_RESBLOCK`` routes each qualifying
+SEANet residual block to ops/resblock_kernel.py (models/seanet.py). Both are
+off by default, as their JAX counterparts ``PALLAS_STRIDE1`` and
+``PALLAS_RESBLOCK`` are.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from funcodec_tpu_torch.ops.conv_kernel import fused_conv1d_s1
 from funcodec_tpu_torch.ops.pad import (
     conv_padding_total,
     extra_padding_for_conv1d,
@@ -33,6 +41,14 @@ from funcodec_tpu_torch.ops.pad import (
 
 CONV_NORMS = ("none", "weight_norm", "time_group_norm", "layer_norm")
 PORTED_NORMS = ("none", "time_group_norm")
+
+# The fused stride-1 conv kernel (csrc/conv1d_s1.cu): one read of x and one
+# write of y per layer, the pad and a preceding ELU done on load.
+FUSED_STRIDE1 = False
+
+# The whole-resblock kernel (csrc/resblock_tgn.cu): three streaming passes
+# over x replace the unfused ELU / conv / time_group_norm chain.
+FUSED_RESBLOCK = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,6 +112,10 @@ def apply_sconv1d(
     padding_total = conv_padding_total(k, s, d)
     extra = extra_padding_for_conv1d(x.shape[-1], k, s, padding_total)
     left, right = split_padding(padding_total, spec.causal)
+    if FUSED_STRIDE1 and s == 1 and spec.groups == 1 and k > 1:
+        y = fused_conv1d_s1(x, weight, bias, left, right + extra, d, spec.pad_mode)  # extra == 0
+        if y is not None:
+            return apply_post_norm(spec, y, norm_scale, norm_bias)
     x = pad1d_time(x, (left, right + extra), mode=spec.pad_mode)
     y = F.conv1d(
         x,
@@ -106,6 +126,25 @@ def apply_sconv1d(
         groups=spec.groups,
     )
     return apply_post_norm(spec, y, norm_scale, norm_bias)
+
+
+def apply_sconv1d_act(
+    spec: ConvSpec,
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    norm_scale: Optional[torch.Tensor] = None,
+    norm_bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """ELU(alpha=1) -> SConv1d, in one fused kernel when the layer qualifies
+    (the SEANet act + conv peephole); otherwise the ELU, then apply_sconv1d."""
+    k, s, d = spec.kernel_size, spec.stride, spec.dilation
+    if FUSED_STRIDE1 and not spec.transposed and s == 1 and spec.groups == 1 and k > 1:
+        left, right = split_padding(conv_padding_total(k, s, d), spec.causal)
+        y = fused_conv1d_s1(x, weight, bias, left, right, d, spec.pad_mode, act="elu")
+        if y is not None:
+            return apply_post_norm(spec, y, norm_scale, norm_bias)
+    return apply_sconv1d(spec, F.elu(x), weight, bias, norm_scale, norm_bias)
 
 
 def apply_sconv_transpose1d(
@@ -196,11 +235,17 @@ class SConv1d(nn.Module):
         self.spec = spec
         self.conv = _NormConv(spec, device=device, generator=generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def params(self) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor], Optional[torch.Tensor]]:
+        """(weight, bias, norm_scale, norm_bias); the last three may be None."""
         c = self.conv
-        return apply_sconv1d(
-            self.spec, x, c.layer.weight, c.layer.bias, *c.norm_params()
-        )
+        return (c.layer.weight, c.layer.bias, *c.norm_params())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return apply_sconv1d(self.spec, x, *self.params())
+
+    def forward_elu(self, x: torch.Tensor) -> torch.Tensor:
+        """self(ELU(x)), through the fused kernel where it qualifies."""
+        return apply_sconv1d_act(self.spec, x, *self.params())
 
 
 class SConvTranspose1d(nn.Module):

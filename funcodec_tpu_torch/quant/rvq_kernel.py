@@ -11,7 +11,6 @@ for a CUDA tensor it launches the kernel or raises.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Tuple
 
 import torch
@@ -112,12 +111,9 @@ def launch_rvq_encode(
     if N >= 2**31 or n_q * N >= 2**31:
         raise ValueError(f"rvq_encode: N={N} overflows the kernel's int indexing")
     lib = build.load()
-    fn = lib.rvq_encode_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), embed.data_ptr(), esq.data_ptr(), idx.data_ptr(),
-                quant.data_ptr(), N, n_q, bins, stream)
+        rc = lib.rvq_encode_launch(x.data_ptr(), embed.data_ptr(), esq.data_ptr(), idx.data_ptr(),
+                                   quant.data_ptr(), N, n_q, bins, stream)
     build.check(lib, rc, "rvq_encode_launch")
     LAUNCHES += 1

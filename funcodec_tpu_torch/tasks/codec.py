@@ -9,7 +9,7 @@ and the ``costume_quantizer`` is ported.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 import torch
 
@@ -55,20 +55,34 @@ def _require(name: str, value: str, supported: str, where: str) -> None:
         raise NotImplementedError(f"{name} {value!r} is not ported yet ({where})")
 
 
+def resolve_device(device: Union[str, torch.device]) -> torch.device:
+    """torch.device(device); a CUDA device where torch sees no card raises,
+    so a run that was meant for the card never drops to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r}: torch.cuda.is_available() is False. The port runs on a "
+            "CUDA card by default; pass device='cpu' to run on the CPU."
+        )
+    return dev
+
+
 def build_codec_model(
     config: Dict[str, Any],
     *,
-    device=None,
+    device: Union[str, torch.device] = "cuda",
     generator: Optional[torch.Generator] = None,
 ):
     """Build (model, discriminator) from a FunCodec-style config dict.
 
-    Weights and (non-kmeans) codebooks are drawn from `generator`, made on
-    `device`; the default is a generator seeded with 0. The discriminator is
+    The model lives on `device`, the card unless the caller asks for the
+    CPU. Weights and (non-kmeans) codebooks are drawn from `generator`; the
+    default is a generator on `device` seeded with 0. The discriminator is
     ROADMAP.md slice B, so the second element is always None.
     """
+    device = resolve_device(device)
     if generator is None:
-        generator = torch.Generator(device=device or "cpu").manual_seed(0)
+        generator = torch.Generator(device=device).manual_seed(0)
     input_size = config.get("input_size", 1)
     model_conf = dict(config.get("model_conf", {}))
     odim = model_conf.get("odim", 128)
