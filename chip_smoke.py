@@ -27,10 +27,24 @@ raise on failure:
    request against what the gates imply. Token flip rates between the
    paths and against the fp32-exact path; the fp32 path on the card
    against the same model on the CPU for a short clip.
-5. timing: each kernel against its plain version (and cuDNN / the unfused
-   block) at each flagship shape, beside its bound; the B = 64 x 10 s
-   serving rate of fp32-exact, bf16 + RVQ kernel, + FUSED_STRIDE1 and
-   + both SEANet flags. The per-shape rows also go to
+5. probe: the HBM copy probes (csrc/copy_probe.cu, ops/copy_kernel.py).
+   scale_copy and dma_copy held bit for bit to x * 2 in bf16 and fp32 at
+   the probe shape 256 x 20,000 x 128, a ragged T and a row count that is
+   not a multiple of chunk_rows; then the probe path, tools/bw_probe.run
+   (every tile and block shape, dma_copy, torch.mul, copy_), whose best
+   rate is the measured copy ceiling.
+6. cli: the file-to-file entry point, cli/codec_inference.main, on a
+   seeded corpus of 32 noise utterances of 1-12 s (16 kHz PCM16) under
+   build/chip_smoke/cli/: bf16 on the main path at batch 16 and 16 kb/s
+   (32 quantizers) with exact launch counts, its first batch against a
+   direct Speech2Token.dispatch, decode from codecs.txt, the ark round
+   trip, two 24 kHz files through --file_sampling_rate, and fp32
+   codecs.txt on the card against the CPU; end-to-end audio-s/s.
+7. timing: each kernel against its plain version (and cuDNN / the unfused
+   block) at each flagship shape, beside its bound, with each bytes-bound
+   row's share of the published peak and of the measured copy ceiling; the
+   B = 64 x 10 s serving rate of fp32-exact, bf16 + RVQ kernel,
+   + FUSED_STRIDE1 and + both SEANet flags. The per-shape rows also go to
    build/chip_smoke/timings.json (git-ignored).
 
 The line before the last is the card's name and power limit (nvidia-smi),
@@ -42,7 +56,7 @@ from __future__ import annotations
 
 import json
 import math
-import subprocess
+import shutil
 import sys
 import time
 from pathlib import Path
@@ -53,9 +67,12 @@ import torch.nn.functional as F
 
 _JAX_PRELOADED = "jax" in sys.modules
 
+import funcodec_tpu_torch.cli.codec_inference as cli  # noqa: E402
 import funcodec_tpu_torch.ops.conv as conv_ops  # noqa: E402
 import funcodec_tpu_torch.quant.rvq as rvq  # noqa: E402
 from funcodec_tpu_torch.cli.codec_inference import Speech2Token  # noqa: E402
+from funcodec_tpu_torch.data.kaldi_ark import ArkScpReader  # noqa: E402
+from funcodec_tpu_torch.data.wav_io import read_wav, write_wav  # noqa: E402
 from funcodec_tpu_torch.kernels import build  # noqa: E402
 from funcodec_tpu_torch.models.seanet import (  # noqa: E402
     SEANetConfig,
@@ -63,10 +80,12 @@ from funcodec_tpu_torch.models.seanet import (  # noqa: E402
     _resblock_layers,
     make_layer,
 )
-from funcodec_tpu_torch.ops import conv_kernel, resblock_kernel  # noqa: E402
+from funcodec_tpu_torch.ops import conv_kernel, copy_kernel, resblock_kernel  # noqa: E402
 from funcodec_tpu_torch.ops.pad import conv_padding_total, pad1d_time, split_padding  # noqa: E402
 from funcodec_tpu_torch.quant import rvq_kernel  # noqa: E402
 from funcodec_tpu_torch.tasks.codec import load_config  # noqa: E402
+from funcodec_tpu_torch.tools import bw_probe  # noqa: E402
+from funcodec_tpu_torch.tools.benchlib import PEAK_BYTES, card_line, timeit, timeit_amortized  # noqa: E402
 
 REPO = Path(__file__).resolve().parent
 FLAGSHIP_YAML = REPO / "egs/LibriTTS/codec/conf/encodec_16k_n32_600k_step.yaml"
@@ -80,7 +99,8 @@ FP32_REL_TOL = {"conv1d_s1": 1e-5, "resblock_tgn": 1e-4}
 # a sanity bound on token flips between two bf16 paths (a broken kernel flips ~all)
 MAX_FLIP_ALL = 0.5
 # the card's published peaks (H100 SXM data sheet, dense)
-PEAK_BYTES, PEAK_BF16, PEAK_FP32 = 3.35e12, 989e12, 67e12
+PEAK_BF16, PEAK_FP32 = 989e12, 67e12  # PEAK_BYTES (3.35 TB/s) comes from tools/benchlib
+CARD = torch.device("cuda", 0)
 # kernel launches per request with the gates of ops/conv_kernel and ops/resblock_kernel:
 # 4 head convs + 8 resblock k3 convs; or the 4 head convs and 8 blocks x 3 passes
 EXPECT = {
@@ -97,24 +117,16 @@ def log(*args) -> None:
     print(*args, flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
 def check_device() -> torch.device:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    log(f"torch {torch.__version__} cuda {torch.version.cuda}; card: {card_line()}; "
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}; card: {card_line(CARD)}; "
         f"device_count {torch.cuda.device_count()}")
     log(f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
-    return torch.device("cuda", 0)
+    return CARD
 
 
 def set_flags(path: str) -> None:
@@ -125,6 +137,7 @@ def set_flags(path: str) -> None:
 def reset_counts() -> None:
     for mod in COUNTERS.values():
         mod.LAUNCHES = 0
+    copy_kernel.LAUNCHES.update(scale_copy=0, dma_copy=0)
 
 
 def read_counts() -> dict:
@@ -452,6 +465,226 @@ def serving_phase(config, s_bf, s_fp):
 
 
 # ---------------------------------------------------------------------------
+# probe phase
+# ---------------------------------------------------------------------------
+
+PROBE_SHAPE = (256, 20_000, 128)  # the TPU probes' (B, Tp, L)
+# x's first values: overflow to +-inf, subnormals, signed zeros, bf16 extremes
+SPECIALS = (3.0e38, -3.0e38, 1e-40, -1e-40, 0.0, -0.0, 1.0, 3.3e38)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def probe_phase(dev, card: str):
+    """Both copy kernels bit for bit against x * 2, then the probe path
+    (tools/bw_probe.run) with the launch counts read around it. Returns
+    (rows of the probe path, launches on it, the plain version's ms per
+    dtype, the measured copy ceiling in bytes/s)."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cases = [("probe", PROBE_SHAPE), ("ragged T", (7, 4001, 128)), ("rows % chunk_rows != 0", (3, 1001, 128))]
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, shape in cases:
+            x = torch.randn(*shape, device=dev, generator=gen).to(dtype)
+            x.view(-1)[: len(SPECIALS)] = torch.tensor(SPECIALS, device=dev).to(dtype)
+            ref = copy_kernel.scale_reference(x)
+            outs = {f"scale_copy tile={t} rows={r}": copy_kernel.scale_copy(x, t, r)
+                    for t, r in ((4000, 1), (bw_probe.GPU_TILE, 1), (2000, 8))}
+            outs["dma_copy"] = copy_kernel.dma_copy(x)
+            outs["dma_copy chunk_rows=100"] = copy_kernel.dma_copy(x, 100)
+            torch.cuda.synchronize()
+            for what, out in outs.items():
+                if out.dtype != ref.dtype or not torch.equal(_bits(out), _bits(ref)):
+                    raise RuntimeError(f"{what} {name} {tuple(shape)} {dtype}: not bit-equal to x * 2")
+            log(f"[probe] {name} {tuple(shape)} {str(dtype)[6:]}: {', '.join(outs)} bit-equal to x * 2")
+            del x, ref, outs
+    torch.cuda.empty_cache()
+
+    reset_counts()
+    rows = bw_probe.run(dev, log=lambda m: log(f"[probe] {m}"))
+    launches = dict(copy_kernel.LAUNCHES)
+    torch.cuda.synchronize()
+    for kernel, n in launches.items():
+        if n == 0:
+            raise RuntimeError(f"the probe path launched {kernel} no time")
+    plain = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn(*PROBE_SHAPE, device=dev, generator=gen).to(dtype)
+        plain[dtype] = timeit_amortized(lambda a, b: copy_kernel.scale_reference(a), x, 10)
+        del x
+    torch.cuda.empty_cache()
+    best = max(rows, key=lambda r: r["gbps"])
+    ceiling = best["gbps"] * 1e9
+    log(f"[probe] launches on the probe path {launches}; plain x * 2: bf16 {plain[torch.bfloat16]:.4f} ms, "
+        f"fp32 {plain[torch.float32]:.4f} ms")
+    log(f"[probe] measured copy ceiling {best['gbps']:.1f} GB/s ({best['name']}), "
+        f"{ceiling / PEAK_BYTES:.3f} of 3.35 TB/s ({card})")
+    return rows, launches, plain, ceiling
+
+
+# ---------------------------------------------------------------------------
+# cli phase
+# ---------------------------------------------------------------------------
+
+REPLACES = {
+    "scale_copy": "scripts/pallas_stream_probe.py:74, scripts/pallas_bw_probe.py:45",
+    "dma_copy": "scripts/pallas_bw_probe.py:113",
+}
+
+CLI_DIR = OUT_DIR / "cli"
+CLI_BATCH, CLI_BIT_WIDTH = 16, 16_000  # 32 quantizers
+CLI_UTTS, CLI_SECONDS = 32, (1.0, 12.0)  # the corpus: utterances of uniformly drawn length
+DECODE_PER_BATCH = {"conv1d_s1": 2, "resblock_tgn": 12, "rvq_encode": 0}  # the decoder's half of EXPECT
+MIN_FP32_AGREE = 0.999
+
+
+def _write_corpus(d: Path, lengths_s, sr: int, seed: int) -> dict:
+    """Seeded noise utterances as PCM16 wavs and their wav.scp: {key: samples}."""
+    d.mkdir(parents=True, exist_ok=True)
+    rs = np.random.RandomState(seed)
+    lengths = {}
+    with open(d / "wav.scp", "w") as scp:
+        for i, sec in enumerate(lengths_s):
+            key = f"utt{i:03d}"
+            n = int(round(sec * sr))
+            pcm = np.clip(np.round(rs.randn(n) * 0.1 * 32767), -32768, 32767).astype(np.int16)
+            write_wav(d / f"{key}.wav", pcm, sr)
+            scp.write(f"{key} {d / f'{key}.wav'}\n")
+            lengths[key] = n
+    return lengths
+
+
+def _codecs(path: Path) -> dict:
+    out = {}
+    for line in path.read_text().splitlines():
+        key, payload = line.split(" ", 1)
+        out[key] = np.asarray(json.loads(payload))[0]  # (n_q, T)
+    return out
+
+
+def _run_cli(out: Path, data: str, *args) -> float:
+    """cli.main on one input; returns its wall seconds (reads and writes included)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cli.main(["--config_file", str(CLI_DIR / "config.yaml"), "--model_file", str(CLI_DIR / "model.pth"),
+              "--output_dir", str(out), "--data_path_and_name_and_type", data, *args])
+    return time.perf_counter() - t0
+
+
+def _check_wavs(out: Path, want: dict, sr: int, what: str) -> None:
+    for key, n in want.items():
+        got_sr, wav = read_wav(out / f"{key}.wav", normalize=False)
+        if got_sr != sr or wav.shape != (n,) or wav.dtype != np.int16:
+            raise RuntimeError(f"cli {what}: {key}.wav is {wav.dtype}{wav.shape} at {got_sr} Hz, "
+                               f"expected ({n},) at {sr} Hz")
+
+
+def cli_phase(dev, config, s_fp, card: str):
+    """The file-to-file entry point on the card; returns its numbers."""
+    import yaml
+
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    CLI_DIR.mkdir(parents=True)
+    (CLI_DIR / "config.yaml").write_text(yaml.safe_dump(config))
+    torch.save(s_fp.model.state_dict(), CLI_DIR / "model.pth")
+    rs = np.random.RandomState(20)
+    lengths = _write_corpus(CLI_DIR / "corpus", rs.uniform(*CLI_SECONDS, CLI_UTTS), SR, seed=21)
+    corpus_s = sum(lengths.values()) / SR
+    scp = f"{CLI_DIR / 'corpus' / 'wav.scp'},speech,sound"
+    bf16 = ["--dtype", "bfloat16", "--batch_size", str(CLI_BATCH), "--bit_width", str(CLI_BIT_WIDTH)]
+    n_batches = -(-len(lengths) // CLI_BATCH)
+    frames = {k: -(-n // 320) for k, n in lengths.items()}
+
+    # the bf16 main path: encode + decode to codecs.txt and wavs
+    set_flags(MAIN_PATH)
+    reset_counts()
+    wall = _run_cli(CLI_DIR / "infer", scp, *bf16)
+    counts = read_counts()
+    expect = {k: n_batches * v for k, v in EXPECT[MAIN_PATH].items()}
+    if counts != expect:
+        raise RuntimeError(f"cli inference: launches {counts}, expected {expect} ({n_batches} batches)")
+    codes = _codecs(CLI_DIR / "infer" / "codecs.txt")
+    if set(codes) != set(lengths):
+        raise RuntimeError("cli inference: codecs.txt does not hold every key")
+    for key, c in codes.items():
+        if c.shape != (32, frames[key]) or c.min() < 0 or c.max() >= 1024:
+            raise RuntimeError(f"cli inference: {key} tokens {c.shape}, expected (32, {frames[key]})")
+    _check_wavs(CLI_DIR / "infer", lengths, SR, "inference")
+    log(f"[cli] inference bf16 B={CLI_BATCH} {CLI_BIT_WIDTH} b/s: {len(lengths)} utterances, {corpus_s:.1f} audio-s "
+        f"in {wall:.3f} s = {corpus_s / wall:.1f} audio-s/s end to end (model build, reads and writes included); "
+        f"launches {counts} = {n_batches} batches x {EXPECT[MAIN_PATH]} ({card})")
+
+    # its first batch against a direct dispatch of the same padded batch
+    s2t = Speech2Token(str(CLI_DIR / "config.yaml"), str(CLI_DIR / "model.pth"), "bfloat16", SR, CLI_BIT_WIDTH,
+                       device=dev)
+    first = sorted(lengths, key=lambda k: lengths[k])[:CLI_BATCH]  # a stable sort, as the plan's
+    wavs = [read_wav(CLI_DIR / "corpus" / f"{k}.wav", normalize=False)[1] for k in first]
+    batch = cli._wrap_pad(wavs, cli._bucket_length(max(len(w) for w in wavs), s2t.hop_length))
+    direct = s2t.collect(s2t.dispatch(batch, pcm16_ilens=[len(w) for w in wavs]))[0][0]
+    for i, key in enumerate(first):
+        if not np.array_equal(direct[:, i, : frames[key]], codes[key]):
+            raise RuntimeError(f"cli inference: {key}'s tokens differ from a direct Speech2Token.dispatch")
+    del s2t
+    log(f"[cli] first batch ({len(first)} utterances): tokens equal a direct Speech2Token.dispatch")
+
+    # a second run in the same process, to ark; then decode from codecs.txt and from the ark
+    wall_ark = _run_cli(CLI_DIR / "ark", scp, *bf16, "--indices_save_type", "ark")
+    ark = ArkScpReader(CLI_DIR / "ark" / "indices.scp")
+    for key, c in codes.items():
+        if not np.array_equal(ark[key].T.astype(np.int64), c):
+            raise RuntimeError(f"cli ark: {key}'s tokens differ from codecs.txt")
+    log(f"[cli] second inference run, to indices.ark/scp: {corpus_s / wall_ark:.1f} audio-s/s end to end "
+        f"({wall_ark:.3f} s); tokens equal codecs.txt ({card})")
+    dec_want = {k: f * 320 for k, f in frames.items()}
+    walls = {}
+    for name, data in (("decode_json", f"{CLI_DIR / 'infer' / 'codecs.txt'},speech,codec_json"),
+                       ("decode_ark", f"{CLI_DIR / 'ark' / 'indices.scp'},speech,kaldi_ark")):
+        reset_counts()
+        walls[name] = _run_cli(CLI_DIR / name, data, *bf16, "--run_mod", "decode")
+        dec_expect = {k: n_batches * v for k, v in DECODE_PER_BATCH.items()}
+        if read_counts() != dec_expect:
+            raise RuntimeError(f"cli {name}: launches {read_counts()}, expected {dec_expect}")
+        _check_wavs(CLI_DIR / name, dec_want, SR, name)
+    for key in lengths:
+        if (CLI_DIR / "decode_json" / f"{key}.wav").read_bytes() != (CLI_DIR / "decode_ark" / f"{key}.wav").read_bytes():
+            raise RuntimeError(f"cli decode: {key}.wav differs between codecs.txt and indices.ark input")
+    log(f"[cli] decode from codecs.txt {walls['decode_json']:.3f} s and from indices.ark {walls['decode_ark']:.3f} s: "
+        f"equal wavs, launches {n_batches} batches x {DECODE_PER_BATCH}")
+
+    # two 24 kHz files, read and written at their own rate
+    hz24 = _write_corpus(CLI_DIR / "corpus24k", (1.3, 2.7), 24_000, seed=22)
+    _run_cli(CLI_DIR / "infer24k", f"{CLI_DIR / 'corpus24k' / 'wav.scp'},speech,sound", *bf16,
+             "--file_sampling_rate", "24000")
+    codes24 = _codecs(CLI_DIR / "infer24k" / "codecs.txt")
+    n16 = {k: -(-n * SR // 24_000) for k, n in hz24.items()}  # the length after resampling to 16 kHz
+    for key, n in n16.items():
+        if codes24[key].shape != (32, -(-n // 320)):
+            raise RuntimeError(f"cli 24 kHz: {key} tokens {codes24[key].shape}")
+    # as in the JAX pipeline, the recon resampled back to 24 kHz is cut to the 16 kHz length
+    _check_wavs(CLI_DIR / "infer24k", n16, 24_000, "24 kHz")
+    log(f"[cli] --file_sampling_rate 24000: inputs of {list(hz24.values())} samples, tokens and wavs of "
+        f"{list(n16.values())} samples, the wavs at 24 kHz (the JAX pipeline's cut)")
+
+    # fp32 on the card against the CPU, 2 utterances of 1 s
+    conv_ops.FUSED_STRIDE1 = conv_ops.FUSED_RESBLOCK = rvq.FUSED_RVQ = False
+    _write_corpus(CLI_DIR / "corpus_fp32", (1.0, 1.0), SR, seed=23)
+    fp32 = [f"{CLI_DIR / 'corpus_fp32' / 'wav.scp'},speech,sound", "--dtype", "float32", "--batch_size", "2",
+            "--bit_width", str(CLI_BIT_WIDTH)]
+    _run_cli(CLI_DIR / "fp32_cuda", *fp32)
+    _run_cli(CLI_DIR / "fp32_cpu", *fp32, "--device", "cpu")
+    card_codes, cpu_codes = (_codecs(CLI_DIR / d / "codecs.txt") for d in ("fp32_cuda", "fp32_cpu"))
+    agree = float(np.mean(np.concatenate([(card_codes[k] == cpu_codes[k]).ravel() for k in cpu_codes])))
+    same = (CLI_DIR / "fp32_cuda" / "codecs.txt").read_bytes() == (CLI_DIR / "fp32_cpu" / "codecs.txt").read_bytes()
+    log(f"[cli] fp32 codecs.txt card vs CPU: token agreement {agree:.6f}, byte-equal {same}")
+    if agree < MIN_FP32_AGREE:
+        raise RuntimeError(f"cli fp32: the card's tokens agree with the CPU's on {agree:.4f} < {MIN_FP32_AGREE}")
+    return dict(corpus_s=corpus_s, wall_s=wall, audio_s_per_s=corpus_s / wall, second_wall_s=wall_ark,
+                second_audio_s_per_s=corpus_s / wall_ark, batches=n_batches, launches=counts,
+                decode_wall_s=walls, fp32_agree=agree, fp32_byte_equal=same)
+
+
+# ---------------------------------------------------------------------------
 # timing phase
 # ---------------------------------------------------------------------------
 
@@ -470,22 +703,23 @@ def _cuda_ms(fn, iters: int) -> float:
 
 def _serve_seconds(s2t, x) -> float:
     """Best of 3 after a warm-up; fenced with synchronize."""
-    s2t.dispatch(x, bit_width=None)
-    torch.cuda.synchronize()
-    best = float("inf")
-    for _ in range(3):
-        t0 = time.perf_counter()
-        s2t.dispatch(x, bit_width=None)
-        torch.cuda.synchronize()
-        best = min(best, time.perf_counter() - t0)
-    return best
+    return timeit(lambda: s2t.dispatch(x, bit_width=None), x.device, warmup=1, iters=3)
 
 
 def _row(name, ms, plain_ms, bound, **extra):
     return dict(name=name, ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1], **extra)
 
 
-def timing_phase(dev, s_bf, s_fp, calls, card: str):
+def _shares(row, ceiling: float) -> str:
+    """A bytes-bound row's share of the published peak and of the measured
+    copy ceiling (the bound stays bytes over the published peak)."""
+    if row["bound_by"] != "bytes":
+        return ""
+    at_peak = row["bound_ms"] / row["ms"]
+    return f", {at_peak:.3f} of the published peak, {at_peak * PEAK_BYTES / ceiling:.3f} of the measured ceiling"
+
+
+def timing_phase(dev, s_bf, s_fp, calls, card: str, ceiling: float):
     gen = torch.Generator(device=dev).manual_seed(2)
     embed = _codebooks(gen, dev)
     x = torch.randn(64, 500, 128, device=dev, generator=gen) * 0.1
@@ -508,14 +742,14 @@ def timing_phase(dev, s_bf, s_fp, calls, card: str):
             conv_rows.append(row)
             log(f"[time] conv1d_s1 {layer.name} B={layer.x.shape[0]} T={layer.x.shape[-1]}: kernel "
                 f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, cuDNN {row['library_ms']:.3f} ms, "
-                f"bound {row['bound_ms']:.3f} ms ({row['bound_by']}) ({card})")
+                f"bound {row['bound_ms']:.3f} ms ({row['bound_by']}){_shares(row, ceiling)} ({card})")
         for call in resblocks:
             row = _row(call.name, _cuda_ms(call.kernel, 5), _cuda_ms(call.plain, 3), call.bound_ms(),
                        library_ms=None, unfused_ms=_cuda_ms(call.unfused, 5))
             rb_rows.append(row)
             log(f"[time] resblock_tgn {call.name} B={call.x.shape[0]}: kernel {row['ms']:.3f} ms "
                 f"(3 passes), plain {row['plain_ms']:.3f} ms, unfused block {row['unfused_ms']:.3f} ms, "
-                f"bound {row['bound_ms']:.3f} ms ({row['bound_by']}) ({card})")
+                f"bound {row['bound_ms']:.3f} ms ({row['bound_by']}){_shares(row, ceiling)} ({card})")
 
     speech = torch.from_numpy(_speech(5, 64, 10.0)).to(dev)
     serving = {}
@@ -565,13 +799,13 @@ def profile(dev) -> None:
         (OUT_DIR / f"profile_{path}.txt").write_text(table)
         log(f"[profile] {path}: wall {wall * 1e3:.1f} ms, device kernel time {busy:.1f} ms, idle share "
             f"{max(0.0, 1 - busy / (wall * 1e3)):.3f}, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
-            f"({card_line()})")
+            f"({card_line(CARD)})")
         log(table)
 
 
 def main() -> int:
     dev = check_device()
-    card = card_line()
+    card = card_line(CARD)
     build_phase()
     if "--profile" in sys.argv[1:]:
         profile(dev)
@@ -581,14 +815,17 @@ def main() -> int:
     rvq_err = rvq_kernel_phase(dev)
     seanet_errs = seanet_kernel_phase(dev, calls)
     counts, flips = serving_phase(config, s_bf, s_fp)
-    rvq_row, conv_rows, rb_rows, serving = timing_phase(dev, s_bf, s_fp, calls, card)
+    probe_rows, probe_launches, probe_plain, ceiling = probe_phase(dev, card)
+    cli_stats = cli_phase(dev, config, s_fp, card)
+    rvq_row, conv_rows, rb_rows, serving = timing_phase(dev, s_bf, s_fp, calls, card, ceiling)
     if "funcodec_tpu" in sys.modules or ("jax" in sys.modules and not _JAX_PRELOADED):
         raise RuntimeError("the port imported JAX or the JAX package")
 
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "timings.json").write_text(json.dumps(dict(
         card=card, rvq=rvq_row, conv=conv_rows, resblock=rb_rows, serving_seconds=serving,
-        flips=flips, launches=counts), indent=1))
+        flips=flips, launches=counts, probe=probe_rows, probe_launches=probe_launches,
+        copy_ceiling_bytes_per_s=ceiling, cli=cli_stats), indent=1))
     conv_main = _summed([r for r in conv_rows if r["main_path"]])
     conv_main["library_ms"] = sum(r["library_ms"] for r in conv_rows if r["main_path"])
     rb_main = _summed(rb_rows, n=2)  # the encoder's and the decoder's block at each width
@@ -606,6 +843,13 @@ def main() -> int:
              replaces="funcodec_tpu/ops/resblock_pallas.py:86", launches=counts["resblock_tgn"],
              max_abs_err=seanet_errs["resblock_tgn"], **rb_main),
     ]
+    for name, variant in (("scale_copy", "A tile=4000"), ("dma_copy", "D dma_copy")):
+        row = next(r for r in probe_rows if r["name"] == variant)  # bf16 at the probe shape
+        kernels.append(dict(
+            name=name, route="cuda", source="funcodec_tpu_torch/csrc/copy_probe.cu",
+            replaces=REPLACES[name], launches=probe_launches[name], max_abs_err=0.0, ms=row["ms"],
+            plain_ms=probe_plain[torch.bfloat16], bound_ms=row["bound_ms"], bound_by="bytes",
+            library_ms=row["library_ms"]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -35,7 +35,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # (restype, argtypes) of every extern "C" entry of csrc/*.cu; pointers and
 # the stream pass as c_void_p, so ctypes never cuts them to 32 bits.
 SIGNATURES = {
@@ -47,6 +47,9 @@ SIGNATURES = {
     "resblock_tgn_launch": (_I, [_I] + [_P] * 10 + [_I] * 9 + [_P]),
     "resblock_tgn_tile": (_I, [_I] * 3),
     "resblock_tgn_smem_bytes": (_I, [_I] * 5),
+    "scale_copy_launch": (_I, [_P, _P, _I, _L] + [_I] * 4 + [_P]),
+    "dma_copy_launch": (_I, [_P, _P, _L] + [_I] * 3 + [_P]),
+    "dma_copy_smem_bytes": (_I, [_I] * 2),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -19,6 +19,10 @@ from funcodec_tpu.ops.pad import conv_padding_total, split_padding
 from funcodec_tpu_torch.ops import conv as tconv
 from funcodec_tpu_torch.ops import conv_kernel
 
+# one torch thread per test process: the suite runs in several processes at once,
+# and the small CPU ops here gain nothing from more
+torch.set_num_threads(1)
+
 CASES = [
     # (T, K, dil, causal, pad_mode, C, tile, act): the cases of tests/test_conv_pallas.py
     *[(200, 3, 1, c, m, 128, 64, None) for c in (True, False) for m in ("reflect", "replicate", "constant")],

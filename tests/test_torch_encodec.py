@@ -28,6 +28,10 @@ from funcodec_tpu_torch.compat.from_jax import state_dict_from_jax
 from funcodec_tpu_torch.tasks.codec import build_codec_model as tbuild
 from funcodec_tpu_torch.tasks.codec import load_config
 
+# one torch thread per test process: the suite runs in several processes at once,
+# and the small CPU ops here gain nothing from more
+torch.set_num_threads(1)
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 FLAGSHIP_YAML = REPO / "egs/LibriTTS/codec/conf/encodec_16k_n32_600k_step.yaml"
 
@@ -278,11 +282,11 @@ def test_unported_options_raise(section, key, value):
 
 
 def test_port_never_imports_jax():
-    """A static scan: no module of funcodec_tpu_torch imports jax, flax or
-    the JAX package."""
+    """A static scan: no module of funcodec_tpu_torch, and not chip_smoke.py,
+    imports jax, flax or the JAX package."""
     banned = ("jax", "jaxlib", "flax", "optax", "funcodec_tpu")
     offenders = []
-    for path in sorted((REPO / "funcodec_tpu_torch").rglob("*.py")):
+    for path in sorted((REPO / "funcodec_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(path.read_text())):
             names = []
             if isinstance(node, ast.Import):

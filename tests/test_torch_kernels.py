@@ -191,3 +191,37 @@ def test_cuda_seanet_kernels_reject_bad_inputs(cuda):
     convs = _resblock_convs(32, 3, 1, False, cuda, seed=0)
     with torch.no_grad(), pytest.raises(ValueError, match="float32 or bfloat16"):
         resblock_kernel.fused_resblock_tgn(torch.zeros(1, 32, 64, device=cuda, dtype=torch.float16), *convs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", [(2, 40, 128), (3, 1001, 128), (5, 777, 64)], ids=["small", "ragged", "L64"])
+def test_cuda_copy_kernels_bit_exact(cuda, dtype, shape):
+    from funcodec_tpu_torch.ops import copy_kernel
+
+    x = torch.from_numpy(np.random.RandomState(0).randn(*shape).astype(np.float32)).to(cuda, dtype)
+    x.view(-1)[:4] = torch.tensor([3e38, -3e38, 1e-40, -0.0]).to(cuda, dtype)  # inf after doubling, subnormal
+    ref = copy_kernel.scale_reference(x)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    before = dict(copy_kernel.LAUNCHES)
+    outs = [copy_kernel.scale_copy(x, t, r) for t, r in ((8, 1), (100, 2), (4000, 1))]
+    outs += [copy_kernel.dma_copy(x, c) for c in (None, 16, 100)]
+    torch.cuda.synchronize()
+    assert copy_kernel.LAUNCHES == {"scale_copy": before["scale_copy"] + 3, "dma_copy": before["dma_copy"] + 3}
+    for out in outs:
+        assert torch.equal(out.view(bits), ref.view(bits))
+
+
+@pytest.mark.gpu
+def test_cuda_copy_kernels_reject_bad_inputs(cuda):
+    from funcodec_tpu_torch.ops import copy_kernel
+
+    x = torch.zeros(2, 8, 128, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        copy_kernel.scale_copy(torch.zeros(2049, device=cuda, dtype=torch.bfloat16)[1:].view(2, 8, 128), 4)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        copy_kernel.dma_copy(torch.zeros(4, 3, device=cuda))
+    with pytest.raises(ValueError, match="shared memory"):
+        copy_kernel.dma_copy(torch.zeros(4096, 128, device=cuda), chunk_rows=1024)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        copy_kernel.scale_copy(x.half(), 4)

@@ -22,6 +22,10 @@ from funcodec_tpu_torch.ops import conv as tconv
 from funcodec_tpu_torch.ops import pad as tpad
 from funcodec_tpu_torch.ops.rnn import SLSTM
 
+# one torch thread per test process: the suite runs in several processes at once,
+# and the small CPU ops here gain nothing from more
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 
 

@@ -20,6 +20,10 @@ from funcodec_tpu_torch.models.seanet import SEANetResnetBlock
 from funcodec_tpu_torch.ops import conv as tconv
 from funcodec_tpu_torch.ops import resblock_kernel
 
+# one torch thread per test process: the suite runs in several processes at once,
+# and the small CPU ops here gain nothing from more
+torch.set_num_threads(1)
+
 
 def _specs(C, K=3, dil=1, causal=False, pad_mode="reflect", norm="time_group_norm", H=None):
     H = H or C // 2

@@ -20,6 +20,10 @@ from funcodec_tpu.quant import rvq as jrvq
 from funcodec_tpu.quant.rvq_pallas import rvq_encode_pallas
 from funcodec_tpu_torch.quant import rvq_kernel
 
+# one torch thread per test process: the suite runs in several processes at once,
+# and the small CPU ops here gain nothing from more
+torch.set_num_threads(1)
+
 
 def _codebooks(n_q, bins, dim, seed):
     """kaiming-uniform codebooks as init_rvq_state draws them, from numpy."""

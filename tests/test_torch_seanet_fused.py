@@ -29,6 +29,10 @@ from funcodec_tpu_torch.quant import rvq_kernel
 from funcodec_tpu_torch.tasks.codec import build_codec_model as tbuild
 from test_torch_encodec import _config, _jit, _pair, _speech
 
+# one torch thread per test process: the suite runs in several processes at once,
+# and the small CPU ops here gain nothing from more
+torch.set_num_threads(1)
+
 
 def _fused_config():
     return _config(n_q=4, bins=64, dim=16, n_filters=64)  # resblocks at C = 64 and 128
