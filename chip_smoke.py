@@ -16,15 +16,19 @@ raise on failure:
    parallel (time, ptxas registers / shared memory / spills per kernel).
 3. kernel: each kernel against its plain torch version. RVQ encode at the
    flagship shapes (N = 32,000 tokens x 32 stages x 1024 bins x 128), a
-   ragged N and n_q = 16. The fused conv at every flagship layer it serves
+   ragged N, n_q = 16, bins = 1000, N = 1 and n_q = 1, each launched twice
+   (equal results). The fused conv at every flagship layer it serves
    (B = 64 x 10 s), a dilated causal replicate case, a ragged T and an fp32
    case. The fused resblock at the four flagship widths (B = 64 x 10 s), a
-   ragged T and an fp32 case. bf16 outputs are held to 2 bf16 ulps of the
-   output's largest value.
+   ragged T, an fp32 case, B = 16 and B = 1 (grids smaller than the card), a
+   T shorter than one tile and T = tile + 1, a capped grid, each launched
+   twice (equal results); the finalize kernel against finalize_affine. bf16
+   outputs are held to 2 bf16 ulps of the output's largest value.
 4. serving: B = 8 x 10 s requests on three bf16 paths, each with FUSED_RVQ:
    unfused SEANet; FUSED_STRIDE1; FUSED_STRIDE1 + FUSED_RESBLOCK (the main
    path of this slice). Every kernel's launch count is read around each
-   request against what the gates imply. Token flip rates between the
+   request against what the gates imply; the main path's first request
+   served twice gives identical tokens. Token flip rates between the
    paths and against the fp32-exact path; the fp32 path on the card
    against the same model on the CPU for a short clip.
 5. probe: the HBM copy probes (csrc/copy_probe.cu, ops/copy_kernel.py).
@@ -36,12 +40,14 @@ raise on failure:
 6. cli: the file-to-file entry point, cli/codec_inference.main, on a
    seeded corpus of 32 noise utterances of 1-12 s (16 kHz PCM16) under
    build/chip_smoke/cli/: bf16 on the main path at batch 16 and 16 kb/s
-   (32 quantizers) with exact launch counts, its first batch against a
-   direct Speech2Token.dispatch, decode from codecs.txt, the ark round
+   (32 quantizers) with exact launch counts, the same run again (equal
+   bytes), its first batch against a direct Speech2Token.dispatch, decode from codecs.txt, the ark round
    trip, two 24 kHz files through --file_sampling_rate, and fp32
    codecs.txt on the card against the CPU; end-to-end audio-s/s.
 7. timing: each kernel against its plain version (and cuDNN / the unfused
-   block) at each flagship shape, beside its bound, with each bytes-bound
+   block) at each flagship shape, beside its bound; resblock_tgn and
+   rvq_encode also against their first versions (the legacy device code, in
+   turns new, old, old, new), with each bytes-bound
    row's share of the published peak and of the measured copy ceiling; the
    B = 64 x 10 s serving rate of fp32-exact, bf16 + RVQ kernel,
    + FUSED_STRIDE1 and + both SEANet flags. The per-shape rows also go to
@@ -102,15 +108,16 @@ MAX_FLIP_ALL = 0.5
 PEAK_BF16, PEAK_FP32 = 989e12, 67e12  # PEAK_BYTES (3.35 TB/s) comes from tools/benchlib
 CARD = torch.device("cuda", 0)
 # kernel launches per request with the gates of ops/conv_kernel and ops/resblock_kernel:
-# 4 head convs + 8 resblock k3 convs; or the 4 head convs and 8 blocks x 3 passes
+# 4 head convs + 8 resblock k3 convs; or the 4 head convs and 8 blocks x (3 passes + 2 finalizes)
 EXPECT = {
-    "unfused": {"conv1d_s1": 0, "resblock_tgn": 0, "rvq_encode": 1},
-    "stride1": {"conv1d_s1": 12, "resblock_tgn": 0, "rvq_encode": 1},
-    "stride1+resblock": {"conv1d_s1": 4, "resblock_tgn": 24, "rvq_encode": 1},
+    "unfused": {"conv1d_s1": 0, "resblock_tgn": 0, "resblock_tgn_finalize": 0, "rvq_encode": 1},
+    "stride1": {"conv1d_s1": 12, "resblock_tgn": 0, "resblock_tgn_finalize": 0, "rvq_encode": 1},
+    "stride1+resblock": {"conv1d_s1": 4, "resblock_tgn": 24, "resblock_tgn_finalize": 16, "rvq_encode": 1},
 }
 FLAGS = {"unfused": (False, False), "stride1": (True, False), "stride1+resblock": (True, True)}
 MAIN_PATH = "stride1+resblock"
-COUNTERS = {"conv1d_s1": conv_kernel, "resblock_tgn": resblock_kernel, "rvq_encode": rvq_kernel}
+COUNTERS = {"conv1d_s1": (conv_kernel, "LAUNCHES"), "resblock_tgn": (resblock_kernel, "LAUNCHES"),
+            "resblock_tgn_finalize": (resblock_kernel, "FINALIZE_LAUNCHES"), "rvq_encode": (rvq_kernel, "LAUNCHES")}
 
 
 def log(*args) -> None:
@@ -135,13 +142,13 @@ def set_flags(path: str) -> None:
 
 
 def reset_counts() -> None:
-    for mod in COUNTERS.values():
-        mod.LAUNCHES = 0
+    for mod, attr in COUNTERS.values():
+        setattr(mod, attr, 0)
     copy_kernel.LAUNCHES.update(scale_copy=0, dma_copy=0)
 
 
 def read_counts() -> dict:
-    return {name: mod.LAUNCHES for name, mod in COUNTERS.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in COUNTERS.items()}
 
 
 def build_phase() -> None:
@@ -153,11 +160,17 @@ def build_phase() -> None:
     for line in str(rep["ptxas"]).splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             log(f"[build] ptxas: {line.strip()}")
-    log(f"[build] dynamic shared memory per block: rvq_encode {lib.rvq_encode_smem_bytes()} B; "
+    log(f"[build] dynamic shared memory per block: rvq_encode {lib.rvq_encode_smem_bytes(0)} B "
+        f"(384 threads, 1 block an SM; legacy {lib.rvq_encode_smem_bytes(1)} B); "
         + ", ".join(f"conv1d_s1 {ci}->{co} k{k} bf16 {lib.conv1d_s1_smem_bytes(ci, co, k, 1, 1)} B"
-                    for ci, co, k in ((1, 32, 7), (512, 128, 7), (32, 16, 3)))
-        + "; " + ", ".join(f"resblock_tgn C={c} bf16 {lib.resblock_tgn_smem_bytes(c, c // 2, 3, 1, 1)} B "
-                           f"(tile {lib.resblock_tgn_tile(c, c // 2, 1)})" for c in (32, 64, 128, 256)))
+                    for ci, co, k in ((1, 32, 7), (512, 128, 7), (32, 16, 3))))
+    kinds = {0: "legacy", 1: "persistent, resident weights", 2: "persistent, streamed weights"}
+    for c in (32, 64, 128, 256):
+        geo = (c, c // 2, 3, 1, 1, 1)  # C, H, K, dilation, left, bf16
+        log(f"[build] resblock_tgn C={c} bf16: {kinds[lib.resblock_tgn_kind(*geo, 0)]}, tile {lib.resblock_tgn_tile(*geo, 0)}, "
+            f"{lib.resblock_tgn_smem_bytes(*geo, 0)} B shared memory, blocks an SM per pass "
+            f"{[lib.resblock_tgn_blocks_per_sm(m, *geo, 0) for m in range(3)]}; legacy tile "
+            f"{lib.resblock_tgn_tile(*geo, 1)}, {lib.resblock_tgn_smem_bytes(*geo, 1)} B")
 
 
 # ---------------------------------------------------------------------------
@@ -183,15 +196,23 @@ def rvq_kernel_phase(dev) -> float:
     """The kernel against rvq_encode_reference; returns the largest
     |quant difference| over rows whose tokens all agree."""
     gen = torch.Generator(device=dev).manual_seed(1)
-    embed = _codebooks(gen, dev)
+    full = _codebooks(gen, dev)
     worst = 0.0
-    for name, (B, T), n_q in (("flagship", (64, 500), 32), ("ragged", (1, 137), 32), ("nq16", (64, 500), 16)):
+    for name, (B, T), n_q, bins in (("flagship", (64, 500), 32, 1024), ("ragged", (1, 137), 32, 1024),
+                                    ("nq16", (64, 500), 16, 1024), ("bins1000", (4, 500), 32, 1000),
+                                    ("one token", (1, 1), 32, 1024), ("nq1", (64, 500), 1, 1024)):
+        embed = full if bins == 1024 else full[:, :bins].contiguous()
         x = torch.randn(B, T, 128, device=dev, generator=gen) * 0.1
         k_idx, k_quant = rvq_kernel.rvq_encode_fused(x, embed, n_q)
+        again = rvq_kernel.rvq_encode_fused(x, embed, n_q)
         torch.cuda.synchronize()
+        if not (torch.equal(k_idx, again[0]) and torch.equal(k_quant, again[1])):
+            raise RuntimeError(f"rvq_encode {name}: two launches on the same input differ")
+        if int(k_idx.min()) < 0 or int(k_idx.max()) >= bins:
+            raise RuntimeError(f"rvq_encode {name}: an index outside [0, {bins})")
         r_idx, r_quant = rvq_kernel.rvq_encode_reference(x, embed, n_q)
         q0, all_, rows, err = _compare(k_idx, k_quant, r_idx, r_quant)
-        log(f"[kernel] rvq_encode {name}: N={B * T} n_q={n_q} agree q0={q0:.6f} all={all_:.6f} "
+        log(f"[kernel] rvq_encode {name}: N={B * T} n_q={n_q} bins={bins} agree q0={q0:.6f} all={all_:.6f} "
             f"rows={rows:.6f} max|dquant| on agreeing rows={err:.3e}")
         if q0 < MIN_AGREE_Q0 or all_ < MIN_AGREE_ALL or err > MAX_QUANT_ERR:
             raise RuntimeError(f"kernel disagrees with its plain version ({name})")
@@ -263,15 +284,19 @@ class ConvLayer:
 class ResblockCall:
     """One residual block at its main-path shape (B, C, T)."""
 
-    def __init__(self, name, block, B, T, dtype, dev, seed):
-        self.name, self.block = name, block
+    def __init__(self, name, block, B, T, dtype, dev, seed, **kwargs):
+        self.name, self.block, self.kwargs = name, block, kwargs
         self.convs = (block.block[1], block.block[3], block.shortcut)
         C = self.convs[0].spec.in_channels
         gen = torch.Generator(device=dev).manual_seed(seed)
         self.x = torch.randn(B, C, T, device=dev, generator=gen).to(dtype)
 
     def kernel(self):
-        return resblock_kernel.fused_resblock_tgn(self.x, *self.convs)
+        return resblock_kernel.fused_resblock_tgn(self.x, *self.convs, **self.kwargs)
+
+    def legacy(self):
+        """The first version of the device code (one block per tile and sample)."""
+        return resblock_kernel.fused_resblock_tgn(self.x, *self.convs, variant="legacy")
 
     def plain(self):
         return resblock_kernel.fused_resblock_tgn_reference(self.x, *self.convs)
@@ -354,14 +379,66 @@ def seanet_kernel_phase(dev, calls):
                          64, 80_003, torch.bfloat16, dev, 51),
             ResblockCall("fp32 C=128 T=20000", _extra_block(128, 1, False, "reflect", torch.float32, dev, 52),
                          8, 20_000, torch.float32, dev, 53),
+            # grids smaller than the card, tiles shorter than one and one step longer, a capped grid
+            ResblockCall("B=16 C=32 T=16000", resblocks[0].block, 16, 16_000, torch.bfloat16, dev, 54),
+            ResblockCall("B=1 C=64 T=8000", resblocks[1].block, 1, 8_000, torch.bfloat16, dev, 55),
+            ResblockCall("B=1 C=256 T=400", resblocks[3].block, 1, 400, torch.bfloat16, dev, 56),
+            ResblockCall("short C=32 T=100", resblocks[0].block, 2, 100, torch.bfloat16, dev, 57),
+            ResblockCall("tile+1 C=32 T=257", resblocks[0].block, 2, 257, torch.bfloat16, dev, 58),
+            ResblockCall("tile+1 C=128 T=129", resblocks[2].block, 2, 129, torch.bfloat16, dev, 59),
+            ResblockCall("tile+1 C=256 T=65", resblocks[3].block, 2, 65, torch.bfloat16, dev, 60),
+            ResblockCall("3 blocks C=64 T=4096", resblocks[1].block, 3, 4096, torch.bfloat16, dev, 61, max_blocks=3),
+            ResblockCall("dilated causal C=256 T=1003",
+                         _extra_block(256, 3, True, "replicate", torch.bfloat16, dev, 62), 2, 1003, torch.bfloat16, dev, 63),
+            ResblockCall("legacy C=32 T=2000", resblocks[0].block, 2, 2000, torch.bfloat16, dev, 64, variant="legacy"),
         ]
         for call in resblocks + extra_blocks:
             out = call.kernel()
+            again = call.kernel()
             torch.cuda.synchronize()
+            if not torch.equal(out, again):
+                raise RuntimeError(f"resblock_tgn {call.name}: two launches on the same input differ")
+            del again
             err = _held("resblock_tgn", call.name, out, call.plain())
             if call.x.dtype == torch.bfloat16:
                 errs["resblock_tgn"] = max(errs["resblock_tgn"], err)
+        errs["resblock_tgn_finalize"] = finalize_kernel_phase(dev, resblocks[0])
     return errs
+
+
+def _finalize_case(dev, call):
+    """Seeded partials of one pass at the call's shape, and the affine tensor."""
+    B, C, T = call.x.shape
+    lib = build.load()
+    n_t = -(-T // lib.resblock_tgn_tile(C, C // 2, 3, 1, 1, 1, 0))
+    gen = torch.Generator(device=dev).manual_seed(70)
+    part = torch.rand(B, n_t, 4, device=dev, generator=gen, dtype=torch.float64) * 1e4
+    part[:, :, 1::2] += part[:, :, 0::2] ** 2 / (C // 2 * 256)  # sumsq above sum^2 / n
+    w = resblock_kernel.packed_weights(*call.convs, call.x.dtype)
+    return part, torch.zeros(B, 6, C, device=dev), T, [(w["g1"], w["be1"], 0), (w["gs"], w["bes"], 4)]
+
+
+def _finalize_plain(part, aff, T, pairs):
+    tot = part.sum(dim=1)
+    for p, (gamma, beta, slot) in enumerate(pairs):
+        n = gamma.shape[0]
+        aff[:, slot, :n], aff[:, slot + 1, :n] = resblock_kernel.finalize_affine(
+            tot[:, 2 * p], tot[:, 2 * p + 1], T * n, gamma, beta)
+    return aff
+
+
+def finalize_kernel_phase(dev, call) -> float:
+    """The finalize kernel against finalize_affine on seeded partials."""
+    part, aff, T, pairs = _finalize_case(dev, call)
+    resblock_kernel.launch_resblock_finalize(part, aff, T, pairs)
+    torch.cuda.synchronize()
+    ref = _finalize_plain(part, torch.zeros_like(aff), T, pairs)
+    err = float((aff - ref).abs().max())
+    rel = float(((aff - ref).abs() / ref.abs().clamp_min(1e-30)).max())
+    log(f"[kernel] resblock_tgn_finalize {tuple(part.shape)}: max|err| {err:.3e}, relative {rel:.3e} (limit 2e-7)")
+    if not torch.isfinite(aff).all() or rel > 2e-7:  # fp64 sums in another order, then one fp32 rounding
+        raise RuntimeError("resblock_tgn_finalize disagrees with finalize_affine")
+    return err
 
 
 # ---------------------------------------------------------------------------
@@ -434,6 +511,10 @@ def serving_phase(config, s_bf, s_fp):
         tokens[path] = outs[0][0][0]
         if path == MAIN_PATH:
             main_counts = counts
+            again = s_bf(requests[0], bit_width=None)
+            if not (np.array_equal(again[0][0], outs[0][0][0]) and np.array_equal(again[2], outs[0][2])):
+                raise RuntimeError("the main path served the same request twice with different results")
+            log(f"[serve] {path}: the first request served again gives identical tokens and reconstruction")
 
     conv_ops.FUSED_STRIDE1 = conv_ops.FUSED_RESBLOCK = rvq.FUSED_RVQ = False
     codes_fp, _, recon_fp, _ = s_fp(requests[0], bit_width=None)
@@ -535,7 +616,7 @@ REPLACES = {
 CLI_DIR = OUT_DIR / "cli"
 CLI_BATCH, CLI_BIT_WIDTH = 16, 16_000  # 32 quantizers
 CLI_UTTS, CLI_SECONDS = 32, (1.0, 12.0)  # the corpus: utterances of uniformly drawn length
-DECODE_PER_BATCH = {"conv1d_s1": 2, "resblock_tgn": 12, "rvq_encode": 0}  # the decoder's half of EXPECT
+DECODE_PER_BATCH = {"conv1d_s1": 2, "resblock_tgn": 12, "resblock_tgn_finalize": 8, "rvq_encode": 0}  # the decoder's half of EXPECT
 MIN_FP32_AGREE = 0.999
 
 
@@ -615,6 +696,12 @@ def cli_phase(dev, config, s_fp, card: str):
         f"in {wall:.3f} s = {corpus_s / wall:.1f} audio-s/s end to end (model build, reads and writes included); "
         f"launches {counts} = {n_batches} batches x {EXPECT[MAIN_PATH]} ({card})")
 
+    # the same run again in the warm process: the same bytes, and the spread of the host's wall time
+    wall_again = _run_cli(CLI_DIR / "infer_again", scp, *bf16)
+    if (CLI_DIR / "infer_again" / "codecs.txt").read_bytes() != (CLI_DIR / "infer" / "codecs.txt").read_bytes():
+        raise RuntimeError("cli inference: a second run on the same corpus wrote other tokens")
+    log(f"[cli] the same run again: {corpus_s / wall_again:.1f} audio-s/s ({wall_again:.3f} s), codecs.txt byte-equal")
+
     # its first batch against a direct dispatch of the same padded batch
     s2t = Speech2Token(str(CLI_DIR / "config.yaml"), str(CLI_DIR / "model.pth"), "bfloat16", SR, CLI_BIT_WIDTH,
                        device=dev)
@@ -679,7 +766,8 @@ def cli_phase(dev, config, s_fp, card: str):
     log(f"[cli] fp32 codecs.txt card vs CPU: token agreement {agree:.6f}, byte-equal {same}")
     if agree < MIN_FP32_AGREE:
         raise RuntimeError(f"cli fp32: the card's tokens agree with the CPU's on {agree:.4f} < {MIN_FP32_AGREE}")
-    return dict(corpus_s=corpus_s, wall_s=wall, audio_s_per_s=corpus_s / wall, second_wall_s=wall_ark,
+    return dict(corpus_s=corpus_s, wall_s=wall, audio_s_per_s=corpus_s / wall, again_wall_s=wall_again,
+                second_wall_s=wall_ark,
                 second_audio_s_per_s=corpus_s / wall_ark, batches=n_batches, launches=counts,
                 decode_wall_s=walls, fp32_agree=agree, fp32_byte_equal=same)
 
@@ -699,6 +787,16 @@ def _cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _ab_ms(new, old, iters: int):
+    """(new ms, old ms, the four readings): new, old, old, new in turns; each the mean of the two."""
+    t = [_cuda_ms(fn, iters) for fn in (new, old, old, new)]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
+
+
+def _ab_text(ab) -> str:
+    return " / ".join(f"{v:.3f}" for v in ab[2])
 
 
 def _serve_seconds(s2t, x) -> float:
@@ -724,12 +822,15 @@ def timing_phase(dev, s_bf, s_fp, calls, card: str, ceiling: float):
     embed = _codebooks(gen, dev)
     x = torch.randn(64, 500, 128, device=dev, generator=gen) * 0.1
     rvq_plain = _cuda_ms(lambda: rvq_kernel.rvq_encode_reference(x, embed, 32), 5)
-    rvq_ms = _cuda_ms(lambda: rvq_kernel.rvq_encode_fused(x, embed, 32), 5)
+    rvq_ab = _ab_ms(lambda: rvq_kernel.rvq_encode_fused(x, embed, 32),
+                    lambda: rvq_kernel.rvq_encode_fused(x, embed, 32, variant="legacy"), 10)
+    rvq_ms = rvq_ab[0]
     N, n_q, bins, D = 32_000, 32, 1024, 128
     rvq_bound = _bound(N * D * 2 + n_q * bins * (D * 2 + 4) + n_q * N * 4 + N * D * 4,
                        2.0 * N * n_q * bins * D, PEAK_BF16)
-    rvq_row = _row("rvq_encode N=32000 n_q=32", rvq_ms, rvq_plain, rvq_bound, library_ms=None)
-    log(f"[time] rvq_encode N=32000 n_q=32: kernel {rvq_ms:.3f} ms, plain torch {rvq_plain:.3f} ms, "
+    rvq_row = _row("rvq_encode N=32000 n_q=32", rvq_ms, rvq_plain, rvq_bound, library_ms=None, legacy_ms=rvq_ab[1])
+    log(f"[time] rvq_encode N=32000 n_q=32: kernel {rvq_ms:.3f} ms (wgmma; new, old, old, new: "
+        f"{_ab_text(rvq_ab)}), the first, CUDA-core version {rvq_ab[1]:.3f} ms, plain torch {rvq_plain:.3f} ms, "
         f"bound {rvq_bound[0]:.3f} ms ({rvq_bound[1]}) ({card})")
 
     heads, rb_convs, resblocks = calls
@@ -744,12 +845,23 @@ def timing_phase(dev, s_bf, s_fp, calls, card: str, ceiling: float):
                 f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, cuDNN {row['library_ms']:.3f} ms, "
                 f"bound {row['bound_ms']:.3f} ms ({row['bound_by']}){_shares(row, ceiling)} ({card})")
         for call in resblocks:
-            row = _row(call.name, _cuda_ms(call.kernel, 5), _cuda_ms(call.plain, 3), call.bound_ms(),
-                       library_ms=None, unfused_ms=_cuda_ms(call.unfused, 5))
+            ab = _ab_ms(call.kernel, call.legacy, 5)
+            row = _row(call.name, ab[0], _cuda_ms(call.plain, 3), call.bound_ms(),
+                       library_ms=None, unfused_ms=_cuda_ms(call.unfused, 5), legacy_ms=ab[1])
             rb_rows.append(row)
             log(f"[time] resblock_tgn {call.name} B={call.x.shape[0]}: kernel {row['ms']:.3f} ms "
-                f"(3 passes), plain {row['plain_ms']:.3f} ms, unfused block {row['unfused_ms']:.3f} ms, "
+                f"(3 passes + 2 finalizes; new, old, old, new: {_ab_text(ab)}), the first version "
+                f"{row['legacy_ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, unfused block {row['unfused_ms']:.3f} ms, "
                 f"bound {row['bound_ms']:.3f} ms ({row['bound_by']}){_shares(row, ceiling)} ({card})")
+
+        part, aff, T, pairs = _finalize_case(dev, resblocks[0])
+        fin_row = _row(f"resblock_tgn_finalize {tuple(part.shape)}, 2 affines",
+                       _cuda_ms(lambda: resblock_kernel.launch_resblock_finalize(part, aff, T, pairs), 20),
+                       _cuda_ms(lambda: _finalize_plain(part, aff, T, pairs), 5),
+                       _bound(part.numel() * 8 + 4 * aff.shape[0] * 48 * 4, 4.0 * part.numel(), PEAK_FP32),
+                       library_ms=None)
+        log(f"[time] {fin_row['name']}: kernel {fin_row['ms']:.4f} ms, plain {fin_row['plain_ms']:.4f} ms, "
+            f"bound {fin_row['bound_ms']:.5f} ms ({fin_row['bound_by']}) ({card})")
 
     speech = torch.from_numpy(_speech(5, 64, 10.0)).to(dev)
     serving = {}
@@ -763,7 +875,7 @@ def timing_phase(dev, s_bf, s_fp, calls, card: str, ceiling: float):
     for label, t in serving.items():
         log(f"[time] serving B=64 x 10 s encode+decode {label}: {640 / t:.1f} audio-s/s "
             f"({t * 1e3:.1f} ms) ({card})")
-    return rvq_row, conv_rows, rb_rows, serving
+    return rvq_row, conv_rows, rb_rows, fin_row, serving
 
 
 def _summed(rows, n=1):
@@ -773,6 +885,14 @@ def _summed(rows, n=1):
     by = {b: sum(r["bound_ms"] for r in rows if r["bound_by"] == b) for b in ("bytes", "operations")}
     out["bound_by"] = max(by, key=by.get)
     return out
+
+
+PROFILE_FAMILIES = {
+    "resblock_tgn": ("resblock_tgn_persistent", "resblock_tgn_streamed", "resblock_tgn_kernel"),
+    "resblock_tgn_finalize": ("resblock_tgn_finalize",),
+    "rvq_encode": ("rvq_encode",),
+    "conv1d_s1": ("conv1d_s1",),
+}
 
 
 def profile(dev) -> None:
@@ -795,7 +915,13 @@ def profile(dev) -> None:
             wall = time.perf_counter() - t0
         busy = sum(e.self_device_time_total for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-        table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=30)
+        averages = prof.key_averages()
+        table = averages.table(sort_by="self_device_time_total", row_limit=30)
+        for family, names in PROFILE_FAMILIES.items():  # one kernel's template instances, summed
+            rows = [e for e in averages if any(n in e.key for n in names)]
+            if rows:
+                log(f"[profile] {path}: {family}: {sum(e.self_device_time_total for e in rows) / 1e3:.2f} ms "
+                    f"in {sum(e.count for e in rows)} launches")
         (OUT_DIR / f"profile_{path}.txt").write_text(table)
         log(f"[profile] {path}: wall {wall * 1e3:.1f} ms, device kernel time {busy:.1f} ms, idle share "
             f"{max(0.0, 1 - busy / (wall * 1e3)):.3f}, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
@@ -817,13 +943,13 @@ def main() -> int:
     counts, flips = serving_phase(config, s_bf, s_fp)
     probe_rows, probe_launches, probe_plain, ceiling = probe_phase(dev, card)
     cli_stats = cli_phase(dev, config, s_fp, card)
-    rvq_row, conv_rows, rb_rows, serving = timing_phase(dev, s_bf, s_fp, calls, card, ceiling)
+    rvq_row, conv_rows, rb_rows, fin_row, serving = timing_phase(dev, s_bf, s_fp, calls, card, ceiling)
     if "funcodec_tpu" in sys.modules or ("jax" in sys.modules and not _JAX_PRELOADED):
         raise RuntimeError("the port imported JAX or the JAX package")
 
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "timings.json").write_text(json.dumps(dict(
-        card=card, rvq=rvq_row, conv=conv_rows, resblock=rb_rows, serving_seconds=serving,
+        card=card, rvq=rvq_row, conv=conv_rows, resblock=rb_rows, resblock_finalize=fin_row, serving_seconds=serving,
         flips=flips, launches=counts, probe=probe_rows, probe_launches=probe_launches,
         copy_ceiling_bytes_per_s=ceiling, cli=cli_stats), indent=1))
     conv_main = _summed([r for r in conv_rows if r["main_path"]])
@@ -831,17 +957,24 @@ def main() -> int:
     rb_main = _summed(rb_rows, n=2)  # the encoder's and the decoder's block at each width
     rb_main["library_ms"] = None
     rb_main["unfused_ms"] = 2 * sum(r["unfused_ms"] for r in rb_rows)
+    rb_main["legacy_ms"] = 2 * sum(r["legacy_ms"] for r in rb_rows)
     kernels = [
         dict(name="rvq_encode", route="cuda", source="funcodec_tpu_torch/csrc/rvq_encode.cu",
              replaces="funcodec_tpu/quant/rvq_pallas.py:29", launches=counts["rvq_encode"],
              max_abs_err=rvq_err, ms=rvq_row["ms"], plain_ms=rvq_row["plain_ms"],
-             bound_ms=rvq_row["bound_ms"], bound_by=rvq_row["bound_by"], library_ms=None),
+             bound_ms=rvq_row["bound_ms"], bound_by=rvq_row["bound_by"], library_ms=None,
+             legacy_ms=rvq_row["legacy_ms"]),
         dict(name="conv1d_s1", route="cuda", source="funcodec_tpu_torch/csrc/conv1d_s1.cu",
              replaces="funcodec_tpu/ops/conv_pallas.py:59", launches=counts["conv1d_s1"],
              max_abs_err=seanet_errs["conv1d_s1"], **conv_main),
         dict(name="resblock_tgn", route="cuda", source="funcodec_tpu_torch/csrc/resblock_tgn.cu",
              replaces="funcodec_tpu/ops/resblock_pallas.py:86", launches=counts["resblock_tgn"],
              max_abs_err=seanet_errs["resblock_tgn"], **rb_main),
+        # the affines between the passes: plain JAX beside the TPU kernel, a kernel of its own here
+        dict(name="resblock_tgn_finalize", route="cuda", source="funcodec_tpu_torch/csrc/resblock_tgn.cu",
+             replaces="funcodec_tpu/ops/resblock_pallas.py:232", launches=counts["resblock_tgn_finalize"],
+             max_abs_err=seanet_errs["resblock_tgn_finalize"],
+             **{k: fin_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
     ]
     for name, variant in (("scale_copy", "A tile=4000"), ("dma_copy", "D dma_copy")):
         row = next(r for r in probe_rows if r["name"] == variant)  # bf16 at the probe shape

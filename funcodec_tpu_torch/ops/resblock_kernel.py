@@ -4,11 +4,16 @@ Counterpart of funcodec_tpu/ops/resblock_pallas.py. One SEANet residual
 block, ``tgn2(conv2_1x1(ELU(tgn1(conv1_kd(ELU(x)))))) + tgn3(shortcut_1x1(x))``
 on torch's (B, C, T) layout, runs as three launches of csrc/resblock_tgn.cu
 that each recompute the convs from x: A (statistics of conv1 and the
-shortcut), B (statistics of conv2), C (the output). Between launches
-``finalize_affine`` turns the per-tile (sum, sumsq) partials into per-sample,
-per-channel affines, in plain torch on the tiny (B, n_tiles, 4) tensor, so
-each normalisation in the kernel is one multiply-add. No intermediate
-(B, C, T) tensor is written.
+shortcut), B (statistics of conv2), C (the output). Between them a small
+kernel of the same source (``launch_resblock_finalize``) turns the per-tile
+fp64 (sum, sumsq) partials into per-sample, per-channel affines, so each
+normalisation in the kernel is one multiply-add and the host launches five
+kernels a block and computes nothing. No intermediate (B, C, T) tensor is
+written. For bf16 blocks of the flagship's widths the passes are persistent
+kernels (a grid of SMs x resident blocks walking (sample, tile) work items
+in the order of ``work_items``); other widths and fp32 run the first,
+one-tile-per-block kernel. The weights reach the kernel as
+``packed_weights`` lays them out, cached on the block's first conv.
 
 ``fused_resblock_tgn_reference`` repeats the kernel's arithmetic in plain
 torch, with its rounding points (resblock_pallas.py:116-160): b rounded to
@@ -34,7 +39,7 @@ requires grad, with grad enabled, raises (training is slice B).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,11 +48,15 @@ from funcodec_tpu_torch.kernels import build
 from funcodec_tpu_torch.ops.conv_kernel import DTYPES, PAD_MODES, apply_act, check_no_grad
 from funcodec_tpu_torch.ops.pad import conv_padding_total, pad1d_time, split_padding
 
-# Kernel launches since the last reset (three per block); a run sets it to 0
+# Launches of a pass since the last reset (three per block); a run sets it to 0
 # and reads it back to show that its main path went through the kernel.
 LAUNCHES = 0
+# Launches of the finalize kernel between the passes (two per block).
+FINALIZE_LAUNCHES = 0
 
 MAX_C = 256
+# the device code a call may ask for (csrc/resblock_tgn.cu resblock_tgn_launch)
+VARIANTS = {"auto": 0, "legacy": 1}
 EPS = 1e-5
 
 
@@ -97,7 +106,75 @@ def _plan(x: torch.Tensor, conv1, conv2, shortcut) -> Optional[Tuple[int, int, i
 
 
 def _bias(b: Optional[torch.Tensor], n: int, like: torch.Tensor) -> torch.Tensor:
-    return torch.zeros(n, device=like.device) if b is None else b.float().contiguous()
+    return torch.zeros(n, device=like.device) if b is None else b.detach().float().contiguous()
+
+
+def work_items(block: int, n_blocks: int, B: int, n_t: int) -> List[Tuple[int, int]]:
+    """The (sample, tile) work items block `block` of a persistent grid of
+    n_blocks takes, in its order: items block, block + n_blocks, ... of the
+    B * n_t items numbered sample * n_t + tile (csrc/resblock_tgn.cu)."""
+    return [divmod(item, n_t) for item in range(block, B * n_t, n_blocks)]
+
+
+def _param_key(p: Optional[torch.Tensor]):
+    if p is None:
+        return None
+    # an inference tensor has no version counter and cannot be updated in place
+    return (p.data_ptr(), 0 if p.is_inference() else p._version, p.dtype, p.device)
+
+
+def packed_weights(conv1, conv2, shortcut, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """The block's parameters as the kernel reads them: w1 (H, K, C), w2
+    (C, H), ws (C, C) in `dtype`; biases b1, b2, bs and the tgn scales and
+    shifts g1, be1, g2, be2, gs, bes in fp32; all contiguous. Cached on conv1
+    and rebuilt when any parameter's storage or version changes
+    (load_state_dict, .to(dtype), an in-place update)."""
+    w1, b1, g1, be1 = conv1.params()
+    w2, b2, g2, be2 = conv2.params()
+    ws, bs, gs, bes = shortcut.params()
+    params = (w1, b1, g1, be1, w2, b2, g2, be2, ws, bs, gs, bes)
+    key = (dtype, tuple(_param_key(p) for p in params))
+    cached = getattr(conv1, "_resblock_pack", None)
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    H, C = w1.shape[0], w1.shape[1]
+    with torch.no_grad():
+        pack = dict(
+            w1=w1.detach().to(dtype).permute(0, 2, 1).contiguous(),  # (H, K, C)
+            b1=_bias(b1, H, w1),
+            w2=w2.detach().to(dtype)[:, :, 0].contiguous(),  # (C, H)
+            b2=_bias(b2, C, w1),
+            ws=ws.detach().to(dtype)[:, :, 0].contiguous(),  # (C, C)
+            bs=_bias(bs, C, w1),
+            g1=g1.detach().float().contiguous(), be1=be1.detach().float().contiguous(),
+            g2=g2.detach().float().contiguous(), be2=be2.detach().float().contiguous(),
+            gs=gs.detach().float().contiguous(), bes=bes.detach().float().contiguous(),
+        )
+    conv1._resblock_pack = (key, pack)
+    return pack
+
+
+FINALIZE_THREADS = 128  # csrc/resblock_tgn.cu FIN_THREADS
+
+
+def finalize_mirror(
+    part: torch.Tensor, pair: int, T: int, gamma: torch.Tensor, beta: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain-torch mirror of the device finalize: columns 2*pair, 2*pair + 1
+    of part (B, n_t, 4) fp64 added up in the kernel's order (thread i takes
+    tiles i, i + 128, ... in rising order, then a halving tree over the
+    threads), then finalize_affine. -> fp32 (A, D), each (B, n_ch)."""
+    B, n_t, _ = part.shape
+    cols = part[:, :, 2 * pair: 2 * pair + 2].double()
+    lanes = torch.zeros(B, FINALIZE_THREADS, 2, dtype=torch.float64, device=part.device)
+    for t0 in range(0, n_t, FINALIZE_THREADS):  # rising tile order within a thread
+        chunk = cols[:, t0: t0 + FINALIZE_THREADS]
+        lanes[:, : chunk.shape[1]] += chunk
+    off = FINALIZE_THREADS // 2
+    while off > 0:
+        lanes = lanes[:, :off] + lanes[:, off: 2 * off]
+        off //= 2
+    return finalize_affine(lanes[:, 0, 0], lanes[:, 0, 1], T * gamma.shape[0], gamma, beta)
 
 
 def fused_resblock_tgn_reference(x: torch.Tensor, conv1, conv2, shortcut) -> torch.Tensor:
@@ -135,55 +212,61 @@ def fused_resblock_tgn_reference(x: torch.Tensor, conv1, conv2, shortcut) -> tor
     return cn + sn
 
 
-def fused_resblock_tgn(x: torch.Tensor, conv1, conv2, shortcut) -> Optional[torch.Tensor]:
+def fused_resblock_tgn(
+    x: torch.Tensor, conv1, conv2, shortcut, *, variant: str = "auto", max_blocks: int = 0
+) -> Optional[torch.Tensor]:
     """One fused residual block; conv1 (K, d), conv2 (1x1) and shortcut (1x1)
     are the block's SConv1d modules. x (B, C, T) -> (B, C, T), or None when
-    the block does not qualify."""
+    the block does not qualify. ``variant`` picks the device code ("auto":
+    a persistent kernel where one applies; "legacy": the one-tile-per-block
+    kernel) and ``max_blocks`` > 0 caps a persistent grid; both exist for
+    timing and tests and change no result beyond the tile sums' grouping."""
     plan = _plan(x, conv1, conv2, shortcut)
     if plan is None:
         return None
     K, d, left, _ = plan
-    w1, b1, g1, be1 = conv1.params()
-    w2, b2, g2, be2 = conv2.params()
-    ws, bs, gs, bes = shortcut.params()
-    check_no_grad("fused_resblock_tgn", x, w1, b1, g1, be1, w2, b2, g2, be2, ws, bs, gs, bes)
+    check_no_grad("fused_resblock_tgn", x, *conv1.params(), *conv2.params(), *shortcut.params())
     if x.device.type == "cpu":
         return fused_resblock_tgn_reference(x, conv1, conv2, shortcut)
     if x.device.type != "cuda":
         raise ValueError(f"fused_resblock_tgn: unsupported device {x.device}")
     if x.dtype not in DTYPES:
         raise ValueError(f"fused_resblock_tgn: x is {x.dtype}; the kernel takes float32 or bfloat16")
-    dt = x.dtype
+    if variant not in VARIANTS:
+        raise ValueError(f"fused_resblock_tgn: variant {variant!r} is not one of {sorted(VARIANTS)}")
+    if max_blocks < 0:
+        raise ValueError(f"fused_resblock_tgn: max_blocks={max_blocks} is negative")
     B, C, T = x.shape
-    H = w1.shape[0]
     xc = x.contiguous()
-    args = dict(
-        x=xc,
-        w1=w1.to(dt).permute(0, 2, 1).contiguous(),  # (H, K, C)
-        b1=_bias(b1, H, x),
-        w2=w2.to(dt)[:, :, 0].contiguous(),  # (C, H)
-        b2=_bias(b2, C, x),
-        ws=ws.to(dt)[:, :, 0].contiguous(),  # (C, C)
-        bs=_bias(bs, C, x),
-    )
-    tile = build.load().resblock_tgn_tile(C, H, DTYPES[dt])
+    w = packed_weights(conv1, conv2, shortcut, x.dtype)
+    H = w["w1"].shape[0]
+    geometry = (K, d, left, PAD_MODES[conv1.spec.pad_mode])
+    tile = build.load().resblock_tgn_tile(C, H, K, d, left, DTYPES[x.dtype], VARIANTS[variant])
     part = torch.empty((B, -(-T // tile), 4), dtype=torch.float64, device=x.device)
     aff = torch.zeros((B, 6, C), dtype=torch.float32, device=x.device)
     y = torch.empty_like(xc)
-    geometry = (K, d, left, PAD_MODES[conv1.spec.pad_mode])
+    args = dict(x=xc, aff=aff, part=part, y=y, geometry=geometry, variant=variant, max_blocks=max_blocks,
+                **{k: w[k] for k in ("w1", "b1", "w2", "b2", "ws", "bs")})
 
-    launch_resblock_tgn(0, aff=aff, part=part, y=y, geometry=geometry, **args)
-    tot = part.sum(dim=1)
-    aff[:, 0, :H], aff[:, 1, :H] = finalize_affine(tot[:, 0], tot[:, 1], T * H, g1, be1)
-    aff[:, 4], aff[:, 5] = finalize_affine(tot[:, 2], tot[:, 3], T * C, gs, bes)
-    launch_resblock_tgn(1, aff=aff, part=part, y=y, geometry=geometry, **args)
-    tot = part.sum(dim=1)
-    aff[:, 2], aff[:, 3] = finalize_affine(tot[:, 0], tot[:, 1], T * C, g2, be2)
-    launch_resblock_tgn(2, aff=aff, part=part, y=y, geometry=geometry, **args)
+    launch_resblock_tgn(0, **args)
+    launch_resblock_finalize(part, aff, T, [(w["g1"], w["be1"], 0), (w["gs"], w["bes"], 4)])
+    launch_resblock_tgn(1, **args)
+    launch_resblock_finalize(part, aff, T, [(w["g2"], w["be2"], 2)])
+    launch_resblock_tgn(2, **args)
     return y
 
 
-def launch_resblock_tgn(mode: int, *, x, w1, b1, w2, b2, ws, bs, aff, part, y, geometry) -> None:
+def _check(what: str, x: torch.Tensor, expect: dict) -> None:
+    for name, (t, dtype, shape) in expect.items():
+        if t.device != x.device or t.device.type != "cuda":
+            raise ValueError(f"{what}: {name} on {t.device}, x on {x.device}")
+        if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} is {t.dtype}{tuple(t.shape)}, needs contiguous, "
+                             f"16-byte aligned {dtype}{shape}")
+
+
+def launch_resblock_tgn(mode: int, *, x, w1, b1, w2, b2, ws, bs, aff, part, y, geometry,
+                        variant: str = "auto", max_blocks: int = 0) -> None:
     """Launch one pass (mode 0/1/2) of csrc/resblock_tgn.cu on the current
     stream of x's device. x, y (B, C, T) and w1 (H, K, C), w2 (C, H),
     ws (C, C) in x's type; b1, b2, bs, aff (B, 6, C) fp32; part (B, n_t, 4) fp64."""
@@ -191,9 +274,11 @@ def launch_resblock_tgn(mode: int, *, x, w1, b1, w2, b2, ws, bs, aff, part, y, g
     K, dilation, left, pad_mode = geometry
     B, C, T = x.shape
     H = w1.shape[0]
+    if variant not in VARIANTS or max_blocks < 0:
+        raise ValueError(f"resblock_tgn: variant {variant!r}, max_blocks {max_blocks}")
     lib = build.load()
-    n_t = -(-T // lib.resblock_tgn_tile(C, H, DTYPES[x.dtype]))
-    expect = {
+    n_t = -(-T // lib.resblock_tgn_tile(C, H, K, dilation, left, DTYPES[x.dtype], VARIANTS[variant]))
+    _check("resblock_tgn", x, {
         "x": (x, x.dtype, (B, C, T)),
         "w1": (w1, x.dtype, (H, K, C)),
         "b1": (b1, torch.float32, (H,)),
@@ -204,20 +289,44 @@ def launch_resblock_tgn(mode: int, *, x, w1, b1, w2, b2, ws, bs, aff, part, y, g
         "aff": (aff, torch.float32, (B, 6, C)),
         "part": (part, torch.float64, (B, n_t, 4)),
         "y": (y, x.dtype, (B, C, T)),
-    }
-    for name, (t, dtype, shape) in expect.items():
-        if t.device != x.device or t.device.type != "cuda":
-            raise ValueError(f"resblock_tgn: {name} on {t.device}, x on {x.device}")
-        if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"resblock_tgn: {name} is {t.dtype}{tuple(t.shape)}, needs contiguous, "
-                             f"16-byte aligned {dtype}{shape}")
-    if not (0 < C <= MAX_C and 0 < H <= MAX_C) or B > 65535:
-        raise ValueError(f"resblock_tgn: C={C}, H={H}, B={B} outside the kernel's range")
+    })
+    if not (0 < C <= MAX_C and 0 < H <= MAX_C) or B > 65535 or B * T >= 2**31:
+        raise ValueError(f"resblock_tgn: C={C}, H={H}, B={B}, T={T} outside the kernel's range")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.resblock_tgn_launch(
             mode, x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), ws.data_ptr(),
             bs.data_ptr(), aff.data_ptr(), part.data_ptr(), y.data_ptr(), B, C, H, T, K, dilation, left,
-            pad_mode, DTYPES[x.dtype], stream)
+            pad_mode, DTYPES[x.dtype], VARIANTS[variant], max_blocks, stream)
     build.check(lib, rc, "resblock_tgn_launch")
     LAUNCHES += 1
+
+
+def launch_resblock_finalize(part: torch.Tensor, aff: torch.Tensor, T: int, pairs) -> None:
+    """Launch the finalize of csrc/resblock_tgn.cu: for pair p of `pairs`
+    [(gamma, beta, slot)], columns 2p, 2p + 1 of part (B, n_t, 4) fp64 become
+    aff[:, slot, :n_ch] (A) and aff[:, slot + 1, :n_ch] (D) of the tgn over
+    T * n_ch elements a sample. One or two pairs."""
+    global FINALIZE_LAUNCHES
+    if not 1 <= len(pairs) <= 2:
+        raise ValueError(f"resblock_tgn_finalize: {len(pairs)} pairs, the kernel takes 1 or 2")
+    B, n_t, _ = part.shape
+    C = aff.shape[2]
+    expect = {"part": (part, torch.float64, (B, n_t, 4)), "aff": (aff, torch.float32, (B, 6, C))}
+    for i, (gamma, beta, slot) in enumerate(pairs):
+        n_ch = gamma.shape[0]
+        if not (0 < n_ch <= C and slot in (0, 2, 4)):
+            raise ValueError(f"resblock_tgn_finalize: pair {i} has {n_ch} channels of {C}, slot {slot}")
+        expect[f"gamma{i}"] = (gamma, torch.float32, (n_ch,))
+        expect[f"beta{i}"] = (beta, torch.float32, (n_ch,))
+    _check("resblock_tgn_finalize", part, expect)
+    flat = []
+    for gamma, beta, slot in list(pairs) + [pairs[0]] * (2 - len(pairs)):
+        flat += [gamma.data_ptr(), beta.data_ptr(), gamma.shape[0], slot]
+    lib = build.load()
+    with torch.cuda.device(part.device):
+        stream = torch.cuda.current_stream(part.device).cuda_stream
+        rc = lib.resblock_tgn_finalize_launch(part.data_ptr(), n_t, aff.data_ptr(), B, C, T, len(pairs), *flat,
+                                              stream)
+    build.check(lib, rc, "resblock_tgn_finalize_launch")
+    FINALIZE_LAUNCHES += 1

@@ -57,7 +57,8 @@ def test_library_name_tracks_the_sources():
     assert path == build.library_path()
     assert path.parent == build.BUILD_DIR and path.name.startswith("libfuncodec_kernels-")
     names = {s.name for s in build._sources()}
-    assert {"rvq_encode.cu", "conv1d_s1.cu", "resblock_tgn.cu", "common.cuh"} <= names
+    assert {"rvq_encode.cu", "conv1d_s1.cu", "resblock_tgn.cu", "resblock_tgn_streamed.cu", "resblock_tgn_legacy.cu",
+            "resblock_tgn.cuh", "common.cuh"} <= names
 
 
 def ulps2(ref: torch.Tensor) -> float:
@@ -78,16 +79,21 @@ def cuda():
 @pytest.mark.gpu
 @pytest.mark.parametrize(
     "shape,n_q,bins",
-    [((4, 500, 128), 32, 1024), ((1, 137, 128), 16, 1024), ((2, 77, 128), 5, 200)],
-    ids=["nq32", "ragged_nq16", "bins200"],
+    [((4, 500, 128), 32, 1024), ((1, 137, 128), 16, 1024), ((2, 77, 128), 5, 200), ((3, 211, 128), 32, 1000),
+     ((1, 1, 128), 32, 1024), ((2, 500, 128), 1, 1024), ((1, 129, 128), 3, 128)],
+    ids=["nq32", "ragged_nq16", "bins200", "bins1000", "one_token", "nq1", "one_chunk"],
 )
-def test_cuda_kernel_matches_reference(cuda, shape, n_q, bins):
+@pytest.mark.parametrize("variant", ["wgmma", "legacy"])
+def test_cuda_kernel_matches_reference(cuda, shape, n_q, bins, variant):
     embed = torch.from_numpy(_codebooks(32, bins, 128, seed=0)).to(cuda)
     x = torch.from_numpy(np.random.RandomState(1).randn(*shape).astype(np.float32)).to(cuda) * 0.1
     before = rvq_kernel.LAUNCHES
-    k_idx, k_quant = rvq_kernel.rvq_encode_fused(x, embed, n_q)
+    k_idx, k_quant = rvq_kernel.rvq_encode_fused(x, embed, n_q, variant=variant)
     torch.cuda.synchronize()
     assert rvq_kernel.LAUNCHES == before + 1
+    again = rvq_kernel.rvq_encode_fused(x, embed, n_q, variant=variant)
+    assert torch.equal(again[0], k_idx) and torch.equal(again[1], k_quant)  # the same from run to run
+    assert int(k_idx.min()) >= 0 and int(k_idx.max()) < bins
     r_idx, r_quant = rvq_kernel.rvq_encode_reference(x, embed, n_q)
     k_idx, r_idx = k_idx.cpu().numpy(), r_idx.cpu().numpy()
     assert (k_idx[0] == r_idx[0]).mean() >= 0.999
@@ -105,6 +111,34 @@ def test_cuda_kernel_rejects_bad_inputs(cuda):
         rvq_kernel.rvq_encode_fused(torch.zeros(1, 4, 64, device=cuda), embed, 2)  # D != 128
     with pytest.raises(ValueError):
         rvq_kernel.rvq_encode_fused(torch.zeros(1, 4, 128, device=cuda), torch.zeros(2, 16, 128, device=cuda), 3)
+    with pytest.raises(ValueError, match="variant"):
+        rvq_kernel.rvq_encode_fused(torch.zeros(1, 4, 128, device=cuda), torch.zeros(2, 16, 128, device=cuda), 2,
+                                    variant="fp8")
+    with pytest.raises(ValueError, match="embed on"):
+        rvq_kernel.rvq_encode_fused(torch.zeros(1, 4, 128, device=cuda), torch.zeros(2, 16, 128), 2)
+    cb = rvq_kernel.prepared_codebooks(torch.zeros(2, 16, 128, device=cuda))
+    idx = torch.empty(2, 4, dtype=torch.int32, device=cuda)
+    quant = torch.empty(4, 128, device=cuda)
+    with pytest.raises(ValueError, match="arranged"):  # the image of another chunking
+        rvq_kernel.launch_rvq_encode(torch.zeros(4, 128, device=cuda, dtype=torch.bfloat16), cb["embed"],
+                                     cb["arranged"].reshape(2, 2, -1), cb["esq"], idx, quant)
+    with pytest.raises(ValueError, match="esq"):  # ||E||^2 without the padding to whole chunks
+        rvq_kernel.launch_rvq_encode(torch.zeros(4, 128, device=cuda, dtype=torch.bfloat16), cb["embed"],
+                                     cb["arranged"], cb["esq"][:, :16].contiguous(), idx, quant)
+
+
+@pytest.mark.gpu
+def test_cuda_rvq_follows_a_codebook_updated_in_place(cuda):
+    """The prepared codebooks are rebuilt when the codebook changes."""
+    embed = torch.from_numpy(_codebooks(4, 256, 128, seed=5)).to(cuda)
+    x = torch.from_numpy(np.random.RandomState(6).randn(2, 100, 128).astype(np.float32)).to(cuda) * 0.1
+    rvq_kernel.rvq_encode_fused(x, embed, 4)
+    embed.mul_(-1.0)
+    k_idx, k_quant = rvq_kernel.rvq_encode_fused(x, embed, 4)
+    r_idx, r_quant = rvq_kernel.rvq_encode_reference(x, embed, 4)
+    assert (k_idx == r_idx).float().mean() >= 0.99
+    rows = (k_idx == r_idx).all(dim=0).reshape(-1)
+    assert float((k_quant - r_quant).abs().reshape(-1, 128)[rows].max()) <= 1e-5
 
 
 CONV_CASES = [
@@ -163,18 +197,83 @@ def _resblock_convs(C, K, dil, causal, device, seed):
     ids=["C32", "C64", "C128", "C256", "ragged_dilated_causal", "fp32"],
 )
 def test_cuda_resblock_kernel_matches_reference(cuda, C, T, K, dil, causal, dtype):
+    _check_resblock(cuda, 2, C, T, K, dil, causal, dtype)
+
+
+def _check_resblock(cuda, B, C, T, K, dil, causal, dtype, **kwargs):
     convs = _resblock_convs(C, K, dil, causal, cuda, seed=C + T)
-    x = torch.from_numpy(np.random.RandomState(T).randn(2, C, T).astype(np.float32)).to(cuda, dtype)
-    before = resblock_kernel.LAUNCHES
+    x = torch.from_numpy(np.random.RandomState(T).randn(B, C, T).astype(np.float32)).to(cuda, dtype)
+    before = resblock_kernel.LAUNCHES, resblock_kernel.FINALIZE_LAUNCHES
     with torch.no_grad():
-        y = resblock_kernel.fused_resblock_tgn(x, *convs)
+        y = resblock_kernel.fused_resblock_tgn(x, *convs, **kwargs)
         torch.cuda.synchronize()
-        assert resblock_kernel.LAUNCHES == before + 3
+        assert resblock_kernel.LAUNCHES == before[0] + 3
+        assert resblock_kernel.FINALIZE_LAUNCHES == before[1] + 2
+        assert torch.equal(resblock_kernel.fused_resblock_tgn(x, *convs, **kwargs), y)  # the same from run to run
         ref = resblock_kernel.fused_resblock_tgn_reference(x, *convs)
     assert y.dtype == dtype and y.shape == ref.shape
     err = float((y.float() - ref.float()).abs().max())
     tol = ulps2(ref) if dtype == torch.bfloat16 else 1e-4 * float(ref.abs().max())
     assert err <= tol, (err, tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "B,C,T,K,dil,causal,kwargs",
+    [(16, 32, 16_000, 3, 1, False, {}), (1, 64, 8000, 3, 1, False, {}), (1, 256, 400, 3, 1, False, {}),
+     (2, 32, 100, 3, 1, False, {}), (2, 32, 257, 3, 1, False, {}), (2, 64, 129, 3, 1, False, {}),
+     (2, 128, 129, 3, 1, False, {}), (2, 256, 65, 3, 1, False, {}), (3, 32, 4096, 3, 1, False, {"max_blocks": 3}),
+     (3, 256, 2048, 3, 1, False, {"max_blocks": 5}), (2, 256, 1003, 3, 3, True, {}), (2, 128, 1000, 5, 2, False, {}),
+     (2, 32, 2000, 3, 1, False, {"variant": "legacy"}), (2, 256, 250, 3, 1, False, {"variant": "legacy"})],
+    ids=["B16", "B1", "B1_C256", "short", "tile_plus_1_C32", "tile_plus_1_C64", "tile_plus_1_C128", "tile_plus_1_C256",
+         "3_blocks_C32", "5_blocks_C256", "ragged_dilated_causal_C256", "k5_d2_C128", "legacy_C32", "legacy_C256"],
+)
+def test_cuda_resblock_persistent_edges(cuda, B, C, T, K, dil, causal, kwargs):
+    """Grids smaller than the card, tiles shorter than one and one step longer, a capped
+    grid (many work items a block), other conv1 geometries, and the first device code."""
+    _check_resblock(cuda, B, C, T, K, dil, causal, torch.bfloat16, **kwargs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,n_t", [(32, 1), (32, 625), (256, 63), (64, 1250)])
+def test_cuda_resblock_finalize_matches_finalize_affine(cuda, C, n_t):
+    rs = np.random.RandomState(n_t)
+    B, T, H = 3, n_t * 64, C // 2
+    y = rs.randn(B, n_t, 4, 32) + 0.2
+    part = torch.from_numpy(np.stack([y[:, :, 0].sum(-1), (y[:, :, 0] ** 2).sum(-1),
+                                      y[:, :, 2].sum(-1), (y[:, :, 2] ** 2).sum(-1)], axis=-1)).to(cuda)
+    g = [torch.from_numpy(rs.uniform(0.5, 1.5, n).astype(np.float32)).to(cuda) for n in (H, H, C, C)]
+    aff = torch.zeros(B, 6, C, device=cuda)
+    before = resblock_kernel.FINALIZE_LAUNCHES
+    resblock_kernel.launch_resblock_finalize(part, aff, T, [(g[0], g[1], 0), (g[2], g[3], 4)])
+    resblock_kernel.launch_resblock_finalize(part, aff, T, [(g[2], g[3], 2)])
+    torch.cuda.synchronize()
+    assert resblock_kernel.FINALIZE_LAUNCHES == before + 2
+    tot = part.sum(dim=1)
+    for slot, (n, s, sq, gamma, beta) in {0: (H, tot[:, 0], tot[:, 1], g[0], g[1]), 4: (C, tot[:, 2], tot[:, 3], g[2], g[3]),
+                                          2: (C, tot[:, 0], tot[:, 1], g[2], g[3])}.items():
+        a, d = resblock_kernel.finalize_affine(s, sq, T * n, gamma, beta)
+        np.testing.assert_allclose(aff[:, slot, :n].cpu().numpy(), a.cpu().numpy(), rtol=2e-7)
+        np.testing.assert_allclose(aff[:, slot + 1, :n].cpu().numpy(), d.cpu().numpy(), rtol=2e-7, atol=1e-9)
+        ma, md = resblock_kernel.finalize_mirror(part, {0: 0, 4: 1, 2: 0}[slot], T, gamma, beta)
+        np.testing.assert_allclose(aff[:, slot, :n].cpu().numpy(), ma.cpu().numpy(), rtol=2e-7)
+        np.testing.assert_allclose(aff[:, slot + 1, :n].cpu().numpy(), md.cpu().numpy(), rtol=2e-7, atol=1e-9)
+    assert float(aff[:, 0, H:].abs().max()) == 0.0  # conv1's affine fills its H channels only
+
+
+@pytest.mark.gpu
+def test_cuda_resblock_follows_weights_updated_in_place(cuda):
+    """The packed weights are rebuilt when a parameter changes."""
+    convs = _resblock_convs(64, 3, 1, False, cuda, seed=9)
+    convs = [m.to(torch.bfloat16) for m in convs]
+    x = torch.from_numpy(np.random.RandomState(9).randn(2, 64, 1000).astype(np.float32)).to(cuda, torch.bfloat16)
+    with torch.no_grad():
+        resblock_kernel.fused_resblock_tgn(x, *convs)
+        convs[1].conv.layer.weight.mul_(-0.5)
+        convs[2].load_state_dict(_resblock_convs(64, 3, 1, False, cuda, seed=10)[2].to(torch.bfloat16).state_dict())
+        y = resblock_kernel.fused_resblock_tgn(x, *convs)
+        ref = resblock_kernel.fused_resblock_tgn_reference(x, *convs)
+    assert float((y.float() - ref.float()).abs().max()) <= ulps2(ref)
 
 
 @pytest.mark.gpu
@@ -191,6 +290,18 @@ def test_cuda_seanet_kernels_reject_bad_inputs(cuda):
     convs = _resblock_convs(32, 3, 1, False, cuda, seed=0)
     with torch.no_grad(), pytest.raises(ValueError, match="float32 or bfloat16"):
         resblock_kernel.fused_resblock_tgn(torch.zeros(1, 32, 64, device=cuda, dtype=torch.float16), *convs)
+    with torch.no_grad(), pytest.raises(ValueError, match="variant"):
+        resblock_kernel.fused_resblock_tgn(torch.zeros(1, 32, 64, device=cuda), *convs, variant="tile64")
+    with torch.no_grad(), pytest.raises(ValueError, match="max_blocks"):
+        resblock_kernel.fused_resblock_tgn(torch.zeros(1, 32, 64, device=cuda), *convs, max_blocks=-1)
+    part, aff = torch.zeros(1, 2, 4, dtype=torch.float64, device=cuda), torch.zeros(1, 6, 32, device=cuda)
+    g = torch.ones(32, device=cuda)
+    with pytest.raises(ValueError, match="1 or 2"):
+        resblock_kernel.launch_resblock_finalize(part, aff, 64, [(g, g, 0)] * 3)
+    with pytest.raises(ValueError, match="slot"):
+        resblock_kernel.launch_resblock_finalize(part, aff, 64, [(g, g, 1)])
+    with pytest.raises(ValueError, match="part"):
+        resblock_kernel.launch_resblock_finalize(part.float(), aff, 64, [(g, g, 0)])
 
 
 @pytest.mark.gpu
