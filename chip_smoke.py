@@ -13,13 +13,17 @@ raise on failure:
 1. checks: a CUDA card is present; TF32 is turned off for fp32 matmuls and
    cuDNN; the card's name and power limit are printed.
 2. build: csrc/*.cu compiled with nvcc for sm_90a, one nvcc per source in
-   parallel (time, ptxas registers / shared memory / spills per kernel).
+   parallel (time, ptxas registers / shared memory / spills per kernel; the
+   fused conv's kernel, tiles, shared memory and blocks an SM per flagship
+   layer).
 3. kernel: each kernel against its plain torch version. RVQ encode at the
    flagship shapes (N = 32,000 tokens x 32 stages x 1024 bins x 128), a
    ragged N, n_q = 16, bins = 1000, N = 1 and n_q = 1, each launched twice
-   (equal results). The fused conv at every flagship layer it serves
-   (B = 64 x 10 s), a dilated causal replicate case, a ragged T and an fp32
-   case. The fused resblock at the four flagship widths (B = 64 x 10 s), a
+   (equal results; 51 times at the flagship shape). The fused conv at every flagship layer it serves
+   (B = 64 x 10 s), a dilated causal replicate case, ragged T on every
+   kernel, a T shorter than one tile and one step longer, B = 1 and 2, 24 ->
+   40 channels (the first kernel) and an fp32 case, each launched twice
+   (equal results). The fused resblock at the four flagship widths (B = 64 x 10 s), a
    ragged T, an fp32 case, B = 16 and B = 1 (grids smaller than the card), a
    T shorter than one tile and T = tile + 1, a capped grid, each launched
    twice (equal results); the finalize kernel against finalize_affine. bf16
@@ -32,7 +36,8 @@ raise on failure:
    paths and against the fp32-exact path; the fp32 path on the card
    against the same model on the CPU for a short clip.
 5. probe: the HBM copy probes (csrc/copy_probe.cu, ops/copy_kernel.py).
-   scale_copy and dma_copy held bit for bit to x * 2 in bf16 and fp32 at
+   scale_copy (several tiles and row counts) and dma_copy (several chunk
+   sizes, one too large for a ring of 4 slots) held bit for bit to x * 2 in bf16 and fp32 at
    the probe shape 256 x 20,000 x 128, a ragged T and a row count that is
    not a multiple of chunk_rows; then the probe path, tools/bw_probe.run
    (every tile and block shape, dma_copy, torch.mul, copy_), whose best
@@ -45,9 +50,9 @@ raise on failure:
    trip, two 24 kHz files through --file_sampling_rate, and fp32
    codecs.txt on the card against the CPU; end-to-end audio-s/s.
 7. timing: each kernel against its plain version (and cuDNN / the unfused
-   block) at each flagship shape, beside its bound; resblock_tgn and
-   rvq_encode also against their first versions (the legacy device code, in
-   turns new, old, old, new), with each bytes-bound
+   block) at each flagship shape, beside its bound; conv1d_s1, resblock_tgn
+   and rvq_encode also against their first versions (the legacy device code,
+   in turns new, old, old, new), with each bytes-bound
    row's share of the published peak and of the measured copy ceiling; the
    B = 64 x 10 s serving rate of fp32-exact, bf16 + RVQ kernel,
    + FUSED_STRIDE1 and + both SEANet flags. The per-shape rows also go to
@@ -161,9 +166,14 @@ def build_phase() -> None:
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             log(f"[build] ptxas: {line.strip()}")
     log(f"[build] dynamic shared memory per block: rvq_encode {lib.rvq_encode_smem_bytes(0)} B "
-        f"(384 threads, 1 block an SM; legacy {lib.rvq_encode_smem_bytes(1)} B); "
-        + ", ".join(f"conv1d_s1 {ci}->{co} k{k} bf16 {lib.conv1d_s1_smem_bytes(ci, co, k, 1, 1)} B"
-                    for ci, co, k in ((1, 32, 7), (512, 128, 7), (32, 16, 3))))
+        f"(384 threads, 1 block an SM; legacy {lib.rvq_encode_smem_bytes(1)} B)")
+    for ci, co, k in ((1, 32, 7), (512, 128, 7), (128, 512, 7), (32, 1, 7), (32, 16, 3), (64, 32, 3), (128, 64, 3),
+                      (256, 128, 3)):
+        geo = (ci, co, k, 1, (k - 1) - (k - 1) // 2, 1)  # Cin, Cout, K, dilation, left, bf16
+        log(f"[build] conv1d_s1 {ci}->{co} k{k} bf16: {conv_kernel.REGIMES[lib.conv1d_s1_regime(*geo, 0)]}, "
+            f"{lib.conv1d_s1_out_tile(*geo, 0)} output / {lib.conv1d_s1_chunk(*geo, 0)} input channels a tile / chunk, "
+            f"{lib.conv1d_s1_smem_bytes(*geo, 0)} B shared memory, {lib.conv1d_s1_blocks_per_sm(*geo, 0)} blocks an SM "
+            f"(0: not persistent); legacy {lib.conv1d_s1_smem_bytes(*geo, 1)} B")
     kinds = {0: "legacy", 1: "persistent, resident weights", 2: "persistent, streamed weights"}
     for c in (32, 64, 128, 256):
         geo = (c, c // 2, 3, 1, 1, 1)  # C, H, K, dilation, left, bf16
@@ -192,6 +202,9 @@ def _compare(k_idx, k_quant, r_idx, r_quant):
     return float(agree[0].float().mean()), float(agree.float().mean()), float(rows.float().mean()), max_err
 
 
+RVQ_REPEATS = 50  # launches held equal to the first at the flagship shape
+
+
 def rvq_kernel_phase(dev) -> float:
     """The kernel against rvq_encode_reference; returns the largest
     |quant difference| over rows whose tokens all agree."""
@@ -204,10 +217,10 @@ def rvq_kernel_phase(dev) -> float:
         embed = full if bins == 1024 else full[:, :bins].contiguous()
         x = torch.randn(B, T, 128, device=dev, generator=gen) * 0.1
         k_idx, k_quant = rvq_kernel.rvq_encode_fused(x, embed, n_q)
-        again = rvq_kernel.rvq_encode_fused(x, embed, n_q)
-        torch.cuda.synchronize()
-        if not (torch.equal(k_idx, again[0]) and torch.equal(k_quant, again[1])):
-            raise RuntimeError(f"rvq_encode {name}: two launches on the same input differ")
+        for _ in range(RVQ_REPEATS if name == "flagship" else 1):  # a rare race shows only over many launches
+            again = rvq_kernel.rvq_encode_fused(x, embed, n_q)
+            if not (torch.equal(k_idx, again[0]) and torch.equal(k_quant, again[1])):
+                raise RuntimeError(f"rvq_encode {name}: two launches on the same input differ")
         if int(k_idx.min()) < 0 or int(k_idx.max()) >= bins:
             raise RuntimeError(f"rvq_encode {name}: an index outside [0, {bins})")
         r_idx, r_quant = rvq_kernel.rvq_encode_reference(x, embed, n_q)
@@ -247,7 +260,7 @@ class ConvLayer:
 
     def __init__(self, name, conv, B, T, act, dtype, dev, seed):
         spec = conv.spec
-        self.name, self.act, self.spec = name, act, spec
+        self.name, self.act, self.spec, self.conv = name, act, spec, conv
         self.left, self.right = split_padding(conv_padding_total(spec.kernel_size, 1, spec.dilation), spec.causal)
         w, b, _, _ = conv.params()
         self.w, self.b = w.detach().to(dtype), b.detach().float()
@@ -261,6 +274,10 @@ class ConvLayer:
 
     def kernel(self):
         return conv_kernel.fused_conv1d_s1(*self.args())
+
+    def legacy(self):
+        """The first version of the device code (one block per tile, wmma over an im2col tile)."""
+        return conv_kernel.fused_conv1d_s1(*self.args(), variant="legacy")
 
     def plain(self):
         return conv_kernel.fused_conv1d_s1_reference(*self.args())
@@ -353,24 +370,44 @@ def _extra_block(C, dil, causal, pad_mode, dtype, dev, seed):
     return block.to(dtype).eval()
 
 
+def _conv24x40(dev, seed):
+    """A zero-padded 24 -> 40 channel k3 d3 conv: channel counts the tensor-core kernels do not take."""
+    from funcodec_tpu_torch.ops.conv import ConvSpec, SConv1d
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return SConv1d(ConvSpec(24, 40, 3, dilation=3, pad_mode="constant"), device=dev, generator=gen).to(torch.bfloat16)
+
+
 def seanet_kernel_phase(dev, calls):
     """The fused conv and resblock kernels against their plain versions."""
     heads, rb_convs, resblocks = calls
     errs = {"conv1d_s1": 0.0, "resblock_tgn": 0.0}
+    bf = torch.bfloat16
+    rb = [_extra_block(c, 1, False, "reflect", bf, dev, 42 + i).block[1] for i, c in enumerate((32, 64, 128, 256))]
     extra_convs = [
         ConvLayer("dilated causal replicate elu 64->32 k3 d9",
-                  _extra_block(64, 9, True, "replicate", torch.bfloat16, dev, 40).block[1],
-                  64, 80_000, "elu", torch.bfloat16, dev, 41),
-        ConvLayer("ragged elu 32->16 k3 T=160003",
-                  _extra_block(32, 1, False, "reflect", torch.bfloat16, dev, 42).block[1],
-                  64, 160_003, "elu", torch.bfloat16, dev, 43),
+                  _extra_block(64, 9, True, "replicate", bf, dev, 40).block[1], 64, 80_000, "elu", bf, dev, 41),
+        ConvLayer("ragged elu 32->16 k3 T=160003", rb[0], 64, 160_003, "elu", bf, dev, 43),
         ConvLayer("fp32 elu 128->64 k3", _extra_block(128, 1, False, "reflect", torch.float32, dev, 44).block[1],
                   8, 20_000, "elu", torch.float32, dev, 45),
+        # tiles shorter than one (256 steps) and one step longer, B = 1, T % 8 != 0 on every kernel
+        ConvLayer("short elu 64->32 k3 T=100", rb[1], 2, 100, "elu", bf, dev, 46),
+        ConvLayer("tile+1 elu 128->64 k3 T=257", rb[2], 2, 257, "elu", bf, dev, 47),
+        ConvLayer("B=1 elu 256->128 k3 T=4000", rb[3], 1, 4000, "elu", bf, dev, 48),
+        ConvLayer("ragged enc_first 1->32 k7 T=16003", heads[0].conv, 4, 16_003, None, bf, dev, 49),
+        ConvLayer("ragged dec_last elu 32->1 k7 T=16001", heads[3].conv, 4, 16_001, "elu", bf, dev, 50),
+        ConvLayer("ragged enc_last elu 512->128 k7 T=501", heads[1].conv, 2, 501, "elu", bf, dev, 51),
+        ConvLayer("B=2 dec_first 128->512 k7 T=250", heads[2].conv, 2, 250, None, bf, dev, 52),
+        ConvLayer("legacy 24->40 channels gelu k3 d3", _conv24x40(dev, 53), 2, 3000, "gelu", bf, dev, 54),
     ]
     with torch.inference_mode():
         for layer in heads + rb_convs + extra_convs:
             out = layer.kernel()
+            again = layer.kernel()
             torch.cuda.synchronize()
+            if not torch.equal(out, again):
+                raise RuntimeError(f"conv1d_s1 {layer.name}: two launches on the same input differ")
+            del again
             err = _held("conv1d_s1", layer.name, out, layer.plain())
             if layer.x.dtype == torch.bfloat16:
                 errs["conv1d_s1"] = max(errs["conv1d_s1"], err)
@@ -574,6 +611,8 @@ def probe_phase(dev, card: str):
                     for t, r in ((4000, 1), (bw_probe.GPU_TILE, 1), (2000, 8))}
             outs["dma_copy"] = copy_kernel.dma_copy(x)
             outs["dma_copy chunk_rows=100"] = copy_kernel.dma_copy(x, 100)
+            outs["dma_copy 8 KB chunks"] = copy_kernel.dma_copy(x, 8192 // (128 * x.element_size()))
+            outs["dma_copy 100 KB chunks (a ring of 2)"] = copy_kernel.dma_copy(x, 102_400 // (128 * x.element_size()))
             torch.cuda.synchronize()
             for what, out in outs.items():
                 if out.dtype != ref.dtype or not torch.equal(_bits(out), _bits(ref)):
@@ -796,7 +835,7 @@ def _ab_ms(new, old, iters: int):
 
 
 def _ab_text(ab) -> str:
-    return " / ".join(f"{v:.3f}" for v in ab[2])
+    return " / ".join(f"{v:.4f}" for v in ab[2])
 
 
 def _serve_seconds(s2t, x) -> float:
@@ -838,12 +877,17 @@ def timing_phase(dev, s_bf, s_fp, calls, card: str, ceiling: float):
     conv_ops.FUSED_STRIDE1 = conv_ops.FUSED_RESBLOCK = False
     with torch.inference_mode():
         for layer in heads + rb_convs:
-            row = _row(layer.name, _cuda_ms(layer.kernel, 5), _cuda_ms(layer.plain, 5), layer.bound_ms(),
-                       library_ms=_cuda_ms(layer.library, 5), main_path=layer in heads)
+            ab = _ab_ms(layer.kernel, layer.legacy, 10)
+            row = _row(layer.name, ab[0], _cuda_ms(layer.plain, 5), layer.bound_ms(),
+                       library_ms=_cuda_ms(layer.library, 10), legacy_ms=ab[1], main_path=layer in heads,
+                       regime=conv_kernel.REGIMES[build.load().conv1d_s1_regime(
+                           layer.x.shape[1], layer.w.shape[0], layer.spec.kernel_size, layer.spec.dilation,
+                           layer.left, conv_kernel.DTYPES[layer.x.dtype], conv_kernel.VARIANTS["auto"])])
             conv_rows.append(row)
             log(f"[time] conv1d_s1 {layer.name} B={layer.x.shape[0]} T={layer.x.shape[-1]}: kernel "
-                f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, cuDNN {row['library_ms']:.3f} ms, "
-                f"bound {row['bound_ms']:.3f} ms ({row['bound_by']}){_shares(row, ceiling)} ({card})")
+                f"{row['ms']:.4f} ms ({row['regime']}; new, old, old, new: {_ab_text(ab)}), the first version "
+                f"{row['legacy_ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, cuDNN {row['library_ms']:.4f} ms, "
+                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}){_shares(row, ceiling)} ({card})")
         for call in resblocks:
             ab = _ab_ms(call.kernel, call.legacy, 5)
             row = _row(call.name, ab[0], _cuda_ms(call.plain, 3), call.bound_ms(),
@@ -954,6 +998,7 @@ def main() -> int:
         copy_ceiling_bytes_per_s=ceiling, cli=cli_stats), indent=1))
     conv_main = _summed([r for r in conv_rows if r["main_path"]])
     conv_main["library_ms"] = sum(r["library_ms"] for r in conv_rows if r["main_path"])
+    conv_main["legacy_ms"] = sum(r["legacy_ms"] for r in conv_rows if r["main_path"])
     rb_main = _summed(rb_rows, n=2)  # the encoder's and the decoder's block at each width
     rb_main["library_ms"] = None
     rb_main["unfused_ms"] = 2 * sum(r["unfused_ms"] for r in rb_rows)

@@ -10,239 +10,193 @@
 // (reflect / replicate / zero) taken straight from x by index arithmetic,
 // fp32 accumulation, and one rounding of the sum to x's type.
 //
-// Design. Input channels are walked in chunks of 32; for each chunk the
-// block copies its input window with the halo into shared memory once (one
-// global read per element, the activation applied on load, every pad value
-// computed in place by index arithmetic). Two paths:
-// - tensor cores (bf16 with at least 16 input and 16 output channels): one
-//   block per (128 time steps, 64 output channels, sample), 8 warps. The
-//   window is unfolded into an im2col tile in shared memory (shared memory
-//   to shared memory) and multiplied with the staged weights by wmma bf16
-//   fragments whose fp32 accumulators stay in registers over all chunks.
-// - CUDA cores (fp32, and the codec's 1 -> 32 and 32 -> 1 convs): one block
-//   per (256 time steps, up to 16 output channels, sample); each thread owns
-//   one time step and one fp32 accumulator per output channel (1, 4 or 16,
-//   the fewest that cover C_out) and reads the window directly.
-// The ragged last tile and ragged channel tiles are masked in the kernel.
-//
 // What bounds it: in bf16 a layer does 2*C_in*K*C_out FLOP for every
-// 2*(C_in + C_out) bytes of x read and y written. The flagship's 1 -> 32
-// and 32 -> 1 convs (K = 7) have ~7 FLOP per byte and its C -> C/2, K = 3
+// 2*(C_in + C_out) bytes of x read and y written. The flagship's 1 -> 32 and
+// 32 -> 1 convs (K = 7) have ~7 FLOP per byte and its C -> C/2, K = 3
 // resblock convs 32 to 256, under the card's 295 FLOP per byte, so they are
 // memory-bound; its 512 -> 128 and 128 -> 512 K = 7 convs (~720) are
-// compute-bound. The design target is one read of x and one write of y.
+// compute-bound.
+//
+// The launch picks one of three regimes from the shapes (plan_of; the
+// choice is exported as conv1d_s1_regime and mirrored by ops/conv_kernel.plan):
+//
+// THIN (bf16, C_in == 1 or C_out == 1, dilation 1, K in {3, 5, 7}, "same" or
+//   causal; conv1d_s1_thin.cu): a bytes-bound stream on the CUDA cores. Each
+//   thread owns 8 consecutive time steps, one 16-byte vector a row; a warp
+//   256 steps. The window's halo comes from the neighbouring lanes by
+//   shuffles, and the warp's own halo (K - 1 values) from one scalar load of
+//   each of its first K - 1 lanes, so every element is loaded and activated
+//   once. The weights and bias sit in shared memory as fp32 and are read as
+//   broadcasts. 1 -> C loads its window once and writes one vector per output
+//   channel; C -> 1 reads one vector per input channel (the next channel's
+//   load in flight while one is computed) and writes one. Rows with
+//   T % 8 != 0 are not 16-byte aligned and take a scalar branch of the same
+//   kernel.
+//
+// TC_RESIDENT / TC_STREAMED (bf16, C_in and C_out multiples of 16;
+//   conv1d_s1_tc.cuh, instantiated in conv1d_s1_tc.cu): an implicit GEMM with
+//   time as M on the tensor cores, on a persistent grid (SMs x resident
+//   blocks, two an SM where shared memory allows) over (sample, time
+//   tile, output-channel tile) work items, item = (sample * n_t + tile) * n_o
+//   + o_tile; block i takes items i, i + gridDim.x, ...
+//   (ops/conv_kernel.work_items mirrors it).
+//   - A tile is 256 time steps and NO output channels (64, or 32 / 16 where
+//     C_out is no multiple of 64); each of the 8 warps takes 32 rows and all
+//     NO channels, so every weight ldmatrix feeds two 16-row mma.sync tiles.
+//     A 128-channel tile (4 x 2 warps of 64 x 64, one block an SM, the next
+//     chunk made between the products) was measured slower at all three
+//     shapes it took (512 -> 128, 128 -> 512, 256 -> 128): with one block of
+//     8 warps an SM nothing hid its barriers and shared-memory latencies.
+//     So was a loop with two time-major chunks (one barrier a stage, chunk
+//     f + 1 made beside chunk f's products): its extra buffers cost the
+//     chunk size and the blocks an SM that the plan below keeps.
+//   - Input channels are walked in chunks of CC, 32 or 16: of resident
+//     before streamed weights and 32 before 16, plan_of takes the candidate
+//     that keeps the most blocks on an SM (the heads' 16-channel chunks run
+//     two blocks an SM where 32 runs one, and measured faster). A chunk's
+//     raw window (CC rows of 256 + halo steps, channel-major as x lies)
+//     arrives by 16-byte cp.async (8-byte where T % 8 != 0 but T % 4 == 0,
+//     as at T = 500) into one of two buffers while the chunk before it is
+//     made and multiplied; pad values are a fix-up of the first
+//     and last tile of a sample only, of the positions outside [0, T) only.
+//   - One ldmatrix.trans -> act -> stmatrix pass makes the chunk time-major,
+//     so a tap is a row offset (always 16-byte aligned) and the activation
+//     runs once per element of a work item: no im2col tile exists.
+//   - Weights are packed once by the wrapper as (C_in / CC, C_out, K, CC),
+//     so a chunk of an output-channel tile is NO contiguous rows. Where the
+//     whole tile's weights fit (the k3 convs up to 128 -> 64: one channel
+//     tile) they are resident, copied once per block (TC_RESIDENT); otherwise
+//     each chunk's slice streams in with the window, one stage ahead
+//     (TC_STREAMED). A slice feeds 256 time rows, so the heads' 917 KB of
+//     weights cross L2 once per 256 rows of the batch.
+//   - Product: mma.sync.m16n8k16 bf16 -> fp32, chosen over wgmma (m64nNk16, A
+//     from registers, B from a pre-arranged 128-byte-swizzle image) by a
+//     measurement: with every other phase switched off (a temporary switch
+//     in this kernel, taken out again) the products took under half of each
+//     shape's time, and at the heads the loads and the time-major pass
+//     alone took more than cuDNN's whole conv. A faster product instruction
+//     can only take off the products' share; the rest is the bound.
+//   - Epilogue in registers: bias, one rounding, the tile transposed through
+//     shared memory and stored channel-major as 16-byte vectors. Where it
+//     fits, the output tile lies over the window buffer and the time-major
+//     chunk the item's last stage used, so the k3 convs keep two blocks an SM.
+//
+// LEGACY (fp32, other channel counts or geometries, and variant "legacy"):
+//   the first kernel, conv1d_s1_legacy.cu.
 
-#include "common.cuh"
+#include "conv1d_s1.cuh"
+
+namespace funcodec {
+namespace conv {
+
+Plan plan_of(int Cin, int Cout, int K, int dil, int left, int dtype, int variant) {
+  const Plan legacy{LEGACY, 0, 0};
+  if (variant == 1 || dtype != 1) return legacy;
+  if (thin_applies(Cin, Cout, K, dil, left)) return {THIN, 0, 0};
+  if (Cin % 16 != 0 || Cout % 16 != 0) return legacy;
+  const int no = Cout % 64 == 0 ? 64 : (Cout % 32 == 0 ? 32 : 16);
+  // Candidates in order of preference: the weights resident (one output-
+  // channel tile), then streamed; chunks of 32, then 16. The first that
+  // keeps the most blocks on an SM wins: the heads' chunks of 16 run two
+  // blocks an SM where 32 runs one, and measured faster.
+  Plan best = legacy;
+  int best_blocks = 0;
+  for (int resident = 1; resident >= 0; --resident)
+    for (int cc = 32; cc >= 16; cc -= 16) {
+      if (Cin % cc != 0 || (resident && no != Cout)) continue;
+      const int blocks = tc_blocks_per_sm(tc_layout(no, cc, Cin, Cout, K, dil, left, resident).total);
+      if (blocks > best_blocks) best = {resident ? TC_RESIDENT : TC_STREAMED, no, cc}, best_blocks = blocks;
+    }
+  return best;
+}
+
+}  // namespace conv
+}  // namespace funcodec
 
 namespace {
 
-using funcodec::Elem;
-using funcodec::round_up;
+using namespace funcodec::conv;
 
-constexpr int THREADS = 256;
-constexpr int N_WARPS = THREADS / 32;
-constexpr int CC = 32;  // input channels per chunk
-// tensor-core path
-constexpr int TT = 128;  // time steps per block
-constexpr int TO = 64;   // output channels per block
-constexpr int LDB = TT + 8;
-constexpr int LDO = TT + 4;
-constexpr int FPW = (TO / 16) * (TT / 16) / (THREADS / 32);  // fragments per warp
-// CUDA-core path
-constexpr int TT_S = THREADS;  // one time step per thread
-constexpr int TO_S = 16;       // the most output channels per block (accumulators per thread)
-
-__host__ __device__ inline size_t align128(size_t v) { return (v + 127) / 128 * 128; }
-
-struct TcLayout {
-  int ldw, kdp, lda;
-  size_t bcol, as, total;  // byte offsets; out (fp32) aliases the window and im2col tile
-};
-
-__host__ __device__ inline TcLayout tc_layout(int K, int dil) {
-  TcLayout l;
-  l.ldw = round_up(TT + (K - 1) * dil, 8);
-  l.kdp = round_up(K * CC, 16);
-  l.lda = l.kdp + 8;
-  l.bcol = align128((size_t)CC * l.ldw * 2);
-  const size_t tiles = l.bcol + align128((size_t)l.kdp * LDB * 2);
-  const size_t out = align128((size_t)TO * LDO * sizeof(float));
-  l.as = tiles > out ? tiles : out;
-  l.total = l.as + (size_t)TO * l.lda * 2;
-  return l;
+// The tensor-core launch of a plan, or with a == nullptr its resident blocks an SM.
+int tc_launch(const Plan& p, int Cin, int Cout, int K, int dil, int left, const TcArgs* a) {
+  const bool resident = p.regime == TC_RESIDENT;
+  return tc_dispatch(p.no, p.cc, resident, tc_layout(p.no, p.cc, Cin, Cout, K, dil, left, resident).total, a);
 }
 
-__host__ __device__ inline size_t scalar_smem(int K, int dil, int elem) {
-  return align128((size_t)CC * (TT_S + (K - 1) * dil) * elem) + (size_t)TO_S * K * CC * sizeof(float);
-}
-
-__global__ void __launch_bounds__(THREADS)
-conv1d_s1_tc_kernel(const __nv_bfloat16* __restrict__ x,  // (B, Cin, T)
-                    const __nv_bfloat16* __restrict__ w,  // (Cout, K, Cin)
-                    const float* __restrict__ bias,       // (Cout)
-                    __nv_bfloat16* __restrict__ y,        // (B, Cout, T)
-                    int Cin, int Cout, int T_, int K, int dil, int left, int pad_mode, int act) {
-  using T = __nv_bfloat16;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const TcLayout L = tc_layout(K, dil);
-  T* win = reinterpret_cast<T*>(smem);
-  T* bcol = reinterpret_cast<T*>(smem + L.bcol);
-  T* as = reinterpret_cast<T*>(smem + L.as);
-  float* out = reinterpret_cast<float*>(smem);  // after the last chunk
-
-  const int t0 = blockIdx.x * TT, o0 = blockIdx.y * TO, b = blockIdx.z;
-  const int nt = min(TT, T_ - t0), M = min(TO, Cout - o0);
-  const int mp = round_up(M, 16), span1 = (K - 1) * dil, right = span1 - left;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const T zero = Elem<T>::from_f(0.0f);
-  funcodec::TcAcc<FPW> acc;
-  acc.zero();
-
-  for (int c0 = 0; c0 < Cin; c0 += CC) {
-    const int cc = min(CC, Cin - c0);
-    const int kd = K * cc, kdp = round_up(kd, 16);
-    __syncthreads();  // the previous chunk's tiles are consumed
-    funcodec::stage_window(win, L.ldw, cc, TT + span1, x + ((size_t)b * Cin + c0) * T_, T_, t0 - left,
-                           -left, T_ + right, pad_mode, act);
-    // weights: as[m][k*cc + c] = w[o0 + m, k, c0 + c]; a full chunk of a
-    // layer with Cin % 8 == 0 moves as 16-byte vectors (8 channels)
-    if (cc == CC && Cin % 8 == 0) {
-      constexpr int V = CC / 8;  // vectors per (m, k) row
-      for (int i = threadIdx.x; i < mp * K * V; i += THREADS) {
-        const int m = i / (K * V), k = (i / V) % K, v = i % V;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (m < M) val = *reinterpret_cast<const uint4*>(w + ((size_t)(o0 + m) * K + k) * Cin + c0 + v * 8);
-        *reinterpret_cast<uint4*>(as + m * L.lda + k * CC + v * 8) = val;
-      }
-      for (int i = threadIdx.x; i < mp * (kdp - kd); i += THREADS)
-        as[(i / (kdp - kd)) * L.lda + kd + i % (kdp - kd)] = zero;
-    } else {
-      for (int i = threadIdx.x; i < mp * kdp; i += THREADS) {
-        const int m = i / kdp, r = i % kdp;
-        T v = zero;
-        if (m < M && r < kd) v = w[((size_t)(o0 + m) * K + r / cc) * Cin + c0 + r % cc];
-        as[m * L.lda + r] = v;
-      }
-    }
-    __syncthreads();
-    // im2col: bcol[k*cc + c][t] = win[c][t + k*dil]
-    for (int r = warp; r < kdp; r += N_WARPS) {
-      const T* src = win + (r % cc) * L.ldw + (r / cc) * dil;
-      for (int t = lane; t < TT; t += 32) bcol[r * LDB + t] = r < kd ? src[t] : zero;
-    }
-    __syncthreads();
-    acc.mma(as, L.lda, bcol, LDB, M, kd, TT);
-  }
-  __syncthreads();  // every warp is done with the window and the im2col tile
-  acc.store(out, LDO, M, TT);
-  __syncthreads();
-
-  for (int m = warp; m < M; m += N_WARPS) {
-    T* ym = y + ((size_t)b * Cout + o0 + m) * T_ + t0;
-    for (int t = lane; t < nt; t += 32) ym[t] = Elem<T>::from_f(out[m * LDO + t] + bias[o0 + m]);
-  }
-}
-
-template <typename T, int OPB>
-__global__ void __launch_bounds__(THREADS)
-conv1d_s1_scalar_kernel(const T* __restrict__ x,        // (B, Cin, T)
-                        const T* __restrict__ w,        // (Cout, K, Cin)
-                        const float* __restrict__ bias, // (Cout)
-                        T* __restrict__ y,              // (B, Cout, T)
-                        int Cin, int Cout, int T_, int K, int dil, int left, int pad_mode, int act) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int span1 = (K - 1) * dil, right = span1 - left, ldw = TT_S + span1;
-  T* win = reinterpret_cast<T*>(smem);
-  float* ws = reinterpret_cast<float*>(smem + align128((size_t)CC * ldw * sizeof(T)));  // [OPB][K][CC]
-
-  const int t0 = blockIdx.x * TT_S, o0 = blockIdx.y * OPB, b = blockIdx.z;
-  const int M = min(OPB, Cout - o0), t = threadIdx.x;
-  float acc[OPB];
-#pragma unroll
-  for (int m = 0; m < OPB; ++m) acc[m] = 0.0f;
-
-  for (int c0 = 0; c0 < Cin; c0 += CC) {
-    const int cc = min(CC, Cin - c0);
-    __syncthreads();
-    funcodec::stage_window(win, ldw, cc, ldw, x + ((size_t)b * Cin + c0) * T_, T_, t0 - left, -left,
-                           T_ + right, pad_mode, act);
-    for (int i = threadIdx.x; i < OPB * K * cc; i += THREADS) {
-      const int mk = i / cc, c = i % cc, m = mk / K;
-      ws[mk * CC + c] = m < M ? Elem<T>::to_f(w[((size_t)(o0 + m) * K + mk % K) * Cin + c0 + c]) : 0.0f;
-    }
-    __syncthreads();
-    for (int c = 0; c < cc; ++c) {
-      for (int k = 0; k < K; ++k) {
-        const float xv = Elem<T>::to_f(win[c * ldw + t + k * dil]);
-        const float* wk = ws + k * CC + c;
-#pragma unroll
-        for (int m = 0; m < OPB; ++m) acc[m] = fmaf(wk[m * K * CC], xv, acc[m]);
-      }
-    }
-  }
-  if (t0 + t < T_) {
-#pragma unroll
-    for (int m = 0; m < OPB; ++m)
-      if (m < M) y[((size_t)b * Cout + o0 + m) * T_ + t0 + t] = Elem<T>::from_f(acc[m] + bias[o0 + m]);
-  }
-}
-
-template <typename Kernel, typename T>
-int launch(Kernel kernel, size_t smem, dim3 grid, const void* x, const void* w, const void* bias, void* y,
-           int Cin, int Cout, int T_, int K, int dil, int left, int pad_mode, int act, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, THREADS, smem, stream>>>(static_cast<const T*>(x), static_cast<const T*>(w),
-                                          static_cast<const float*>(bias), static_cast<T*>(y), Cin, Cout,
-                                          T_, K, dil, left, pad_mode, act);
-  return (int)cudaGetLastError();
-}
-
-// The CUDA-core kernel with the fewest accumulators per thread that cover Cout.
-template <typename T>
-int launch_scalar(size_t smem, const void* x, const void* w, const void* bias, void* y, int B, int Cin,
-                  int Cout, int T_, int K, int dil, int left, int pad_mode, int act, cudaStream_t s) {
-  const int opb = Cout <= 1 ? 1 : (Cout <= 4 ? 4 : TO_S);
-  const dim3 grid((T_ + TT_S - 1) / TT_S, (Cout + opb - 1) / opb, B);
-  auto kernel = opb == 1 ? conv1d_s1_scalar_kernel<T, 1>
-                : (opb == 4 ? conv1d_s1_scalar_kernel<T, 4> : conv1d_s1_scalar_kernel<T, TO_S>);
-  return launch<decltype(kernel), T>(kernel, smem, grid, x, w, bias, y, Cin, Cout, T_, K, dil, left, pad_mode,
-                                     act, s);
-}
-
-bool use_tensor_cores(int Cin, int Cout, int dtype) { return dtype == 1 && Cin >= 16 && Cout >= 16; }
-
-size_t smem_bytes(int Cin, int Cout, int K, int dil, int dtype) {
-  if (use_tensor_cores(Cin, Cout, dtype)) return tc_layout(K, dil).total;
-  return scalar_smem(K, dil, dtype == 1 ? 2 : 4);
+bool bad_args(int Cin, int Cout, int K, int dil, int left, int dtype, int variant) {
+  return Cin <= 0 || Cout <= 0 || K < 1 || dil < 1 || left < 0 || left > (K - 1) * dil || (dtype != 0 && dtype != 1) ||
+         variant < 0 || variant > 1;
 }
 
 }  // namespace
 
-// x (B, Cin, T), w (Cout, K, Cin) in x's type (dtype 0: fp32, 1: bf16), bias
-// (Cout) fp32, y (B, Cout, T); all contiguous on the current device. pad_mode
-// 0/1/2 = reflect/replicate/zero, act 0/1/2/3 = none/ELU/ReLU/GELU. Launches
-// on `stream` and returns cudaGetLastError().
-extern "C" int conv1d_s1_launch(const void* x, const void* w, const void* bias, void* y, int B,
-                                int Cin, int Cout, int T_, int K, int dil, int left, int pad_mode,
-                                int act, int dtype, void* stream) {
-  if (B <= 0 || Cin <= 0 || Cout <= 0 || T_ <= 0 || K < 1 || dil < 1 || left < 0 ||
-      left > (K - 1) * dil || B > 65535 || (dtype != 0 && dtype != 1))
+using namespace funcodec::conv;
+
+// x (B, Cin, T), bias (Cout) fp32, y (B, Cout, T), all contiguous and 16-byte
+// aligned on the current device; dtype 0: fp32, 1: bf16. w in x's type, laid
+// out for the regime (conv1d_s1_regime): (Cout, K, Cin) for the thin and
+// legacy kernels, (Cin / CC, Cout, K, CC) with CC = conv1d_s1_chunk(...)
+// for the tensor-core kernels. pad_mode 0/1/2 = reflect/replicate/zero, act
+// 0/1/2/3 = none/ELU/ReLU/GELU; variant 0 picks the kernel, 1 forces the
+// legacy one. Launches on `stream` and returns cudaGetLastError().
+extern "C" int conv1d_s1_launch(const void* x, const void* w, const void* bias, void* y, int B, int Cin, int Cout,
+                                int T_, int K, int dil, int left, int pad_mode, int act, int dtype, int variant,
+                                void* stream) {
+  if (B <= 0 || B > 65535 || T_ <= 0 || bad_args(Cin, Cout, K, dil, left, dtype, variant))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = smem_bytes(Cin, Cout, K, dil, dtype);
-  if (use_tensor_cores(Cin, Cout, dtype)) {
-    const dim3 grid((T_ + TT - 1) / TT, (Cout + TO - 1) / TO, B);
-    return launch<decltype(&conv1d_s1_tc_kernel), __nv_bfloat16>(
-        conv1d_s1_tc_kernel, smem, grid, x, w, bias, y, Cin, Cout, T_, K, dil, left, pad_mode, act, s);
+  const Plan p = plan_of(Cin, Cout, K, dil, left, dtype, variant);
+  switch (p.regime) {
+    case THIN:
+      return thin_launch(x, w, bias, y, B, Cin, Cout, T_, K, left, pad_mode, act, s);
+    case TC_RESIDENT:
+    case TC_STREAMED: {
+      const TcArgs a{x, w, bias, y, B, Cin, Cout, T_, K, dil, left, pad_mode, act, s};
+      return tc_launch(p, Cin, Cout, K, dil, left, &a);
+    }
+    default:
+      return legacy_launch(x, w, bias, y, B, Cin, Cout, T_, K, dil, left, pad_mode, act, dtype, s);
   }
-  if (dtype == 1)
-    return launch_scalar<__nv_bfloat16>(smem, x, w, bias, y, B, Cin, Cout, T_, K, dil, left, pad_mode, act, s);
-  return launch_scalar<float>(smem, x, w, bias, y, B, Cin, Cout, T_, K, dil, left, pad_mode, act, s);
 }
 
-// Dynamic shared memory a block requests for this layer (the path the
-// launch would take).
-extern "C" int conv1d_s1_smem_bytes(int Cin, int Cout, int K, int dil, int dtype) {
-  return (int)smem_bytes(Cin, Cout, K, dil, dtype);
+// Which kernel conv1d_s1_launch runs: 0 legacy, 1 thin, 2 tensor cores with
+// resident weights, 3 with streamed weights (-1 on bad arguments).
+extern "C" int conv1d_s1_regime(int Cin, int Cout, int K, int dil, int left, int dtype, int variant) {
+  if (bad_args(Cin, Cout, K, dil, left, dtype, variant)) return -1;
+  return (int)plan_of(Cin, Cout, K, dil, left, dtype, variant).regime;
+}
+
+// Input channels a chunk of the tensor-core kernels (the packed weights'
+// CC), output channels a work item (NO); 0 for the other regimes.
+extern "C" int conv1d_s1_chunk(int Cin, int Cout, int K, int dil, int left, int dtype, int variant) {
+  if (bad_args(Cin, Cout, K, dil, left, dtype, variant)) return -1;
+  return plan_of(Cin, Cout, K, dil, left, dtype, variant).cc;
+}
+
+extern "C" int conv1d_s1_out_tile(int Cin, int Cout, int K, int dil, int left, int dtype, int variant) {
+  if (bad_args(Cin, Cout, K, dil, left, dtype, variant)) return -1;
+  return plan_of(Cin, Cout, K, dil, left, dtype, variant).no;
+}
+
+// Dynamic shared memory a block requests for this layer.
+extern "C" int conv1d_s1_smem_bytes(int Cin, int Cout, int K, int dil, int left, int dtype, int variant) {
+  if (bad_args(Cin, Cout, K, dil, left, dtype, variant)) return -1;
+  const Plan p = plan_of(Cin, Cout, K, dil, left, dtype, variant);
+  switch (p.regime) {
+    case THIN: return (int)thin_smem(Cin, Cout, K);
+    case TC_RESIDENT:
+    case TC_STREAMED:
+      return (int)tc_layout(p.no, p.cc, Cin, Cout, K, dil, left, p.regime == TC_RESIDENT).total;
+    default: return legacy_smem_bytes(Cin, Cout, K, dil, dtype);
+  }
+}
+
+// Blocks of the persistent tensor-core kernel that share an SM (its grid is
+// SMs times this, at most one block a work item); 0 for the other regimes,
+// -1 on a CUDA error.
+extern "C" int conv1d_s1_blocks_per_sm(int Cin, int Cout, int K, int dil, int left, int dtype, int variant) {
+  if (bad_args(Cin, Cout, K, dil, left, dtype, variant)) return -1;
+  const Plan p = plan_of(Cin, Cout, K, dil, left, dtype, variant);
+  if (p.regime != TC_RESIDENT && p.regime != TC_STREAMED) return 0;
+  return tc_launch(p, Cin, Cout, K, dil, left, nullptr);
 }

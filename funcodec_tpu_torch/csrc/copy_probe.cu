@@ -12,34 +12,44 @@
 // 2 * nbytes / 3.35 TB/s. What the probes measure is how close a hand-written
 // stream gets to that.
 //
-// scale_copy: the blocked copy of BlockSpec((rows, tile, L)). The grid is
-//   (ceil(T / tile), ceil(B / rows)); a block streams its rows' (tile, L) slabs,
-//   each contiguous, with 16-byte vector loads and stores, neighbouring threads
-//   on neighbouring addresses, four vectors in flight per thread. The ragged
-//   last tile is masked, so T need not be a multiple of tile (the JAX probe
-//   required Tp % tile == 0). Variant B's dimension_semantics (parallel /
-//   arbitrary grid axes) has no Hopper counterpart: blocks always run in
-//   parallel, in no order, on the 132 SMs. What B asked of the TPU -- what one
-//   grid step costs -- the port's sweep over tile and row counts asks of the
-//   card, down to tiles of a few KB per block.
+// scale_copy: the blocked copy of BlockSpec((rows, tile, L)). The tile and
+//   row count cut x (B, T, L) into the JAX probe's slabs, (ceil(T / tile),
+//   ceil(B / rows)) of them; the ragged last tile is masked (the JAX probe
+//   required Tp % tile == 0). A slab is not a block: each row segment
+//   of a slab is cut into equal pieces of at most 16 KB (1024 16-byte
+//   vectors), a block a piece, so a large tile does not leave a last wave of
+//   a few blocks (a grid of one block a slab lost 6-7% to torch.mul that
+//   way), no block takes a small remnant, and every thread issues all 4 of
+//   its loads before its stores. 4 vectors a thread measured
+//   ahead of 8 and 16, and of streaming cache hints (ld/st .cs), in bf16 and
+//   fp32. Variant B's dimension_semantics (parallel / arbitrary grid axes)
+//   has no Hopper counterpart: blocks always run in parallel, in no order,
+//   on the 132 SMs. What B asked of the TPU -- what one grid step costs --
+//   the sweep over tile and row counts asks of the card, down to slabs of
+//   4 KB.
 //
 // dma_copy: the Hopper form of pltpu.make_async_copy with DMA semaphores. A
-//   persistent grid of about one block per SM walks the (R, L) rows in chunks
-//   of chunk_rows, chunk c going to block c % gridDim.x. Each block holds two
-//   input and two output slots in shared memory and one mbarrier per input
-//   slot. One thread issues the 1-D TMA bulk load of the next chunk
-//   (cp.async.bulk ... mbarrier::complete_tx::bytes) before all threads wait on
-//   the current slot's barrier phase and scale it into an output slot; after
-//   fence.proxy.async one thread issues the bulk store of that slot
-//   (cp.async.bulk.global.shared::cta.bulk_group, commit_group), and waits with
-//   cp.async.bulk.wait_group.read before an output slot is written again.
-//   The TPU probe moved chunks of 2000 rows (512 KB of bf16 at L = 128) through
-//   VMEM; four such slots are 2 MB, and a block has 227 KB of shared memory, so
-//   chunk_rows is the port's own parameter (the wrapper picks 32 KB chunks). A
-//   bulk copy needs 16-byte-aligned addresses and sizes: the wrapper refuses a
-//   row that is not a multiple of 16 bytes or a misaligned pointer, and the
-//   kernel takes a row count that is not a multiple of chunk_rows (the last
-//   chunk is shorter).
+//   persistent grid (SMs x resident blocks) walks the (R, L) rows in chunks
+//   of chunk_rows, chunk c going to block c % gridDim.x. A block holds a
+//   ring of 4 slots in shared memory (fewer, down to 2, where 4 chunks do
+//   not fit a block), one "full" and one "empty" mbarrier a slot, one producer warp and four consumer warps. The
+//   producer's lane 0 keeps the ring full: for each chunk it waits until the
+//   slot's last store has read it (empty), then issues the 1-D TMA bulk load
+//   (cp.async.bulk ... mbarrier::complete_tx::bytes). The consumers wait on
+//   the slot's full phase, double the chunk in place, fence.proxy.async, and
+//   one of them issues the bulk store of the same slot
+//   (cp.async.bulk.global.shared::cta.bulk_group); once the store before it
+//   has read its slot (cp.async.bulk.wait_group.read 1) it arrives on that
+//   slot's empty barrier. In place, a stage is one slot, half the shared
+//   memory of separate input and output slots; 4 x 32 KB,
+//   one block an SM, measured ahead of 6 x 16 KB (two blocks an SM),
+//   3 x 16 KB and 8 x 8 KB. The TPU probe moved
+//   chunks of 2000 rows (512 KB of bf16 at L = 128) through VMEM, which does
+//   not fit 227 KB of shared memory, so chunk_rows is the port's own
+//   parameter. A bulk copy needs 16-byte-aligned addresses and sizes: the
+//   wrapper refuses a row that is not a multiple of 16 bytes or a misaligned
+//   pointer, and the kernel takes a row count that is not a multiple of
+//   chunk_rows (the last chunk is shorter).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -48,8 +58,12 @@
 namespace {
 
 constexpr int SCALE_THREADS = 256;
-constexpr int SCALE_UNROLL = 4;  // 16-byte vectors in flight per thread
-constexpr int DMA_THREADS = 256;
+constexpr int SCALE_UNROLL = 4;  // 16-byte vectors in flight per thread: all loads, then all stores
+constexpr long long PIECE = SCALE_THREADS * SCALE_UNROLL;  // the most vectors a block takes (16 KB)
+constexpr int DMA_CONSUMERS = 128;                         // four consumer warps
+constexpr int DMA_THREADS = DMA_CONSUMERS + 32;            // and one producer warp
+constexpr int DMA_STAGES = 4;     // the ring's slots, where they fit a block
+constexpr int SMEM_OPTIN = 232448;  // the shared memory an H100 block may ask for
 constexpr int SLOT_ALIGN = 128;
 
 enum DType { DT_F32 = 0, DT_BF16 = 1 };
@@ -83,33 +97,32 @@ __device__ __forceinline__ uint4 scale2<DT_BF16>(uint4 v) {
   return v;
 }
 
-// n16 16-byte vectors from src to dst, doubled, by the whole block
-template <int DT>
-__device__ __forceinline__ void stream_slab(const uint4* __restrict__ src, uint4* __restrict__ dst, long long n16) {
-  const long long step = (long long)blockDim.x * SCALE_UNROLL;
-  long long i = threadIdx.x;
-  for (; i + (SCALE_UNROLL - 1) * (long long)blockDim.x < n16; i += step) {
-    uint4 v[SCALE_UNROLL];
-#pragma unroll
-    for (int u = 0; u < SCALE_UNROLL; ++u) v[u] = __ldcs(src + i + u * blockDim.x);
-#pragma unroll
-    for (int u = 0; u < SCALE_UNROLL; ++u) __stcs(dst + i + u * blockDim.x, scale2<DT>(v[u]));
-  }
-  for (; i < n16; i += blockDim.x) __stcs(dst + i, scale2<DT>(__ldcs(src + i)));
-}
-
+// Block i: piece `part` of row r of slab (group, tile), in slab-major order,
+// a slab's rows one after the other; a row segment of n16 vectors is cut
+// into ppr pieces of piece16 = ceil(n16 / ppr) vectors each.
 template <int DT>
 __global__ void __launch_bounds__(SCALE_THREADS)
     scale_copy_kernel(const uint4* __restrict__ x, uint4* __restrict__ y, int B, long long T, long long row16,
-                      int tile, int rows) {
-  const long long t0 = (long long)blockIdx.x * tile;
-  const long long n_t = T - t0 < tile ? T - t0 : tile;  // the ragged last tile
-  const long long n16 = n_t * row16;
-  for (int r = 0; r < rows; ++r) {
-    const long long b = (long long)blockIdx.y * rows + r;
-    if (b >= B) return;
-    const long long off = (b * T + t0) * row16;
-    stream_slab<DT>(x + off, y + off, n16);
+                      long long tile, int rows, int n_tiles, int ppr, int piece16) {
+  const int pps = rows * ppr, slab = blockIdx.x / pps, rem = blockIdx.x - slab * pps;
+  const int r = rem / ppr, part = rem - r * ppr, group = slab / n_tiles;
+  const long long b = (long long)group * rows + r, t0 = (long long)(slab - group * n_tiles) * tile;
+  const long long n16 = (T - t0 < tile ? T - t0 : tile) * row16;  // the ragged last tile
+  const long long lo = (long long)part * piece16;
+  if (b >= B || lo >= n16) return;
+  const int n = (int)(n16 - lo < piece16 ? n16 - lo : piece16);
+  const uint4* src = x + (b * T + t0) * row16 + lo;
+  uint4* dst = y + (b * T + t0) * row16 + lo;
+  uint4 v[SCALE_UNROLL];
+#pragma unroll
+  for (int u = 0; u < SCALE_UNROLL; ++u) {
+    const int i = threadIdx.x + u * SCALE_THREADS;
+    if (i < n) v[u] = src[i];
+  }
+#pragma unroll
+  for (int u = 0; u < SCALE_UNROLL; ++u) {
+    const int i = threadIdx.x + u * SCALE_THREADS;
+    if (i < n) dst[i] = scale2<DT>(v[u]);
   }
 }
 
@@ -126,6 +139,15 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
 __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes)
                : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// the consumer warps' own barrier (barrier 0 is __syncthreads)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(DMA_CONSUMERS) : "memory");
 }
 
 // Wait until the phase of parity `parity` of the barrier has completed.
@@ -182,11 +204,10 @@ __device__ __forceinline__ void fence_mbar_init() {
 template <int DT>
 __global__ void __launch_bounds__(DMA_THREADS)
     dma_copy_kernel(const char* __restrict__ x, char* __restrict__ y, long long n_rows, int row_bytes,
-                    int chunk_rows, int slot_bytes) {
+                    int chunk_rows, int slot_bytes, int stages) {
   extern __shared__ __align__(SLOT_ALIGN) unsigned char smem[];
-  unsigned char* in_slot[2] = {smem, smem + slot_bytes};
-  unsigned char* out_slot[2] = {smem + 2 * slot_bytes, smem + 3 * slot_bytes};
-  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + 4 * slot_bytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + (size_t)stages * slot_bytes);
+  uint64_t* empty = full + stages;
 
   const long long n_chunks = (n_rows + chunk_rows - 1) / chunk_rows;
   // this block's chunks: blockIdx.x, blockIdx.x + gridDim.x, ...
@@ -197,42 +218,47 @@ __global__ void __launch_bounds__(DMA_THREADS)
     return (uint32_t)((r < chunk_rows ? r : chunk_rows) * row_bytes);
   };
   auto offset_of = [&](long long c) { return c * chunk_rows * (long long)row_bytes; };
-  const bool leader = threadIdx.x == 0;
+  auto slot_of = [&](long long k) { return smem + (size_t)(k % stages) * slot_bytes; };
 
-  if (leader) {
-    mbar_init(&bar[0], 1);
-    mbar_init(&bar[1], 1);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 1);
+    }
     fence_mbar_init();
   }
   __syncthreads();
-  if (leader && count > 0) {
-    const long long c = chunk_of(0);
-    mbar_arrive_expect_tx(&bar[0], bytes_of(c));
-    bulk_load(in_slot[0], x + offset_of(c), bytes_of(c), &bar[0]);
+
+  if (threadIdx.x >= DMA_CONSUMERS) {  // the producer warp: lane 0 keeps the ring full
+    if (threadIdx.x == DMA_CONSUMERS)
+      for (long long k = 0; k < count; ++k) {
+        const int s = (int)(k % stages);
+        const long long use = k / stages;
+        if (use > 0) mbar_wait(&empty[s], (uint32_t)((use - 1) & 1));  // the slot's last store has read it
+        const long long c = chunk_of(k);
+        mbar_arrive_expect_tx(&full[s], bytes_of(c));
+        bulk_load(slot_of(k), x + offset_of(c), bytes_of(c), &full[s]);
+      }
+    return;
   }
+
+  const bool leader = threadIdx.x == 0;
   for (long long k = 0; k < count; ++k) {
-    const int slot = (int)(k & 1);
+    const int s = (int)(k % stages);
     const long long c = chunk_of(k);
     const uint32_t nbytes = bytes_of(c);
-    if (leader) {
-      if (k + 1 < count) {
-        // the other input slot was last read in iteration k - 1, before its closing barrier
-        const long long cn = chunk_of(k + 1);
-        mbar_arrive_expect_tx(&bar[slot ^ 1], bytes_of(cn));
-        bulk_load(in_slot[slot ^ 1], x + offset_of(cn), bytes_of(cn), &bar[slot ^ 1]);
-      }
-      bulk_wait_read<1>();  // the store of iteration k - 2 has left out_slot[slot]
-    }
-    __syncthreads();
-    mbar_wait(&bar[slot], (uint32_t)((k >> 1) & 1));
-    const uint4* src = reinterpret_cast<const uint4*>(in_slot[slot]);
-    uint4* dst = reinterpret_cast<uint4*>(out_slot[slot]);
-    for (uint32_t i = threadIdx.x; i < nbytes / 16; i += blockDim.x) dst[i] = scale2<DT>(src[i]);
+    mbar_wait(&full[s], (uint32_t)((k / stages) & 1));
+    uint4* slot = reinterpret_cast<uint4*>(slot_of(k));
+    for (uint32_t i = threadIdx.x; i < nbytes / 16; i += DMA_CONSUMERS) slot[i] = scale2<DT>(slot[i]);
     fence_proxy_async();  // these generic-proxy writes are seen by the bulk store
-    __syncthreads();
+    consumers_sync();
     if (leader) {
-      bulk_store(y + offset_of(c), out_slot[slot], nbytes);
+      bulk_store(y + offset_of(c), slot, nbytes);
       bulk_commit();
+      if (k > 0) {
+        bulk_wait_read<1>();  // the store of chunk k - 1 has left its slot
+        mbar_arrive(&empty[(k - 1) % stages]);
+      }
     }
   }
   if (leader) bulk_wait_all();
@@ -243,65 +269,90 @@ int slot_bytes_for(int chunk_rows, int row_bytes) {
   return (int)((b + SLOT_ALIGN - 1) / SLOT_ALIGN * SLOT_ALIGN);
 }
 
+int smem_for(int chunk_rows, int row_bytes, int stages) {
+  return stages * slot_bytes_for(chunk_rows, row_bytes) + 2 * stages * (int)sizeof(uint64_t);
+}
+
+// DMA_STAGES slots, fewer (down to 2) where they do not fit a block
+int stages_for(int chunk_rows, int row_bytes) {
+  int stages = DMA_STAGES;
+  while (stages > 2 && smem_for(chunk_rows, row_bytes, stages) > SMEM_OPTIN) --stages;
+  return stages;
+}
+
+// SMs and resident blocks an SM of `kernel` (threads, smem), or a CUDA error
+template <typename Kernel>
+cudaError_t residency(Kernel kernel, int threads, int smem, int& sms, int& per_sm) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess && smem > 0)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err == cudaSuccess && per_sm < 1) err = cudaErrorInvalidValue;
+  return err;
+}
+
 }  // namespace
 
 // o = 2 * x over x (B, T, L) with row_bytes = L * element size, a multiple of
-// 16; x and y 16-byte aligned. Grid (ceil(T / tile), ceil(B / rows)).
+// 16; x and y 16-byte aligned. Slabs of (rows, tile, L), a block an equal
+// piece (at most 16 KB) of a slab's row.
 extern "C" int scale_copy_launch(const void* x, void* y, int B, long long T, int row_bytes, int tile, int rows,
                                  int dtype, void* stream) {
-  if (B <= 0 || T <= 0 || row_bytes <= 0 || row_bytes % 16 || tile <= 0 || rows <= 0)
+  if (B <= 0 || T <= 0 || row_bytes <= 0 || row_bytes % 16 || tile <= 0 || rows <= 0 ||
+      (dtype != DT_BF16 && dtype != DT_F32))
     return (int)cudaErrorInvalidValue;
-  const long long gx = (T + tile - 1) / tile, gy = (B + rows - 1) / rows;
-  if (gx > 0x7fffffffLL || gy > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)gx, (unsigned)gy);
-  const long long row16 = row_bytes / 16;
+  const long long n_tiles = (T + tile - 1) / tile, groups = (B + rows - 1) / rows;
+  const long long seg16 = (tile < T ? tile : T) * (row_bytes / 16);  // a full row segment
+  const long long ppr = (seg16 + PIECE - 1) / PIECE;
+  if (n_tiles * groups * rows * ppr > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)(n_tiles * groups * rows * ppr);
+  const int piece16 = (int)((seg16 + ppr - 1) / ppr);
   auto s = static_cast<cudaStream_t>(stream);
   const uint4* xs = static_cast<const uint4*>(x);
   uint4* ys = static_cast<uint4*>(y);
   if (dtype == DT_BF16)
-    scale_copy_kernel<DT_BF16><<<grid, SCALE_THREADS, 0, s>>>(xs, ys, B, T, row16, tile, rows);
-  else if (dtype == DT_F32)
-    scale_copy_kernel<DT_F32><<<grid, SCALE_THREADS, 0, s>>>(xs, ys, B, T, row16, tile, rows);
+    scale_copy_kernel<DT_BF16><<<grid, SCALE_THREADS, 0, s>>>(xs, ys, B, T, row_bytes / 16, tile, rows, (int)n_tiles,
+                                                              (int)ppr, piece16);
   else
-    return (int)cudaErrorInvalidValue;
+    scale_copy_kernel<DT_F32><<<grid, SCALE_THREADS, 0, s>>>(xs, ys, B, T, row_bytes / 16, tile, rows, (int)n_tiles,
+                                                             (int)ppr, piece16);
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory a dma_copy block needs: 4 slots and 2 mbarriers.
+// Dynamic shared memory a dma_copy block needs: its ring's slots and 2 mbarriers a slot.
 extern "C" int dma_copy_smem_bytes(int chunk_rows, int row_bytes) {
-  return 4 * slot_bytes_for(chunk_rows, row_bytes) + 2 * (int)sizeof(uint64_t);
+  return smem_for(chunk_rows, row_bytes, stages_for(chunk_rows, row_bytes));
 }
 
 // o = 2 * x over n_rows rows of row_bytes (a multiple of 16), chunk_rows rows
-// per bulk copy; x and y 16-byte aligned. One block per SM (fewer if there
-// are fewer chunks).
+// per bulk copy through a ring of 4 slots (fewer where they do not fit); x and
+// y 16-byte aligned. A persistent grid of SMs x resident blocks (fewer if
+// there are fewer chunks).
 extern "C" int dma_copy_launch(const void* x, void* y, long long n_rows, int row_bytes, int chunk_rows, int dtype,
                                void* stream) {
-  if (n_rows <= 0 || row_bytes <= 0 || row_bytes % 16 || chunk_rows <= 0) return (int)cudaErrorInvalidValue;
+  if (n_rows <= 0 || row_bytes <= 0 || row_bytes % 16 || chunk_rows <= 0 || (dtype != DT_BF16 && dtype != DT_F32))
+    return (int)cudaErrorInvalidValue;
   if ((long long)chunk_rows * row_bytes >= (1LL << 20)) return (int)cudaErrorInvalidValue;  // mbarrier tx count
-  const int smem = dma_copy_smem_bytes(chunk_rows, row_bytes);
-  int device = 0, sms = 0, smem_max = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  const int stages = stages_for(chunk_rows, row_bytes);
+  const int smem = smem_for(chunk_rows, row_bytes, stages);
+  int sms = 0, per_sm = 0;
+  const cudaError_t err = dtype == DT_BF16 ? residency(dma_copy_kernel<DT_BF16>, DMA_THREADS, smem, sms, per_sm)
+                                           : residency(dma_copy_kernel<DT_F32>, DMA_THREADS, smem, sms, per_sm);
   if (err != cudaSuccess) return (int)err;
-  if (smem > smem_max) return (int)cudaErrorInvalidValue;
   const long long n_chunks = (n_rows + chunk_rows - 1) / chunk_rows;
-  const long long grid = n_chunks < sms ? n_chunks : sms;
+  const long long grid = n_chunks < (long long)sms * per_sm ? n_chunks : (long long)sms * per_sm;
   auto s = static_cast<cudaStream_t>(stream);
   const char* xs = static_cast<const char*>(x);
   char* ys = static_cast<char*>(y);
   const int slot = slot_bytes_for(chunk_rows, row_bytes);
-  if (dtype == DT_BF16) {
-    err = cudaFuncSetAttribute(dma_copy_kernel<DT_BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    dma_copy_kernel<DT_BF16><<<(unsigned)grid, DMA_THREADS, smem, s>>>(xs, ys, n_rows, row_bytes, chunk_rows, slot);
-  } else if (dtype == DT_F32) {
-    err = cudaFuncSetAttribute(dma_copy_kernel<DT_F32>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    dma_copy_kernel<DT_F32><<<(unsigned)grid, DMA_THREADS, smem, s>>>(xs, ys, n_rows, row_bytes, chunk_rows, slot);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (dtype == DT_BF16)
+    dma_copy_kernel<DT_BF16><<<(unsigned)grid, DMA_THREADS, smem, s>>>(xs, ys, n_rows, row_bytes, chunk_rows, slot,
+                                                                       stages);
+  else
+    dma_copy_kernel<DT_F32><<<(unsigned)grid, DMA_THREADS, smem, s>>>(xs, ys, n_rows, row_bytes, chunk_rows, slot,
+                                                                      stages);
   return (int)cudaGetLastError();
 }
+

@@ -347,6 +347,14 @@ __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.a
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
 
+// Pins the accumulators around the asynchronous product (as CUTLASS's
+// warpgroup_fence_operand does): d is an output of the wgmma asm, not of
+// wgmma.wait_group, so nothing else keeps the compiler from reading it early.
+__device__ __forceinline__ void fence_operand(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
 __device__ __forceinline__ void group_barrier(int id) { asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(WG) : "memory"); }
 
 __device__ __forceinline__ uint32_t pack_bf(float lo, float hi) {
@@ -451,6 +459,7 @@ rvq_encode_wgmma_kernel(const __nv_bfloat16* __restrict__ x,         // (n, D)
           mbar_wait(bars + 8 * stage, phase);
           const uint64_t desc_b = wgmma_desc(base + stage * STAGE_BYTES);
           float d[64];
+          fence_operand(d);
           wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < 8; ++kk) {
@@ -461,6 +470,7 @@ rvq_encode_wgmma_kernel(const __nv_bfloat16* __restrict__ x,         // (n, D)
           }
           wgmma_commit();
           wgmma_wait_all();
+          fence_operand(d);
           const float* e2 = reinterpret_cast<const float*>(smem + stage * STAGE_BYTES + CHUNK_BYTES);
           const int bin0 = ch * CHUNK + 2 * q4;
 #pragma unroll
@@ -476,6 +486,12 @@ rvq_encode_wgmma_kernel(const __nv_bfloat16* __restrict__ x,         // (n, D)
             s = 2.0f * d[4 * j + 3] - e.y;
             if (s > best1) best1 = s, bi1 = bin + 1;
           }
+          // The ||E||^2 values were read through the generic proxy and the
+          // stage's next bulk copy writes through the async proxy: without
+          // this fence ptxas left the last loads' results to be consumed
+          // after the arrive, and now and then the producer's next copy
+          // overwrote them first (one token of a launch took another codeword).
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
           mbar_arrive(bars + 8 * (STAGES + stage));
           if (++stage == STAGES) stage = 0, phase ^= 1;
         }

@@ -42,8 +42,12 @@ SIGNATURES = {
     "funcodec_cuda_error_string": (ctypes.c_char_p, [_I]),
     "rvq_encode_launch": (_I, [_P] * 6 + [_I] * 5 + [_P]),
     "rvq_encode_smem_bytes": (_I, [_I]),
-    "conv1d_s1_launch": (_I, [_P] * 4 + [_I] * 10 + [_P]),
-    "conv1d_s1_smem_bytes": (_I, [_I] * 5),
+    "conv1d_s1_launch": (_I, [_P] * 4 + [_I] * 11 + [_P]),
+    "conv1d_s1_regime": (_I, [_I] * 7),
+    "conv1d_s1_chunk": (_I, [_I] * 7),
+    "conv1d_s1_out_tile": (_I, [_I] * 7),
+    "conv1d_s1_smem_bytes": (_I, [_I] * 7),
+    "conv1d_s1_blocks_per_sm": (_I, [_I] * 7),
     "resblock_tgn_launch": (_I, [_I] + [_P] * 10 + [_I] * 11 + [_P]),
     "resblock_tgn_kind": (_I, [_I] * 7),
     "resblock_tgn_blocks_per_sm": (_I, [_I] * 8),

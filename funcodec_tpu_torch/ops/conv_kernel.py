@@ -1,8 +1,16 @@
-"""Fused stride-1 conv1d: the CUDA kernel's wrapper and its plain version.
+"""Fused stride-1 conv1d: the CUDA kernels' wrapper and their plain version.
 
 Counterpart of funcodec_tpu/ops/conv_pallas.py. ``fused_conv1d_s1`` computes
 [act ->] pad -> stride-1 dilated "same" conv1d + bias on torch's (B, C, T)
-layout, reading x once and writing y once (csrc/conv1d_s1.cu). Its plain
+layout, reading x once and writing y once (csrc/conv1d_s1.cu). The launch
+picks one of three kernels from the shapes; ``plan`` mirrors that choice:
+a bytes-bound stream for one input or one output channel ("thin"), a
+persistent tensor-core kernel over (sample, time tile, output-channel tile)
+work items (``work_items`` mirrors their order) with the weights resident
+or streamed, and the first kernel ("legacy", csrc/conv1d_s1_legacy.cu) for
+fp32 and what the others do not take. ``variant="legacy"`` forces the first
+kernel (timing and tests). The weights reach the kernel as
+``packed_conv_weights`` lays them out, cached on the weight tensor. Its plain
 version ``fused_conv1d_s1_reference`` does the same arithmetic in plain
 torch: the activation in fp32 rounded to x's type (ELU as exp(min(x, 0)) - 1),
 the pad, an fp32 sum of the tap products with the fp32 bias, one rounding to
@@ -23,7 +31,7 @@ requires grad, with grad enabled, raises (training is slice B).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,6 +46,134 @@ LAUNCHES = 0
 PAD_MODES = {"reflect": 0, "replicate": 1, "constant": 2, "zero": 2}
 ACTS = {None: 0, "elu": 1, "relu": 2, "gelu": 3}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the device code a call may ask for (csrc/conv1d_s1.cu conv1d_s1_launch)
+VARIANTS = {"auto": 0, "legacy": 1}
+# the kernels of csrc/conv1d_s1.cu, numbered as conv1d_s1_regime returns them
+REGIMES = ("legacy", "thin", "tc_resident", "tc_streamed")
+
+# csrc/conv1d_s1.cuh: time steps a tensor-core work item, a block's shared memory,
+# an SM's (1 KB of it reserved for each resident block), blocks an SM at most
+TILE = 256
+MAX_SMEM = 232_448
+SM_SMEM = 233_472
+MAX_BLOCKS = 2
+
+
+class Plan(NamedTuple):
+    regime: str
+    out_tile: int  # output channels a tensor-core work item (NO), else 0
+    chunk: int  # input channels a chunk of the tensor-core kernels (CC), else 0
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _align128(v: int) -> int:
+    return _round_up(v, 128)
+
+
+def tc_layout(no: int, cc: int, cin: int, cout: int, K: int, dil: int, left: int, resident: bool) -> int:
+    """Shared memory (bytes) of a tensor-core block (csrc/conv1d_s1.cuh
+    tc_layout): weight chunks (all of them, or two stages), two window
+    buffers around the time-major chunk, the output tile where it does not
+    fit over a window buffer and the chunk, the bias, a dummy row."""
+    span = (K - 1) * dil
+    halo_l = _round_up(left, 8)
+    win = TILE + halo_l + _round_up(span - left, 8)
+    if (win // 8) % 2 == 0:
+        win += 8
+    wst = _align128(no * (K * cc + 8) * 2)
+    raw = _align128(cc * win * 2 + 64)
+    xe = _align128((TILE + span) * (cc + 8) * 2)
+    out = _align128(no * (TILE + 8) * 2)
+    return ((cin // cc if resident else 2) * wst + 2 * raw + xe + (0 if out <= raw + xe else out)
+            + _align128(cout * 4) + 128)
+
+
+def tc_blocks_per_sm(smem: int) -> int:
+    """Blocks of a tensor-core kernel with `smem` bytes of shared memory that
+    fit on an SM, 0 where one does not fit (csrc/conv1d_s1.cuh tc_blocks_per_sm)."""
+    return 0 if smem > MAX_SMEM else min(SM_SMEM // (smem + 1024), MAX_BLOCKS)
+
+
+def thin_applies(cin: int, cout: int, K: int, dil: int, left: int) -> bool:
+    return ((cin == 1 or cout == 1) and dil == 1 and max(cin, cout) <= 2048 and K in (3, 5, 7)
+            and left in ((K - 1) - (K - 1) // 2, K - 1))
+
+
+def plan(cin: int, cout: int, K: int, dil: int, left: int, dtype: torch.dtype, variant: str = "auto") -> Plan:
+    """The kernel conv1d_s1_launch runs for a layer (csrc/conv1d_s1.cu plan_of)."""
+    if VARIANTS[variant] == 1 or dtype != torch.bfloat16:
+        return Plan("legacy", 0, 0)
+    if thin_applies(cin, cout, K, dil, left):
+        return Plan("thin", 0, 0)
+    if cin % 16 or cout % 16:
+        return Plan("legacy", 0, 0)
+    no = next(n for n in (64, 32, 16) if cout % n == 0)
+    # the weights resident before streamed, chunks of 32 before 16: the first
+    # that keeps the most blocks on an SM
+    best, best_blocks = Plan("legacy", 0, 0), 0
+    for resident in (True, False):
+        for cc in (32, 16):
+            if cin % cc or (resident and no != cout):
+                continue
+            blocks = tc_blocks_per_sm(tc_layout(no, cc, cin, cout, K, dil, left, resident))
+            if blocks > best_blocks:
+                best, best_blocks = Plan("tc_resident" if resident else "tc_streamed", no, cc), blocks
+    return best
+
+
+def work_items(block: int, n_blocks: int, B: int, n_t: int, n_o: int) -> List[Tuple[int, int, int]]:
+    """The (sample, time tile, output-channel tile) work items block `block`
+    of a persistent grid of n_blocks takes, in its order: items block,
+    block + n_blocks, ... of the B * n_t * n_o items numbered
+    (sample * n_t + tile) * n_o + o_tile (csrc/conv1d_s1.cu conv1d_s1_tc)."""
+    out = []
+    for item in range(block, B * n_t * n_o, n_blocks):
+        bt, o = divmod(item, n_o)
+        out.append((*divmod(bt, n_t), o))
+    return out
+
+
+def _param_key(p: Optional[torch.Tensor]):
+    if p is None:
+        return None
+    # an inference tensor has no version counter and cannot be updated in place
+    return (p.data_ptr(), 0 if p.is_inference() else p._version, p.dtype, p.device, tuple(p.shape))
+
+
+def pack_weight(weight: torch.Tensor, dtype: torch.dtype, chunk: int) -> torch.Tensor:
+    """weight (Cout, Cin, K) as a kernel reads it, in `dtype`: (Cout, K, Cin)
+    for the thin and legacy kernels (chunk 0); (Cin / chunk, Cout, K, chunk)
+    for the tensor-core kernels, so a chunk's slice of an output-channel tile
+    is contiguous rows."""
+    w = weight.detach().to(dtype)
+    if chunk == 0:
+        return w.permute(0, 2, 1).contiguous()
+    cout, cin, K = w.shape
+    return w.reshape(cout, cin // chunk, chunk, K).permute(1, 0, 3, 2).contiguous()
+
+
+def packed_conv_weights(weight: torch.Tensor, bias: Optional[torch.Tensor], dtype: torch.dtype,
+                        chunk: int) -> Dict[str, torch.Tensor]:
+    """{"w": pack_weight(weight, dtype, chunk), "bias": fp32 (Cout,), zeros
+    when bias is None}. Cached on the weight tensor and rebuilt when the
+    weight's or the bias's storage or version changes (load_state_dict, an
+    in-place update), for another bias tensor, dtype or chunk."""
+    key = (dtype, chunk, _param_key(weight), None if bias is None else id(bias), _param_key(bias))
+    cached = getattr(weight, "_conv1d_s1_pack", None)
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    with torch.no_grad():
+        pack = dict(
+            w=pack_weight(weight, dtype, chunk),
+            bias=(torch.zeros(weight.shape[0], device=weight.device) if bias is None
+                  else bias.detach().float().contiguous()),
+            bias_ref=bias,  # keeps id(bias) in the key from naming another tensor
+        )
+    weight._conv1d_s1_pack = (key, pack)
+    return pack
 
 
 def apply_act(x: torch.Tensor, act: Optional[str]) -> torch.Tensor:
@@ -104,15 +240,22 @@ def fused_conv1d_s1(
     dilation: int = 1,
     pad_mode: str = "reflect",
     act: Optional[str] = None,
+    *,
+    variant: str = "auto",
 ) -> Optional[torch.Tensor]:
     """Fused [act ->] pad -> conv (stride 1). x (B, Cin, T), weight
-    (Cout, Cin, K) -> (B, Cout, T), or None when the layer does not qualify."""
+    (Cout, Cin, K) -> (B, Cout, T), or None when the layer does not qualify.
+    ``variant`` picks the device code ("auto": the kernel ``plan`` names;
+    "legacy": the first kernel); it exists for timing and tests and changes
+    no result beyond the summation order."""
     if x.dim() != 3 or weight.dim() != 3:
         return None
     if not qualifies(x.shape[-1], weight.shape[-1], left, right, dilation, pad_mode):
         return None
     if act not in ACTS:
         raise ValueError(f"unsupported fused act: {act}")
+    if variant not in VARIANTS:
+        raise ValueError(f"fused_conv1d_s1: variant {variant!r} is not one of {sorted(VARIANTS)}")
     check_no_grad("fused_conv1d_s1", x, weight, bias)
     if x.device.type == "cpu":
         return fused_conv1d_s1_reference(x, weight, bias, left, right, dilation, pad_mode, act)
@@ -125,10 +268,10 @@ def fused_conv1d_s1(
     if w_cin != Cin:
         raise ValueError(f"fused_conv1d_s1: weight {tuple(weight.shape)} for x {tuple(x.shape)}")
     xc = x.contiguous()
-    w = weight.to(x.dtype).permute(0, 2, 1).contiguous()  # (Cout, K, Cin)
-    b = torch.zeros(Cout, device=x.device) if bias is None else bias.float().contiguous()
+    chunk = build.load().conv1d_s1_chunk(Cin, Cout, K, dilation, left, DTYPES[x.dtype], VARIANTS[variant])
+    pack = packed_conv_weights(weight, bias, x.dtype, chunk)
     y = torch.empty((B, Cout, T), dtype=x.dtype, device=x.device)
-    launch_conv1d_s1(xc, w, b, y, dilation, left, pad_mode, act)
+    launch_conv1d_s1(xc, pack["w"], pack["bias"], y, dilation, left, pad_mode, act, variant)
     return y
 
 
@@ -141,17 +284,25 @@ def launch_conv1d_s1(
     left: int,
     pad_mode: str,
     act: Optional[str],
+    variant: str = "auto",
 ) -> None:
     """Launch csrc/conv1d_s1.cu on the current stream of x's device.
 
-    x (B, Cin, T), w (Cout, K, Cin) in x's type, bias (Cout,) fp32; writes
-    y (B, Cout, T)."""
+    x (B, Cin, T), bias (Cout,) fp32, w in x's type as pack_weight lays it
+    out for the kernel the launch runs: (Cout, K, Cin), or (Cin / CC, Cout,
+    K, CC) for a tensor-core kernel; writes y (B, Cout, T)."""
     global LAUNCHES
     B, Cin, T = x.shape
-    Cout, K, _ = w.shape
+    if variant not in VARIANTS:
+        raise ValueError(f"conv1d_s1: variant {variant!r} is not one of {sorted(VARIANTS)}")
+    Cout, K = (w.shape[1], w.shape[2]) if w.dim() == 4 else (w.shape[0], w.shape[1])
+    lib = build.load()
+    dt, v = DTYPES.get(x.dtype, -1), VARIANTS[variant]
+    chunk = lib.conv1d_s1_chunk(Cin, Cout, K, dilation, left, dt, v) if dt >= 0 else 0
+    w_shape = (Cin // chunk, Cout, K, chunk) if chunk > 0 else (Cout, K, Cin)
     expect = {
         "x": (x, x.dtype, (B, Cin, T)),
-        "w": (w, x.dtype, (Cout, K, Cin)),
+        "w": (w, x.dtype, w_shape),
         "bias": (bias, torch.float32, (Cout,)),
         "y": (y, x.dtype, (B, Cout, T)),
     }
@@ -163,10 +314,9 @@ def launch_conv1d_s1(
                              f"16-byte aligned {dtype}{shape}")
     if B > 65535 or T >= 2**31:
         raise ValueError(f"conv1d_s1: x {tuple(x.shape)} exceeds the kernel's grid")
-    lib = build.load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.conv1d_s1_launch(x.data_ptr(), w.data_ptr(), bias.data_ptr(), y.data_ptr(), B, Cin, Cout,
-                                  T, K, dilation, left, PAD_MODES[pad_mode], ACTS[act], DTYPES[x.dtype], stream)
+                                  T, K, dilation, left, PAD_MODES[pad_mode], ACTS[act], dt, v, stream)
     build.check(lib, rc, "conv1d_s1_launch")
     LAUNCHES += 1

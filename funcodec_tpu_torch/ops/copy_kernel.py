@@ -5,10 +5,12 @@ Counterparts of the TPU bandwidth probes' Pallas kernels
 ``scale_kernel``, scripts/pallas_bw_probe.py:113 ``dma_kernel``). Both kernels
 (csrc/copy_probe.cu) compute o = 2 * x in x's type, exactly:
 
-- ``scale_copy(x, tile, rows)``: the blocked copy, one block per
-  (rows, tile, L) slab of x (B, T, L), the ragged last tile masked;
-- ``dma_copy(x, chunk_rows)``: x viewed as (R, L) rows, streamed through
-  shared memory by TMA bulk copies in chunks of ``chunk_rows`` rows.
+- ``scale_copy(x, tile, rows)``: the blocked copy of (rows, tile, L) slabs
+  of x (B, T, L), the ragged last tile masked, a block an equal piece (at
+  most 16 KB) of a slab's row;
+- ``dma_copy(x, chunk_rows)``: x viewed as (R, L) rows, streamed through a
+  ring of 4 shared-memory slots (fewer where 4 chunks do not fit a block) by
+  TMA bulk copies in chunks of ``chunk_rows`` rows, doubled in place.
 
 ``scale_reference`` is the plain version, ``x * 2``; the CPU tests run it and
 the card holds both kernels to it bit for bit. The wrappers check the
@@ -31,7 +33,7 @@ from funcodec_tpu_torch.kernels import build
 LAUNCHES = {"scale_copy": 0, "dma_copy": 0}
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-DMA_CHUNK_BYTES = 32 * 1024  # the default chunk: 4 slots of it fit one block's shared memory
+DMA_CHUNK_BYTES = 32 * 1024  # the default chunk
 
 
 def scale_reference(x: torch.Tensor) -> torch.Tensor:
@@ -66,11 +68,12 @@ def _plain(x: torch.Tensor, out: Optional[torch.Tensor]) -> torch.Tensor:
 
 
 def scale_copy(x: torch.Tensor, tile: int, rows: int = 1, out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """o = 2 * x over x (B, T, L), one block per (rows, tile, L) slab."""
+    """o = 2 * x over x (B, T, L) cut into (rows, tile, L) slabs, a block an
+    equal piece (at most 16 KB) of a slab's row."""
     row_bytes = _checked("scale_copy", x, out, dims=3)
     B, T, _ = x.shape
-    if tile < 1 or rows < 1 or -(-B // rows) > 65535:
-        raise ValueError(f"scale_copy: tile={tile}, rows={rows} for B={B} (at most 65535 row groups)")
+    if tile < 1 or not 1 <= rows <= 65535 or -(-B // rows) > 65535:
+        raise ValueError(f"scale_copy: tile={tile}, rows={rows} for B={B} (at most 65535 rows and row groups)")
     if x.device.type == "cpu":
         return _plain(x, out)
     out = torch.empty_like(x) if out is None else out
@@ -85,7 +88,8 @@ def scale_copy(x: torch.Tensor, tile: int, rows: int = 1, out: Optional[torch.Te
 
 def dma_copy(x: torch.Tensor, chunk_rows: Optional[int] = None, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """o = 2 * x over x viewed as (R, L) rows, chunk_rows rows per bulk copy
-    (default: 32 KB chunks), one block per SM."""
+    (default: 32 KB chunks) through a ring of shared-memory slots, on a
+    persistent grid."""
     row_bytes = _checked("dma_copy", x, out)
     chunk_rows = max(1, DMA_CHUNK_BYTES // row_bytes) if chunk_rows is None else chunk_rows
     if chunk_rows < 1 or chunk_rows * row_bytes >= 1 << 20:
@@ -98,7 +102,7 @@ def dma_copy(x: torch.Tensor, chunk_rows: Optional[int] = None, out: Optional[to
     limit = torch.cuda.get_device_properties(x.device).shared_memory_per_block_optin
     if smem > limit:
         raise ValueError(f"dma_copy: chunks of {chunk_rows} rows x {row_bytes} B need {smem} B of shared memory "
-                         f"(2 input and 2 output slots); a block has {limit} B")
+                         f"(2 slots at least); a block has {limit} B")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.dma_copy_launch(x.data_ptr(), out.data_ptr(), x.numel() // x.shape[-1], row_bytes, chunk_rows,

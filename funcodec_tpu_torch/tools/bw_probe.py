@@ -8,8 +8,9 @@ variant computes o = 2 * x over x (256, 20,000, 128), 1.31 GB of bf16:
      always run in parallel); the tile and row sweep below covers what it
      asked, the cost of one grid step, down to a 4 KB block
   C  scale_copy, multi-row blocks (8, 2000, 128) and (16, 1000, 128)
-  D  dma_copy: TMA bulk copies through 2 + 2 shared-memory slots, a
-     persistent grid of one block per SM
+  D  dma_copy: TMA bulk copies through a ring of shared-memory slots
+     (32 KB chunks doubled in place, 4 slots, one producer warp), a
+     persistent grid of SMs x resident blocks
   E  A and D in fp32 (2.62 GB)
 
 Every row logs the kernel's ms per op (CUDA events over N launches that

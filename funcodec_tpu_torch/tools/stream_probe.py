@@ -6,8 +6,9 @@ each read the last one's output:
   elementwise  one pass of a * 1.0001 + 0.001 in plain torch (one addcmul
                kernel) over bf16 (256, 160,000, 32) and (256, 40,000, 128):
                does the narrow last dim cost bandwidth?
-  copy         the scale_copy kernel's GB/s against its tile: the JAX
-               probe's tiles 1000 / 4000 / 10000 and a 4 KB GPU block
+  copy         the scale_copy kernel's GB/s against its tile, beside
+               torch.mul(x, 2) in the same run, in bf16 and fp32: the JAX
+               probe's tiles 1000 / 4000 / 10000 and a 16-row block
   resblock     the fused residual-block kernel (three launches) against the
                port's unfused block at B = 256 and the widths of the JAX
                probe (T, C) = (160,000, 32), (80,000, 64), (20,000, 128).
@@ -60,14 +61,19 @@ def elementwise(device, log: Callable[[str], None], card: str) -> None:
 
 def copy(device, log: Callable[[str], None], card: str) -> None:
     B, T, L = (256, 20_000, 128) if device.type == "cuda" else (2, 40, 128)
-    x = torch.randn(B, T, L, device=device, generator=torch.Generator(device=device).manual_seed(0))
-    x = x.to(torch.bfloat16)
-    for tile in TILES:
-        t = tile if tile < 1000 else max(1, tile * T // 20_000)
-        ms = timeit_amortized(lambda a, b: copy_kernel.scale_copy(a, t, out=b), x, 16 if device.type == "cuda" else 2)
-        steps = B * -(-T // t)
-        log(f"scale_copy tile={t} ({t * L * 2} B per block): {ms:.4f} ms/op -> {_rate(2 * x.nbytes, ms, device)} | "
-            f"{ms / steps * 1e3:.4f} us per block ({card})")
+    reps = 16 if device.type == "cuda" else 2
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        x = torch.randn(B, T, L, device=device, generator=torch.Generator(device=device).manual_seed(0)).to(dtype)
+        mul = timeit_amortized(lambda a, b: torch.mul(a, 2, out=b), x, reps)
+        log(f"torch.mul {name}: {mul:.4f} ms/op -> {_rate(2 * x.nbytes, mul, device)} ({card})")
+        for tile in TILES:
+            t = tile if tile < 1000 else max(1, tile * T // 20_000)
+            ms = timeit_amortized(lambda a, b: copy_kernel.scale_copy(a, t, out=b), x, reps)
+            steps = B * -(-T // t)
+            log(f"scale_copy tile={t} {name} ({t * L * x.element_size()} B per block): {ms:.4f} ms/op -> "
+                f"{_rate(2 * x.nbytes, ms, device)}, {ms / mul:.4f} of torch.mul's time | "
+                f"{ms / steps * 1e3:.4f} us per block ({card})")
+        del x
 
 
 def resblock(device, log: Callable[[str], None], card: str) -> None:

@@ -224,4 +224,19 @@ def test_tools_run_the_plain_version_on_the_cpu(tmp_path):
     log = (tmp_path / "bw.log").read_text()
     assert "ceiling" not in log and "of 3.35 TB/s" not in log  # a CPU run names no device rate
     stream_probe.main(["copy", "--device", "cpu", "--log", str(tmp_path / "stream.log")])
-    assert (tmp_path / "stream.log").read_text().count("scale_copy tile=") == len(stream_probe.TILES)
+    text = (tmp_path / "stream.log").read_text()
+    assert text.count("scale_copy tile=") == 2 * len(stream_probe.TILES)  # bf16 and fp32
+    assert text.count("torch.mul") == 2 + 2 * len(stream_probe.TILES)
+
+
+@pytest.mark.parametrize("chunk_rows", [1, 7, 16, 80, None])
+def test_dma_copy_takes_any_chunk_on_the_cpu(chunk_rows):
+    """Chunks of one row, chunks that leave a shorter last one, one chunk of every row."""
+    x = torch.from_numpy(_inputs(seed=2)).to(torch.bfloat16)
+    np.testing.assert_array_equal(_bits(copy_kernel.dma_copy(x, chunk_rows)), _bits(copy_kernel.scale_reference(x)))
+
+
+@pytest.mark.parametrize("chunk_rows", [0, -3])
+def test_dma_copy_refuses_an_empty_chunk(chunk_rows):
+    with pytest.raises(ValueError, match="chunk_rows"):
+        copy_kernel.dma_copy(torch.zeros(B, TP, L), chunk_rows)

@@ -58,7 +58,7 @@ def test_library_name_tracks_the_sources():
     assert path.parent == build.BUILD_DIR and path.name.startswith("libfuncodec_kernels-")
     names = {s.name for s in build._sources()}
     assert {"rvq_encode.cu", "conv1d_s1.cu", "resblock_tgn.cu", "resblock_tgn_streamed.cu", "resblock_tgn_legacy.cu",
-            "resblock_tgn.cuh", "common.cuh"} <= names
+            "resblock_tgn.cuh", "common.cuh", "conv1d_s1_legacy.cu", "conv1d_s1.cuh", "copy_probe.cu"} <= names
 
 
 def ulps2(ref: torch.Tensor) -> float:
@@ -143,20 +143,41 @@ def test_cuda_rvq_follows_a_codebook_updated_in_place(cuda):
 
 CONV_CASES = [
     # (B, Cin, Cout, T, K, dil, causal, pad_mode, act, dtype)
-    (2, 1, 32, 1000, 7, 1, False, "reflect", None, torch.bfloat16),  # encoder first conv
-    (2, 512, 128, 100, 7, 1, False, "reflect", "elu", torch.bfloat16),  # encoder last
-    (2, 128, 512, 100, 7, 1, False, "reflect", None, torch.bfloat16),  # decoder first
+    (2, 1, 32, 1000, 7, 1, False, "reflect", None, torch.bfloat16),  # encoder first
+    (2, 512, 128, 100, 7, 1, False, "reflect", "elu", torch.bfloat16),  # encoder last, streamed weights
+    (2, 128, 512, 100, 7, 1, False, "reflect", None, torch.bfloat16),  # decoder first, 4 channel tiles
     (2, 32, 1, 1000, 7, 1, False, "reflect", "elu", torch.bfloat16),  # decoder last
-    (2, 64, 32, 1003, 3, 1, False, "reflect", "elu", torch.bfloat16),  # resblock conv, ragged T
-    (2, 64, 32, 777, 3, 9, True, "replicate", "elu", torch.bfloat16),
+    (2, 64, 32, 1003, 3, 1, False, "reflect", "elu", torch.bfloat16),  # resblock conv, T % 8 != 0
+    (2, 64, 32, 777, 3, 9, True, "replicate", "elu", torch.bfloat16),  # dilated causal
     (2, 24, 40, 300, 3, 3, False, "constant", "gelu", torch.float32),
     (3, 48, 24, 129, 7, 2, True, "reflect", "relu", torch.float32),
+    # tiles: T shorter than one 256-step tile, one step longer; B = 1
+    (2, 32, 16, 100, 3, 1, False, "reflect", "elu", torch.bfloat16),
+    (2, 32, 16, 257, 3, 1, False, "reflect", "elu", torch.bfloat16),
+    (1, 128, 64, 5000, 3, 1, False, "replicate", "relu", torch.bfloat16),
+    (1, 256, 128, 4000, 3, 1, False, "reflect", "elu", torch.bfloat16),
+    # thin: ragged lengths (scalar branch), the warp's and the block's edges, causal, other K
+    (2, 1, 32, 1003, 7, 1, False, "reflect", None, torch.bfloat16),
+    (2, 32, 1, 2049, 7, 1, False, "reflect", "elu", torch.bfloat16),
+    (3, 1, 32, 2048, 7, 1, True, "constant", "elu", torch.bfloat16),
+    (1, 30, 1, 4001, 5, 1, False, "replicate", None, torch.bfloat16),
+    (2, 1, 16, 255, 3, 1, True, "replicate", "gelu", torch.bfloat16),
+    # every act and pad mode on the tensor cores; 24 -> 40 (the legacy kernel)
+    (2, 16, 32, 999, 3, 1, False, "reflect", "relu", torch.bfloat16),
+    (2, 32, 64, 600, 5, 2, False, "replicate", "gelu", torch.bfloat16),
+    (2, 64, 64, 511, 3, 1, True, "constant", None, torch.bfloat16),
+    (2, 48, 96, 513, 5, 2, False, "reflect", "elu", torch.bfloat16),
+    (2, 24, 40, 300, 3, 3, False, "constant", "gelu", torch.bfloat16),
+    # the streamed-weight heads at B = 2, causal
+    (2, 512, 128, 103, 7, 1, True, "replicate", "elu", torch.bfloat16),
+    (2, 128, 512, 300, 7, 1, False, "constant", "gelu", torch.bfloat16),
 ]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", CONV_CASES, ids=lambda c: f"{c[1]}to{c[2]}-T{c[3]}-k{c[4]}d{c[5]}-{c[7]}-{c[8]}-{str(c[9])[6:]}")
-def test_cuda_conv_kernel_matches_reference(cuda, case):
+@pytest.mark.parametrize("variant", ["auto", "legacy"])
+@pytest.mark.parametrize("case", CONV_CASES, ids=lambda c: f"B{c[0]}-{c[1]}to{c[2]}-T{c[3]}-k{c[4]}d{c[5]}-{c[7]}-{c[8]}-{str(c[9])[6:]}")
+def test_cuda_conv_kernel_matches_reference(cuda, case, variant):
     B, Cin, Cout, T, K, dil, causal, pad_mode, act, dtype = case
     rs = np.random.RandomState(Cin + Cout + T)
     x = torch.from_numpy(rs.randn(B, Cin, T).astype(np.float32)).to(cuda, dtype)
@@ -165,14 +186,52 @@ def test_cuda_conv_kernel_matches_reference(cuda, case):
     b = torch.from_numpy(rs.uniform(-bound, bound, Cout).astype(np.float32)).to(cuda)
     left, right = split_padding(conv_padding_total(K, 1, dil), causal)
     before = conv_kernel.LAUNCHES
-    y = conv_kernel.fused_conv1d_s1(x, w, b, left, right, dil, pad_mode, act)
+    y = conv_kernel.fused_conv1d_s1(x, w, b, left, right, dil, pad_mode, act, variant=variant)
     torch.cuda.synchronize()
     assert conv_kernel.LAUNCHES == before + 1
+    again = conv_kernel.fused_conv1d_s1(x, w, b, left, right, dil, pad_mode, act, variant=variant)
+    assert torch.equal(again, y)  # the same from run to run
     ref = conv_kernel.fused_conv1d_s1_reference(x, w, b, left, right, dil, pad_mode, act)
     assert y.dtype == dtype and y.shape == ref.shape == (B, Cout, T)
     err = float((y.float() - ref.float()).abs().max())
     tol = ulps2(ref) if dtype == torch.bfloat16 else 1e-5 * float(ref.abs().max())
     assert err <= tol, (err, tol)
+
+
+@pytest.mark.gpu
+def test_cuda_conv_plan_mirrors_the_launch(cuda):
+    """ops/conv_kernel.plan names the kernel csrc/conv1d_s1.cu runs, with its tiles and shared memory."""
+    lib = build.load()
+    for cin in (1, 8, 16, 24, 32, 48, 64, 128, 256, 512):
+        for cout in (1, 16, 32, 40, 64, 96, 128, 512):
+            for K, dil, left in ((3, 1, 1), (3, 1, 2), (7, 1, 3), (7, 1, 6), (5, 2, 4), (3, 9, 18), (7, 2, 6), (3, 1000, 2000)):
+                for dtype, variant in ((torch.bfloat16, "auto"), (torch.bfloat16, "legacy"), (torch.float32, "auto")):
+                    args = (cin, cout, K, dil, left, conv_kernel.DTYPES[dtype], conv_kernel.VARIANTS[variant])
+                    p = conv_kernel.plan(cin, cout, K, dil, left, dtype, variant)
+                    got = (conv_kernel.REGIMES[lib.conv1d_s1_regime(*args)], lib.conv1d_s1_out_tile(*args),
+                           lib.conv1d_s1_chunk(*args))
+                    assert got == tuple(p), (args, got, p)
+                    if p.chunk:
+                        smem = conv_kernel.tc_layout(p.out_tile, p.chunk, cin, cout, K, dil, left,
+                                                     p.regime == "tc_resident")
+                        assert lib.conv1d_s1_smem_bytes(*args) == smem
+                        assert lib.conv1d_s1_blocks_per_sm(*args) >= 1
+
+
+@pytest.mark.gpu
+def test_cuda_conv_follows_weights_updated_in_place(cuda):
+    """The packed weights are rebuilt when the weight or the bias changes."""
+    rs = np.random.RandomState(11)
+    x = torch.from_numpy(rs.randn(2, 64, 600).astype(np.float32)).to(cuda, torch.bfloat16)
+    w = torch.from_numpy(rs.randn(32, 64, 3).astype(np.float32) * 0.1).to(cuda, torch.bfloat16)
+    b = torch.from_numpy(rs.randn(32).astype(np.float32)).to(cuda)
+    with torch.no_grad():
+        conv_kernel.fused_conv1d_s1(x, w, b, 1, 1, 1, "reflect", "elu")
+        w.mul_(-0.5)
+        b.add_(1.0)
+        y = conv_kernel.fused_conv1d_s1(x, w, b, 1, 1, 1, "reflect", "elu")
+        ref = conv_kernel.fused_conv1d_s1_reference(x, w, b, 1, 1, 1, "reflect", "elu")
+    assert float((y.float() - ref.float()).abs().max()) <= ulps2(ref)
 
 
 def _resblock_convs(C, K, dil, causal, device, seed):
@@ -287,6 +346,13 @@ def test_cuda_seanet_kernels_reject_bad_inputs(cuda):
         y = torch.empty(1, 4, 64, device=cuda)
         conv_kernel.launch_conv1d_s1(x.float(), torch.zeros(4, 8, 3, device=cuda).transpose(0, 2),
                                      torch.zeros(4, device=cuda), y, 1, 1, "reflect", None)
+    with pytest.raises(ValueError, match="variant"):
+        conv_kernel.fused_conv1d_s1(x.float(), torch.zeros(4, 8, 3, device=cuda), None, 1, 1, variant="wgmma")
+    xb = torch.zeros(1, 32, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="w is"):  # (Cout, K, Cin) where the tensor-core kernel reads chunks
+        conv_kernel.launch_conv1d_s1(xb, torch.zeros(16, 3, 32, device=cuda, dtype=torch.bfloat16),
+                                     torch.zeros(16, device=cuda), torch.empty(1, 16, 64, device=cuda,
+                                                                               dtype=torch.bfloat16), 1, 1, "reflect", None)
     convs = _resblock_convs(32, 3, 1, False, cuda, seed=0)
     with torch.no_grad(), pytest.raises(ValueError, match="float32 or bfloat16"):
         resblock_kernel.fused_resblock_tgn(torch.zeros(1, 32, 64, device=cuda, dtype=torch.float16), *convs)
@@ -315,10 +381,13 @@ def test_cuda_copy_kernels_bit_exact(cuda, dtype, shape):
     ref = copy_kernel.scale_reference(x)
     bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
     before = dict(copy_kernel.LAUNCHES)
-    outs = [copy_kernel.scale_copy(x, t, r) for t, r in ((8, 1), (100, 2), (4000, 1))]
-    outs += [copy_kernel.dma_copy(x, c) for c in (None, 16, 100)]
+    outs = [copy_kernel.scale_copy(x, t, r) for t, r in ((8, 1), (100, 2), (4000, 1), (1, 3), (7, 4))]
+    rb = shape[-1] * x.element_size()
+    dma = [None, 16, 100, 1, 64, 7, 76_800 // rb, 102_400 // rb]  # the last two: rings of 3 and 2 slots
+    outs += [copy_kernel.dma_copy(x, c) for c in dma]
     torch.cuda.synchronize()
-    assert copy_kernel.LAUNCHES == {"scale_copy": before["scale_copy"] + 3, "dma_copy": before["dma_copy"] + 3}
+    assert copy_kernel.LAUNCHES == {"scale_copy": before["scale_copy"] + 5,
+                                    "dma_copy": before["dma_copy"] + len(dma)}
     for out in outs:
         assert torch.equal(out.view(bits), ref.view(bits))
 
