@@ -2,13 +2,15 @@
 
     python3 chip_smoke.py             # the smoke run below
     python3 chip_smoke.py --profile   # checks, build, then a torch.profiler table of
-                                      # one B = 64 x 10 s request per serving path
+                                      # one B = 64 x 10 s request per serving path and
+                                      # of one bf16 shared training step (B = 16)
                                       # (tables also in build/chip_smoke/)
 
-Drives the port's serving main path (EnCodec 16 kHz nq32ds320, the
-egs/LibriTTS/codec/conf/encodec_16k_n32_600k_step.yaml flagship at full
-width, seeded random weights) through ``Speech2Token``, in phases that each
-raise on failure:
+Drives the port's two main paths on the flagship (EnCodec 16 kHz nq32ds320,
+the egs/LibriTTS/codec/conf/encodec_16k_n32_600k_step.yaml model at full
+width, seeded random weights): serving through ``Speech2Token``, and the
+GAN train step (``train.step.make_gan_train_step``) with its discriminator.
+In phases that each raise on failure:
 
 1. checks: a CUDA card is present; TF32 is turned off for fp32 matmuls and
    cuDNN; the card's name and power limit are printed.
@@ -57,9 +59,29 @@ raise on failure:
    B = 64 x 10 s serving rate of fp32-exact, bf16 + RVQ kernel,
    + FUSED_STRIDE1 and + both SEANet flags. The per-shape rows also go to
    build/chip_smoke/timings.json (git-ignored).
+8. training: the flagship and its MS-STFT discriminator built from the
+   yaml with the recipe's quantizer (k-means init, dropout over [1, 2, 4,
+   8, 16, 32], effective expiry) and Adam (lr 3e-4, betas 0.5, 0.9) for
+   both; 4 steps of B = 16 x 2.56 s of seeded noise at 0.1 rms in each of
+   fp32 train_step (the two-forward step), fp32 shared_train_step, bf16
+   shared_train_step and bf16 shared_train_step with FUSED_STRIDE1 and
+   FUSED_RESBLOCK: finite stats, 4 steps, the codebooks initialized after
+   step 1 a prefix of the drawn depth, both modules' parameters moved,
+   fp32 masters, a positive gate carry, and per step exactly the fused
+   configuration's forward launches (4 convs, 24 resblock passes, 16
+   finalizes; the backwards launch none, the others none at all). Then the
+   generator's gradients with both SEANet flags against without (fp32 and
+   bf16, no draws); each fused backward against autograd through its plain
+   version at every flagship training shape (the four head convs, the
+   eight residual blocks) in fp32 and bf16, timed; one fp32 two-forward
+   step at B = 2 on the card against the CPU from the same weights (stats
+   and per-module gradient norms); and ms a step, training audio-s/s and
+   peak memory of the four configurations at B = 16 and of the bf16 shared
+   step at B = 64, steady state (initialized codebooks).
 
 The line before the last is the card's name and power limit (nvidia-smi),
-the one before it a JSON object of the kernels; the last line is
+the one before it a JSON object of the kernels (with each one's launches in
+the fused training configuration and the backwards' times); the last line is
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
 """
 
@@ -94,9 +116,16 @@ from funcodec_tpu_torch.models.seanet import (  # noqa: E402
 from funcodec_tpu_torch.ops import conv_kernel, copy_kernel, resblock_kernel  # noqa: E402
 from funcodec_tpu_torch.ops.pad import conv_padding_total, pad1d_time, split_padding  # noqa: E402
 from funcodec_tpu_torch.quant import rvq_kernel  # noqa: E402
-from funcodec_tpu_torch.tasks.codec import load_config  # noqa: E402
+from funcodec_tpu_torch.tasks.codec import build_codec_model, load_config  # noqa: E402
 from funcodec_tpu_torch.tools import bw_probe  # noqa: E402
 from funcodec_tpu_torch.tools.benchlib import PEAK_BYTES, card_line, timeit, timeit_amortized  # noqa: E402
+from funcodec_tpu_torch.train.step import (  # noqa: E402
+    create_gan_train_state,
+    generator_grads,
+    global_norm,
+    make_gan_train_step,
+    make_optimizer,
+)
 
 REPO = Path(__file__).resolve().parent
 FLAGSHIP_YAML = REPO / "egs/LibriTTS/codec/conf/encodec_16k_n32_600k_step.yaml"
@@ -812,6 +841,356 @@ def cli_phase(dev, config, s_fp, card: str):
 
 
 # ---------------------------------------------------------------------------
+# training phase
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_SECONDS = 16, 2.56  # the yaml's batch_size and speech_max_length (40,960 samples)
+TRAIN_STEPS = 4
+# name: (shared_forward, compute dtype, FUSED_STRIDE1 and FUSED_RESBLOCK)
+TRAIN_CONFIGS = {
+    "fp32 train_step": (False, None, False),
+    "fp32 shared_train_step": (True, None, False),
+    "bf16 shared_train_step": (True, torch.bfloat16, False),
+    "bf16 shared_train_step fused": (True, torch.bfloat16, True),
+}
+TRAIN_FUSED = "bf16 shared_train_step fused"
+# launches of one shared step (or one generator turn) with both SEANet flags:
+# the generator's encode and decode once, forward only (the backwards launch
+# none; training searches codebooks with the plain fp32 scan, not rvq_encode)
+TRAIN_EXPECT = {**EXPECT[MAIN_PATH], "rvq_encode": 0}
+TRAIN_NONE = dict.fromkeys(TRAIN_EXPECT, 0)
+GEN_PARAMS = 14_855_843  # the flagship's generator in both packages (tests/test_torch_encodec.py)
+# the generator's gradients with both SEANet flags against without, relative L2
+# over all of them. In fp32 the forwards agree to rounding, so a token flips only
+# at a near-tie. In bf16 they round at other points: tokens flip, and the L1 of
+# feature maps that nearly agree (real against fake) flips signs, so the bf16
+# gradients move as far as bf16 moves them from fp32: held to 1.5 times that
+# (two such noises add up to about sqrt(2) of one), and at least FUSED_GRAD_BF16_MIN
+FUSED_GRAD_FP32_REL, FUSED_GRAD_BF16_FACTOR, FUSED_GRAD_BF16_MIN = 1e-2, 1.5, 0.05
+# the fp32 step on the card against the CPU (TF32 off): losses, stats and gradient
+# norms; the discriminator's gradient is the difference of its real and fake
+# branches', which at init cancel to about 1/460 of either (CPU, fp32 against fp64:
+# 3e-6), so rounding at 1e-5 of a branch is about 0.5% of it
+CARD_CPU_REL, CARD_CPU_DISC_REL = 1e-3, 2e-2
+# the fused backwards against autograd through their plain versions, relative to the
+# largest gradient: fp32 summation order; bf16 the plain version's bf16 casts
+BACKWARD_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+NO_DRAWS = dict(kmeans_init=False, quantize_dropout=False, expiry_mode="reference")
+STEADY = dict(kmeans_init=False)  # initialized codebooks; the recipe's dropout and expiry
+
+
+def build_trainer(dev, shared: bool, dtype, seed: int = 0, **quantizer):
+    """The flagship generator and discriminator from the yaml (quantizer_conf
+    overridden by `quantizer`), their Adam optimizers from optim_conf and
+    optim2_conf, a train state and its step."""
+    config = load_config(str(FLAGSHIP_YAML))
+    config["quantizer_conf"].update(quantizer)
+    model, disc = build_codec_model(config, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
+    opts = [make_optimizer(lr=c["lr"], betas=tuple(c["betas"])) for c in (config["optim_conf"], config["optim2_conf"])]
+    state = create_gan_train_state(model, disc, *opts)
+    return state, make_gan_train_step(model, disc, *opts, shared_forward=shared, compute_dtype=dtype)
+
+
+def _train_speech(dev, batch: int, seed: int = 40) -> torch.Tensor:
+    return torch.from_numpy(_speech(seed, batch, TRAIN_SECONDS)).to(dev)
+
+
+def _masters(state):
+    return [[p.detach().clone() for p in m.parameters()] for m in (state.model, state.discriminator)]
+
+
+def _floats(stats) -> dict:
+    out = {k: float(v) for k, v in stats.items()}
+    bad = [k for k, v in out.items() if not math.isfinite(v)]
+    if bad:
+        raise RuntimeError(f"training: stats not finite: {bad}")
+    return out
+
+
+def _set_seanet_flags(fused: bool) -> None:
+    conv_ops.FUSED_STRIDE1 = conv_ops.FUSED_RESBLOCK = fused
+    rvq.FUSED_RVQ = False
+
+
+def training_phase(dev):
+    """TRAIN_STEPS steps of each configuration on B = 16 x 2.56 s of noise,
+    with the recipe's quantizer (k-means init, dropout, effective expiry).
+    Returns (per-configuration results, the fused configuration's launches)."""
+    speech = _train_speech(dev, TRAIN_B)
+    results, fused_counts = {}, None
+    options = load_config(str(FLAGSHIP_YAML))["quantizer_conf"]["rand_num_quant"]
+    for name, (shared, dtype, fused) in TRAIN_CONFIGS.items():
+        _set_seanet_flags(fused)
+        state, step = build_trainer(dev, shared, dtype)
+        n_params = sum(p.numel() for p in state.model.parameters())
+        if n_params != GEN_PARAMS:
+            raise RuntimeError(f"training {name}: {n_params} generator parameters, expected {GEN_PARAMS}")
+        before_g, before_d = _masters(state)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        torch.cuda.synchronize()
+        reset_counts()
+        per_step = []
+        for i in range(TRAIN_STEPS):
+            before = read_counts()
+            state, stats = step(state, {"speech": speech}, gen)
+            launched = {k: v - before[k] for k, v in read_counts().items()}
+            if launched != (TRAIN_EXPECT if fused else TRAIN_NONE):
+                raise RuntimeError(f"training {name} step {i}: launches {launched}")
+            per_step.append(_floats(stats))
+            if i == 0:
+                # only the layers below the depth drawn for this step initialize
+                inited = state.rvq_state.inited
+                k = int(inited.sum())
+                if k not in options or not bool(inited[:k].all()) or bool(inited[k:].any()):
+                    raise RuntimeError(f"training {name}: after step 1 the initialized codebooks are "
+                                       f"{inited.tolist()}, not a prefix of a depth in {options}")
+                inited_after_1 = k
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if fused:
+            fused_counts = counts
+        after_g, after_d = _masters(state)
+        moved = [any(not torch.equal(a, b) for a, b in zip(x, y)) for x, y in ((before_g, after_g), (before_d, after_d))]
+        masters_fp32 = all(p.dtype == torch.float32 for m in (state.model, state.discriminator) for p in m.parameters())
+        carry = float(state.gen_loss_carry)
+        if state.step != TRAIN_STEPS or not all(moved) or not masters_fp32 or not carry > 0:
+            raise RuntimeError(f"training {name}: step {state.step}, moved (generator, discriminator) {moved}, "
+                               f"fp32 masters {masters_fp32}, gen_loss_carry {carry}")
+        last = per_step[-1]
+        log(f"[train] {name}: {TRAIN_STEPS} steps of B={TRAIN_B} x {TRAIN_SECONDS} s finite; codebooks initialized "
+            f"after step 1: {inited_after_1}, after {TRAIN_STEPS}: {int(state.rvq_state.inited.sum())}; "
+            f"generator_loss {last['generator_loss']:.4f}, multi-spectral {last['generator_multi_spectral_recon_loss']:.4f}, "
+            f"discriminator_loss {last['discriminator_loss']:.4f}, grad norms g {last['generator_grad_norm']:.3f} "
+            f"d {last['discriminator_grad_norm']:.3f}, carry {carry:.4f}, dead codes {last['rvq_dead_codes']:.0f}; "
+            f"launches {counts}")
+        results[name] = dict(stats=per_step, inited_after_1=inited_after_1, launches=counts)
+        del state, step
+        torch.cuda.empty_cache()
+    _set_seanet_flags(False)
+    return results, fused_counts
+
+
+def _relative(a, b) -> float:
+    """||a - b|| / ||b|| over lists of tensors."""
+    return float(global_norm([x.float() - y.float() for x, y in zip(a, b)]) / global_norm(b))
+
+
+def fused_grad_phase(dev):
+    """The generator's gradients with both SEANet flags against without on
+    one batch (no draws), in fp32 and in bf16; bf16 against fp32 as the
+    yardstick of the bf16 comparison."""
+    state, _ = build_trainer(dev, True, None, **NO_DRAWS)
+    speech = _train_speech(dev, TRAIN_B, seed=41)
+    names = [n for n, _ in state.model.named_parameters()]
+    grads = {}
+    for dtype in (None, torch.bfloat16):
+        for fused in (False, True):
+            _set_seanet_flags(fused)
+            reset_counts()
+            _, grads[dtype, fused] = generator_grads(state.model, state.discriminator, speech,
+                                                     torch.Generator(device=dev).manual_seed(0), dtype)
+            torch.cuda.synchronize()
+            if read_counts() != (TRAIN_EXPECT if fused else TRAIN_NONE):
+                raise RuntimeError(f"fused gradients {dtype} fused={fused}: launches {read_counts()} for one "
+                                   "generator turn")
+    _set_seanet_flags(False)
+    out = dict(fp32=_relative(grads[None, True], grads[None, False]),
+               bf16=_relative(grads[torch.bfloat16, True], grads[torch.bfloat16, False]),
+               bf16_vs_fp32=_relative(grads[torch.bfloat16, False], grads[None, False]))
+    out["bf16_limit"] = max(FUSED_GRAD_BF16_FACTOR * out["bf16_vs_fp32"], FUSED_GRAD_BF16_MIN)
+    for mod in ("encoder", "quantizer", "decoder"):
+        idx = [i for i, n in enumerate(names) if n.startswith(mod + ".")]
+        if idx:
+            for dtype, tag in ((None, "fp32"), (torch.bfloat16, "bf16")):
+                out[f"{tag} {mod}"] = _relative([grads[dtype, True][i] for i in idx],
+                                                [grads[dtype, False][i] for i in idx])
+    log(f"[train] generator gradients, fused against unfused SEANet (B={TRAIN_B}, no draws), relative L2: fp32 "
+        f"{out['fp32']:.3e} (limit {FUSED_GRAD_FP32_REL:.0e}), bf16 {out['bf16']:.3e} (limit {out['bf16_limit']:.3e}: "
+        f"bf16 against fp32 unfused {out['bf16_vs_fp32']:.3e}); per module "
+        + ", ".join(f"{k} {v:.3e}" for k, v in out.items() if " " in k))
+    if not (out["fp32"] <= FUSED_GRAD_FP32_REL and out["bf16"] <= out["bf16_limit"]):
+        raise RuntimeError("the fused SEANet path's generator gradients disagree with the unfused path's")
+    return out
+
+
+def _module_norms(model, disc, speech, gen):
+    """Gradient norms of the generator turn per top-level module, and of the
+    discriminator turn, fp32."""
+    out, grads = generator_grads(model, disc, speech, gen)
+    norms = {}
+    for (name, _), g in zip(model.named_parameters(), grads):
+        mod = name.split(".")[0]
+        norms[mod] = norms.get(mod, 0.0) + float(g.double().square().sum())
+    loss, _ = model.forward_discriminator(disc, speech, gen, torch.zeros((), device=speech.device))
+    d = torch.autograd.grad(loss, list(disc.parameters()))
+    norms["discriminator"] = float(global_norm(d)) ** 2
+    return {k: v ** 0.5 for k, v in norms.items()}, out["stats"]
+
+
+def card_cpu_phase(dev):
+    """One fp32 two-forward step (no draws) at B = 2 x 2.56 s on the card and
+    on the CPU from the same weights: stats and per-module gradient norms."""
+    states = {"cuda": build_trainer(dev, False, None, **NO_DRAWS)}
+    states["cpu"] = build_trainer(torch.device("cpu"), False, None, **NO_DRAWS)
+    for m in ("model", "discriminator"):
+        getattr(states["cpu"][0], m).load_state_dict(getattr(states["cuda"][0], m).state_dict())
+    speech = _train_speech(torch.device("cpu"), 2, seed=42)
+    got = {}
+    for tag, (state, step) in states.items():
+        x = speech.to(state.gen_loss_carry.device)
+        t0 = time.perf_counter()
+        norms, _ = _module_norms(state.model, state.discriminator, x, torch.Generator(device=x.device))
+        _, stats = step(state, {"speech": x}, torch.Generator(device=x.device))
+        got[tag] = (norms, _floats(stats), time.perf_counter() - t0)
+    worst = {"generator": 0.0, "discriminator": 0.0}
+    for key in list(got["cpu"][0]) + list(got["cpu"][1]):
+        a = got["cuda"][0].get(key, got["cuda"][1].get(key))
+        b = got["cpu"][0].get(key, got["cpu"][1].get(key))
+        disc = key in ("discriminator", "discriminator_grad_norm")
+        rel = abs(a - b) / max(abs(b), 1e-12) if abs(a - b) > 1e-7 else 0.0
+        worst["discriminator" if disc else "generator"] = max(worst["discriminator" if disc else "generator"], rel)
+        if rel > (CARD_CPU_DISC_REL if disc else CARD_CPU_REL):
+            raise RuntimeError(f"fp32 step card vs CPU: {key} {a} against {b}")
+    log(f"[train] fp32 step card vs CPU (B=2 x {TRAIN_SECONDS} s, no draws): losses, stats and generator gradient "
+        f"norms agree within {worst['generator']:.3e} relative (limit {CARD_CPU_REL}), the discriminator's gradient "
+        f"norms within {worst['discriminator']:.3e} (limit {CARD_CPU_DISC_REL}); norms card {got['cuda'][0]}, "
+        f"CPU {got['cpu'][0]}; the CPU took {got['cpu'][2]:.1f} s")
+    return dict(worst_relative=worst, card=got["cuda"][:2], cpu=got["cpu"][:2])
+
+
+def _training_calls(model, dtype, dev):
+    """The fused kernels' calls of one training forward at B = 16 x 2.56 s:
+    the four head convs and the eight residual blocks (encoder and decoder)."""
+    enc, dec = model.encoder.model, model.decoder.model
+    T = int(TRAIN_SECONDS * SR)
+    heads = [
+        ConvLayer("enc_first 1->32 k7", enc[0], TRAIN_B, T, None, dtype, dev, 80),
+        ConvLayer("enc_last elu 512->128 k7", enc[len(enc) - 1], TRAIN_B, T // 320, "elu", dtype, dev, 81),
+        ConvLayer("dec_first 128->512 k7", dec[0], TRAIN_B, T // 320, None, dtype, dev, 82),
+        ConvLayer("dec_last elu 32->1 k7", dec[len(dec) - 1], TRAIN_B, T, "elu", dtype, dev, 83),
+    ]
+    Ts = [T, T // 2, T // 8, T // 40]
+    blocks = [(f"enc C={b.block[1].spec.in_channels} T={t} d={b.block[1].spec.dilation}", b, t)
+              for b, t in zip(_blocks(model.encoder), Ts)]
+    blocks += [(f"dec C={b.block[1].spec.in_channels} T={t} d={b.block[1].spec.dilation}", b, t)
+               for b, t in zip(_blocks(model.decoder), Ts[::-1])]
+    return heads, [ResblockCall(n, b, TRAIN_B, t, dtype, dev, 90 + i) for i, (n, b, t) in enumerate(blocks)]
+
+
+def _grad_inputs(call, dtype):
+    """(inputs that take a gradient, forward through the kernel, forward through the plain version)."""
+    if isinstance(call, ConvLayer):
+        x = call.x.detach().requires_grad_()
+        w, b = call.w.detach().to(dtype).requires_grad_(), call.b.detach().requires_grad_()
+        s = call.spec
+        args = (call.left, call.right, s.dilation, s.pad_mode, call.act)
+        return ([x, w, b], lambda: conv_kernel.fused_conv1d_s1(x, w, b, *args),
+                lambda: conv_kernel.fused_conv1d_s1_reference(x, w, b, *args))
+    x = call.x.detach().requires_grad_()
+    params = [p for m in call.convs for p in m.parameters()]
+    return ([x, *params], lambda: resblock_kernel.fused_resblock_tgn(x, *call.convs),
+            lambda: resblock_kernel.fused_resblock_tgn_reference(x, *call.convs))
+
+
+def _backward_bound(call) -> tuple:
+    """The least time of a backward: bytes of g and x read and dx written
+    (weights aside), and the operations the gradient needs with the forward's
+    activations kept (dx and dw: twice the forward's MACs, 2 FLOP each) at
+    the peak for the input's type. The port's backwards compute in fp32 and
+    the resblock's replays its forward; the bound counts neither."""
+    e = call.x.element_size()
+    peak = PEAK_BF16 if e == 2 else PEAK_FP32
+    if isinstance(call, ConvLayer):
+        B, Cin, T = call.x.shape
+        Cout, _, K = call.w.shape
+        return _bound((B * Cout * T + 2 * B * Cin * T) * e, 4.0 * B * Cout * T * Cin * K, peak)
+    B, C, T = call.x.shape
+    H, K = call.convs[0].spec.out_channels, call.convs[0].spec.kernel_size
+    macs = H * K * C + C * H + C * C
+    return _bound(3 * B * C * T * e, 4.0 * B * T * macs, peak)
+
+
+def backward_phase(dev, card: str):
+    """Each fused kernel's forward against its plain version, and its backward
+    against autograd through the plain version, at every flagship training
+    shape, in fp32 and bf16; then the backward timed (bf16) against the plain
+    version's. Returns the timing rows, the backwards' worst relative errors
+    (bf16) and the forwards' worst absolute errors (both types)."""
+    state, _ = build_trainer(dev, True, torch.bfloat16, **STEADY)
+    model = state.model
+    rows = {"conv1d_s1": [], "resblock_tgn": []}
+    worst = {"conv1d_s1": 0.0, "resblock_tgn": 0.0}
+    forward = {"conv1d_s1": 0.0, "resblock_tgn": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        heads, blocks = _training_calls(model, dtype, dev)
+        for call in heads + blocks:
+            kernel = "conv1d_s1" if isinstance(call, ConvLayer) else "resblock_tgn"
+            inputs, fused, plain = _grad_inputs(call, dtype)
+            y, y_ref = fused(), plain()
+            forward[kernel] = max(forward[kernel], _held(kernel, f"{call.name} B={TRAIN_B} (training)",
+                                                         y.detach(), y_ref.detach()))
+            cot = torch.randn(y.shape, device=dev, generator=torch.Generator(device=dev).manual_seed(5))
+            got = torch.autograd.grad(y, inputs, cot.to(y.dtype), retain_graph=True)
+            want = torch.autograd.grad(y_ref, inputs, cot.to(y_ref.dtype), retain_graph=True)
+            torch.cuda.synchronize()
+            errs = []
+            for g, r in zip(got, want):
+                scale = float(r.float().abs().max())
+                errs.append(float((g.float() - r.float()).abs().max()) / max(scale, 1e-30))
+            err = max(errs)
+            log(f"[backward] {kernel} {call.name} B={TRAIN_B} {str(dtype)[6:]}: max relative error of "
+                f"{len(got)} gradients {err:.3e} (limit {BACKWARD_REL[dtype]:.0e})")
+            if not all(torch.isfinite(g).all() for g in got) or err > BACKWARD_REL[dtype]:
+                raise RuntimeError(f"{kernel} {call.name}: the backward disagrees with autograd of the plain version")
+            if dtype == torch.bfloat16:
+                worst[kernel] = max(worst[kernel], err)
+                ms = _cuda_ms(lambda: torch.autograd.grad(y, inputs, cot.to(y.dtype), retain_graph=True), 5)
+                plain_ms = _cuda_ms(lambda: torch.autograd.grad(y_ref, inputs, cot.to(y_ref.dtype),
+                                                                retain_graph=True), 3)
+                row = _row(call.name, ms, plain_ms, _backward_bound(call), library_ms=None)
+                rows[kernel].append(row)
+                log(f"[time] {kernel} backward {call.name} B={TRAIN_B} bf16: {ms:.3f} ms, autograd of the plain "
+                    f"version {plain_ms:.3f} ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']}) ({card})")
+            del y, y_ref, got, want
+        torch.cuda.empty_cache()
+    return rows, worst, forward
+
+
+def training_timing(dev, card: str):
+    """ms a step, training audio-s/s (B x 2.56 s over the step time) and peak
+    memory, best of 3 steps after a warm-up step, in the steady state
+    (codebooks initialized; the recipe's dropout and effective expiry)."""
+    rows = []
+    runs = [(name, cfg, TRAIN_B) for name, cfg in TRAIN_CONFIGS.items()]
+    runs += [("bf16 shared_train_step", TRAIN_CONFIGS["bf16 shared_train_step"], 64),
+             (TRAIN_FUSED, TRAIN_CONFIGS[TRAIN_FUSED], 64)]
+    for name, (shared, dtype, fused), B in runs:
+        _set_seanet_flags(fused)
+        state, step = build_trainer(dev, shared, dtype, **STEADY)
+        batch = {"speech": _train_speech(dev, B, seed=43)}
+        gen = torch.Generator(device=dev).manual_seed(8)
+        state, _ = step(state, batch, gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            state, stats = step(state, batch, gen)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        _floats(stats)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        row = dict(name=name, batch=B, ms=best * 1e3, audio_s_per_s=B * TRAIN_SECONDS / best, peak_gib=peak)
+        rows.append(row)
+        log(f"[time] training {name} B={B} x {TRAIN_SECONDS} s: {row['ms']:.1f} ms/step, "
+            f"{row['audio_s_per_s']:.1f} audio-s/s, peak memory {peak:.2f} GiB ({card})")
+        del state, step, batch
+        torch.cuda.empty_cache()
+    _set_seanet_flags(False)
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # timing phase
 # ---------------------------------------------------------------------------
 
@@ -939,10 +1318,38 @@ PROFILE_FAMILIES = {
 }
 
 
-def profile(dev) -> None:
-    """torch.profiler over one B = 64 x 10 s request of each bf16 path."""
+def _profiled(run, what: str, tag: str) -> None:
+    """torch.profiler over one run(): the table of device time by kernel, the
+    fused kernels summed over their template instances, the idle share."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.self_device_time_total for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    averages = prof.key_averages()
+    table = averages.table(sort_by="self_device_time_total", row_limit=30)
+    for family, names in PROFILE_FAMILIES.items():  # one kernel's template instances, summed
+        rows = [e for e in averages if any(n in e.key for n in names)]
+        if rows:
+            log(f"[profile] {what}: {family}: {sum(e.self_device_time_total for e in rows) / 1e3:.2f} ms "
+                f"in {sum(e.count for e in rows)} launches")
+    (OUT_DIR / f"profile_{tag}.txt").write_text(table)
+    log(f"[profile] {what}: wall {wall * 1e3:.1f} ms, device kernel time {busy:.1f} ms, idle share "
+        f"{max(0.0, 1 - busy / (wall * 1e3)):.3f}, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"({card_line(CARD)})")
+    log(table)
+
+
+def profile(dev) -> None:
+    """torch.profiler over one B = 64 x 10 s request of each bf16 path, then
+    over one bf16 shared training step at B = 16 x 2.56 s without and with
+    the fused SEANet kernels."""
     _, s_bf, _ = build_models(dev)
     speech = torch.from_numpy(_speech(5, 64, 10.0)).to(dev)
     OUT_DIR.mkdir(parents=True, exist_ok=True)
@@ -950,27 +1357,22 @@ def profile(dev) -> None:
         set_flags(path)
         for _ in range(2):
             s_bf.dispatch(speech, bit_width=None)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            s_bf.dispatch(speech, bit_width=None)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        busy = sum(e.self_device_time_total for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-        averages = prof.key_averages()
-        table = averages.table(sort_by="self_device_time_total", row_limit=30)
-        for family, names in PROFILE_FAMILIES.items():  # one kernel's template instances, summed
-            rows = [e for e in averages if any(n in e.key for n in names)]
-            if rows:
-                log(f"[profile] {path}: {family}: {sum(e.self_device_time_total for e in rows) / 1e3:.2f} ms "
-                    f"in {sum(e.count for e in rows)} launches")
-        (OUT_DIR / f"profile_{path}.txt").write_text(table)
-        log(f"[profile] {path}: wall {wall * 1e3:.1f} ms, device kernel time {busy:.1f} ms, idle share "
-            f"{max(0.0, 1 - busy / (wall * 1e3)):.3f}, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
-            f"({card_line(CARD)})")
-        log(table)
+        _profiled(lambda: s_bf.dispatch(speech, bit_width=None), path, path)
+    del s_bf, speech
+    torch.cuda.empty_cache()
+    for fused in (False, True):
+        _set_seanet_flags(fused)
+        state, step = build_trainer(dev, True, torch.bfloat16, **STEADY)
+        batch = {"speech": _train_speech(dev, TRAIN_B, seed=43)}
+        gen = torch.Generator(device=dev).manual_seed(8)
+        for _ in range(2):
+            state, _ = step(state, batch, gen)
+        tag = "train_bf16_shared" + ("_fused" if fused else "")
+        _profiled(lambda: step(state, batch, gen), f"bf16 shared_train_step B={TRAIN_B}{' fused' if fused else ''}",
+                  tag)
+        del state, step
+        torch.cuda.empty_cache()
+    _set_seanet_flags(False)
 
 
 def main() -> int:
@@ -988,6 +1390,13 @@ def main() -> int:
     probe_rows, probe_launches, probe_plain, ceiling = probe_phase(dev, card)
     cli_stats = cli_phase(dev, config, s_fp, card)
     rvq_row, conv_rows, rb_rows, fin_row, serving = timing_phase(dev, s_bf, s_fp, calls, card, ceiling)
+    del s_bf, s_fp, calls
+    torch.cuda.empty_cache()
+    train_results, train_counts = training_phase(dev)
+    fused_grads = fused_grad_phase(dev)
+    backward_rows, backward_errs, train_fwd_errs = backward_phase(dev, card)
+    card_cpu = card_cpu_phase(dev)
+    train_rows = training_timing(dev, card)
     if "funcodec_tpu" in sys.modules or ("jax" in sys.modules and not _JAX_PRELOADED):
         raise RuntimeError("the port imported JAX or the JAX package")
 
@@ -995,7 +1404,10 @@ def main() -> int:
     (OUT_DIR / "timings.json").write_text(json.dumps(dict(
         card=card, rvq=rvq_row, conv=conv_rows, resblock=rb_rows, resblock_finalize=fin_row, serving_seconds=serving,
         flips=flips, launches=counts, probe=probe_rows, probe_launches=probe_launches,
-        copy_ceiling_bytes_per_s=ceiling, cli=cli_stats), indent=1))
+        copy_ceiling_bytes_per_s=ceiling, cli=cli_stats, training=dict(
+            configs=train_results, launches=train_counts, fused_gradients=fused_grads, backward=backward_rows,
+            backward_max_relative_error=backward_errs, forward_max_abs_error=train_fwd_errs,
+            card_vs_cpu=card_cpu, timing=train_rows)), indent=1))
     conv_main = _summed([r for r in conv_rows if r["main_path"]])
     conv_main["library_ms"] = sum(r["library_ms"] for r in conv_rows if r["main_path"])
     conv_main["legacy_ms"] = sum(r["legacy_ms"] for r in conv_rows if r["main_path"])
@@ -1003,6 +1415,8 @@ def main() -> int:
     rb_main["library_ms"] = None
     rb_main["unfused_ms"] = 2 * sum(r["unfused_ms"] for r in rb_rows)
     rb_main["legacy_ms"] = 2 * sum(r["legacy_ms"] for r in rb_rows)
+    backward = {k: {f"backward_{m}": v for m, v in _summed(rows).items() if m != "bound_by"}
+                for k, rows in backward_rows.items()}
     kernels = [
         dict(name="rvq_encode", route="cuda", source="funcodec_tpu_torch/csrc/rvq_encode.cu",
              replaces="funcodec_tpu/quant/rvq_pallas.py:29", launches=counts["rvq_encode"],
@@ -1011,10 +1425,14 @@ def main() -> int:
              legacy_ms=rvq_row["legacy_ms"]),
         dict(name="conv1d_s1", route="cuda", source="funcodec_tpu_torch/csrc/conv1d_s1.cu",
              replaces="funcodec_tpu/ops/conv_pallas.py:59", launches=counts["conv1d_s1"],
-             max_abs_err=seanet_errs["conv1d_s1"], **conv_main),
+             max_abs_err=seanet_errs["conv1d_s1"], **conv_main, **backward["conv1d_s1"],
+             backward_max_rel_err=backward_errs["conv1d_s1"],
+             training_max_abs_err=train_fwd_errs["conv1d_s1"]),
         dict(name="resblock_tgn", route="cuda", source="funcodec_tpu_torch/csrc/resblock_tgn.cu",
              replaces="funcodec_tpu/ops/resblock_pallas.py:86", launches=counts["resblock_tgn"],
-             max_abs_err=seanet_errs["resblock_tgn"], **rb_main),
+             max_abs_err=seanet_errs["resblock_tgn"], **rb_main, **backward["resblock_tgn"],
+             backward_max_rel_err=backward_errs["resblock_tgn"],
+             training_max_abs_err=train_fwd_errs["resblock_tgn"]),
         # the affines between the passes: plain JAX beside the TPU kernel, a kernel of its own here
         dict(name="resblock_tgn_finalize", route="cuda", source="funcodec_tpu_torch/csrc/resblock_tgn.cu",
              replaces="funcodec_tpu/ops/resblock_pallas.py:232", launches=counts["resblock_tgn_finalize"],
@@ -1028,6 +1446,8 @@ def main() -> int:
             replaces=REPLACES[name], launches=probe_launches[name], max_abs_err=0.0, ms=row["ms"],
             plain_ms=probe_plain[torch.bfloat16], bound_ms=row["bound_ms"], bound_by="bytes",
             library_ms=row["library_ms"]))
+    for k in kernels:  # what the training phase's fused configuration launched in its steps
+        k["training_launches"] = train_counts.get(k["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

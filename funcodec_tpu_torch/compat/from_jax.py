@@ -3,8 +3,11 @@
 ``state_dict_from_jax`` inverts funcodec_tpu/compat/torch_import.py: it walks
 the port's own layer list (the same (kind, spec) list as the JAX package's)
 beside the JAX params and returns a state_dict under the reference FunCodec
-names, which the port's modules carry. The JAX params arrive as numpy
-arrays (``np.asarray`` of each leaf); this module never imports jax.
+names, which the port's modules carry; ``discriminator_state_dict_from_jax``
+does the same for the discriminator's parameters. Weight-normed convs carry
+``v``/``g`` across as ``weight_v``/``weight_g``, and all four RVQ buffers
+come along. The JAX params arrive as numpy arrays (``np.asarray`` of each
+leaf); this module never imports jax.
 """
 
 from __future__ import annotations
@@ -39,11 +42,19 @@ def torch_conv_weight(kernel: np.ndarray, spec: ConvSpec) -> np.ndarray:
     return np.transpose(wg, (2, 1, 3, 0)).reshape(g * i_per_g, o // g, k)
 
 
+def _weight_g(g) -> torch.Tensor:
+    """A weight-norm g (per dim-0 slice of the torch weight, in any of the
+    JAX layouts: keepdims or 1-D) as torch's (n, 1, ..., 1) of rank 3."""
+    return _t(np.asarray(g).reshape(-1, 1, 1))
+
+
 def _conv(sd: Dict[str, torch.Tensor], base: str, spec: ConvSpec, p: Mapping[str, Any]) -> None:
-    if "kernel" not in p:
-        raise NotImplementedError("weight_norm params are not ported yet (ROADMAP.md queue 1)")
     inner = "convtr" if spec.transposed else "conv"
-    sd[f"{base}.{inner}.{inner}.weight"] = _t(torch_conv_weight(p["kernel"], spec))
+    if "kernel" in p:
+        sd[f"{base}.{inner}.{inner}.weight"] = _t(torch_conv_weight(p["kernel"], spec))
+    else:
+        sd[f"{base}.{inner}.{inner}.weight_v"] = _t(torch_conv_weight(p["v"], spec))
+        sd[f"{base}.{inner}.{inner}.weight_g"] = _weight_g(p["g"])
     if "bias" in p:
         sd[f"{base}.{inner}.{inner}.bias"] = _t(p["bias"])
     if "norm_scale" in p:
@@ -92,6 +103,30 @@ def state_dict_from_jax(model, params: Mapping[str, Any], rvq_state) -> Dict[str
     for name in RVQ_BUFFERS:
         value = rvq_state[name] if isinstance(rvq_state, Mapping) else getattr(rvq_state, name)
         sd[f"quantizer.rq.model.{name}"] = _t(value)
+    return sd
+
+
+def _conv2d(sd: Dict[str, torch.Tensor], base: str, p: Mapping[str, Any]) -> None:
+    """One discriminator conv: HWIO (kt, kf, Cin, Cout) -> torch (Cout, Cin, kt, kf)."""
+    if "kernel" in p:
+        sd[f"{base}.weight"] = _t(np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1)))
+    else:
+        sd[f"{base}.weight_v"] = _t(np.transpose(np.asarray(p["v"]), (3, 2, 0, 1)))
+        sd[f"{base}.weight_g"] = _t(np.asarray(p["g"]).reshape(-1, 1, 1, 1))
+    sd[f"{base}.bias"] = _t(p["bias"])
+
+
+def discriminator_state_dict_from_jax(disc_params: Sequence[Any]) -> Dict[str, torch.Tensor]:
+    """funcodec_tpu MultipleDiscriminator params (per discriminator, per STFT
+    scale: {"convs": [...], "conv_post": {...}}) as numpy -> the port
+    MultipleDiscriminator's state_dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i, scales in enumerate(disc_params):
+        for j, p in enumerate(scales):
+            base = f"discriminators.{i}.discriminators.{j}"
+            for k, cp in enumerate(p["convs"]):
+                _conv2d(sd, f"{base}.convs.{k}.conv", cp)
+            _conv2d(sd, f"{base}.conv_post.conv", p["conv_post"])
     return sd
 
 

@@ -1,26 +1,38 @@
-"""EnCodec-style codec, inference (port of funcodec_tpu/models/encodec.py).
+"""EnCodec-style codec (port of funcodec_tpu/models/encodec.py).
 
 normalize -> SEANet encode -> RVQ -> SEANet decode -> overlap-add -> trim.
 Waveforms are (B, T) mono, latents (B, T', D), indices (n_q, B, T'), as in
-the JAX package. The GAN training forwards are ROADMAP.md slice B.
+the JAX package.
+
+The GAN training forwards (``forward_generator``, ``forward_discriminator``
+and the loss assemblies the shared-forward step reuses) take the
+discriminator as a module or as a function of the waveform, and a
+``torch.Generator`` for the quantizer's draws. They return the RVQ state
+the step advanced to without writing the buffers; train/step.py commits it.
+Recon, mel and loss reductions are fp32; the discriminator runs in the
+reconstruction's type.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from funcodec_tpu_torch.models.quantizer import Quantizer
 from funcodec_tpu_torch.models.seanet import SEANetDecoder, SEANetEncoder
+from funcodec_tpu_torch.ops.stft import audio_to_mel
+from funcodec_tpu_torch.quant.rvq import RVQTensors
+
+Discriminator = Union[nn.Module, Callable[[torch.Tensor], List[Tuple[torch.Tensor, List[torch.Tensor]]]]]
 
 
 @dataclasses.dataclass(frozen=True)
 class EncodecConfig:
-    """The inference fields of funcodec_tpu's EncodecConfig; the loss
-    weights are ignored in a config until slice B."""
+    """funcodec_tpu's EncodecConfig (model-level knobs and loss weights)."""
 
     input_size: int = 1
     odim: int = 128
@@ -28,6 +40,14 @@ class EncodecConfig:
     audio_normalize: bool = True
     segment_dur: Optional[float] = None
     overlap_ratio: Optional[float] = 0.01
+    recon_loss_weight: float = 1.0
+    multi_spectral_recon_loss_weight: float = 1.0
+    adversarial_loss_weight: float = 1.0 / 9
+    feat_match_loss_weight: float = 100.0 / 9
+    enc_quant_loss_weight: float = 1.0
+    multi_spectral_window_powers_of_two: Tuple[int, ...] = (5, 6, 7, 8, 9, 10)
+    multi_spectral_n_mels: int = 64
+    use_power_spec_loss: bool = False
     bypass_quantizer: bool = False
     context_loss_weight: float = 0.0
 
@@ -77,7 +97,7 @@ class Encodec(nn.Module):
     ):
         super().__init__()
         if cfg.context_loss_weight > 0:
-            raise NotImplementedError("the context loss is not ported yet (ROADMAP.md slice C)")
+            raise NotImplementedError("the context loss is not ported yet (ROADMAP.md item 17)")
         self.cfg = cfg
         self.encoder = encoder
         self.quantizer = quantizer
@@ -179,3 +199,161 @@ class Encodec(nn.Module):
         """Dense code embeddings (B, T, D) -> waveform."""
         recon = self._decode([(emb, None)])
         return dict(recon_speech=recon, code_indices=None, code_embeddings=[(emb, None)])
+
+    # -- training forwards ----------------------------------------------------
+
+    def forward(self, method: str, *args, **kwargs):
+        """getattr(self, method)(*args, **kwargs), so that
+        torch.func.functional_call can run a training method on other
+        parameters (the train step's compute-dtype copies)."""
+        return getattr(self, method)(*args, **kwargs)
+
+    def _reconstruct(self, speech: torch.Tensor, generator: torch.Generator,
+                     rvq_state: Optional[RVQTensors] = None, training: bool = True):
+        """encode -> RVQ -> decode. Returns (recon (B, T), aux).
+
+        training=False (validation) runs the eval quantizer: no EMA update,
+        no dropout, commit 0, the state unchanged."""
+        state = self.quantizer.state.tensors() if rvq_state is None else rvq_state
+        commit_losses, enc_quant_losses, codes = [], [], []
+        all_indices, all_sub_quants, all_embs = [], [], []
+        for emb, scale in self._encode(speech):
+            if training:
+                quant_out, indices, commit, sub_quants, state = self.quantizer.train_forward(emb, generator, state)
+            else:
+                quant_out, indices, sub_quants = self.quantizer.inference(emb)
+                commit = torch.zeros((), device=emb.device)
+            commit_losses.append(commit)
+            # the MSE, squared (the reference's enc_quant_loss)
+            mse = (quant_out.float() - emb.float()).square().mean()
+            enc_quant_losses.append(mse**2)
+            codes.append((quant_out, scale))
+            all_indices.append(indices)
+            all_sub_quants.append(sub_quants)
+            all_embs.append(emb)
+        recon = self._decode(codes)[..., : speech.shape[-1]]
+        aux = dict(
+            commit_loss=torch.stack(commit_losses).sum(),
+            enc_quant_loss=torch.stack(enc_quant_losses).sum(),
+            indices=all_indices,
+            sub_quants=all_sub_quants,
+            embs=all_embs,
+            rvq_state=state,
+        )
+        return recon, aux
+
+    def _multi_spectral_loss(self, orig: torch.Tensor, recon: torch.Tensor) -> torch.Tensor:
+        """L1 + L2 of log mels (and, with use_power_spec_loss, log power
+        spectra) over the window sizes 2**p, n_fft 1024, hop win / 4; fp32."""
+        cfg = self.cfg
+        total = torch.zeros((), device=orig.device)
+        for p in cfg.multi_spectral_window_powers_of_two:
+            win = 2**p
+            kw = dict(n_fft=1024, hop_length=win // 4, win_length=win, sampling_rate=cfg.target_sample_hz,
+                      n_mel_channels=cfg.multi_spectral_n_mels)
+            if not cfg.use_power_spec_loss:
+                d = audio_to_mel(orig, **kw) - audio_to_mel(recon, **kw)
+                l1, l2 = d.abs().mean(), d.square().mean()
+            else:
+                om, op = audio_to_mel(orig, return_power_spec=True, **kw)
+                rm, rp = audio_to_mel(recon, return_power_spec=True, **kw)
+                dm, dp = om - rm, op - rp
+                l1 = dm.abs().mean() * 0.5 + dp.abs().mean() * 0.5
+                l2 = dm.square().mean() * 0.5 + dp.square().mean() * 0.5
+            total = total + l1 + l2
+        return total / len(cfg.multi_spectral_window_powers_of_two)
+
+    def forward_generator(self, discriminator: Discriminator, speech: torch.Tensor, generator: torch.Generator,
+                          rvq_state: Optional[RVQTensors] = None, training: bool = True):
+        """The generator turn: (loss, out) with out = {stats, rvq_state,
+        gen_loss (detached, the disc gate's carry), real, fake}.
+        Differentiate with respect to the generator's parameters; the
+        discriminator's parameters carry no gradient here."""
+        orig = speech.float()
+        recon, aux = self._reconstruct(speech, generator, rvq_state, training=training)
+        return self._generator_losses(discriminator, orig, recon, aux)
+
+    def _generator_losses(self, discriminator: Discriminator, orig: torch.Tensor, recon: torch.Tensor, aux):
+        """The generator's losses from a reconstruction: L1, multi-spectral,
+        hinge adversarial and feature matching against the real signal's
+        fmaps (computed without grad), commit and enc-quant. The
+        discriminator sees the reconstruction in its compute type."""
+        cfg = self.cfg
+        disc = _without_param_grad(discriminator)
+        disc_in_dtype = recon.dtype
+        recon = recon.float()
+        recon_loss = (orig - recon).abs().mean()
+        multi_spectral = (self._multi_spectral_loss(orig, recon) if cfg.multi_spectral_recon_loss_weight > 0
+                          else torch.zeros((), device=orig.device))
+        fake_outs = disc(recon.to(disc_in_dtype))
+        with torch.no_grad():
+            real_outs = disc(orig.to(disc_in_dtype))
+        adv_losses, feat_losses = [], []
+        for (_, real_fmap), (fake_logits, fake_fmap) in zip(real_outs, fake_outs):
+            adv_losses.append(F.relu(1.0 - fake_logits.float()).mean())
+            for rf, ff in zip(real_fmap, fake_fmap):
+                # the difference in the disc's type, its mean in fp32
+                feat_losses.append((rf - ff).abs().float().mean())
+        adversarial_loss = torch.stack(adv_losses).mean()
+        feat_match_loss = torch.stack(feat_losses).mean()
+        gen_loss = (
+            recon_loss * cfg.recon_loss_weight
+            + multi_spectral * cfg.multi_spectral_recon_loss_weight
+            + adversarial_loss * cfg.adversarial_loss_weight
+            + feat_match_loss * cfg.feat_match_loss_weight
+        )
+        loss = gen_loss + aux["commit_loss"] + aux["enc_quant_loss"] * cfg.enc_quant_loss_weight
+        zero = torch.zeros((), device=orig.device)
+        stats = {k: v.detach() for k, v in dict(
+            context_loss=zero,
+            context_pred_acc=zero,
+            generator_loss=loss,
+            generator_recon_loss=recon_loss,
+            generator_multi_spectral_recon_loss=multi_spectral,
+            generator_adv_loss=adversarial_loss,
+            generator_feat_match_loss=feat_match_loss,
+            generator_commit_loss=aux["commit_loss"],
+            generator_enc_quant_loss=aux["enc_quant_loss"],
+        ).items()}
+        out = dict(stats=stats, rvq_state=aux["rvq_state"], gen_loss=gen_loss.detach(), real=orig, fake=recon)
+        return loss, out
+
+    def forward_discriminator(self, discriminator: Discriminator, speech: torch.Tensor, generator: torch.Generator,
+                              gen_loss_carry: torch.Tensor, rvq_state: Optional[RVQTensors] = None,
+                              training: bool = True):
+        """The discriminator turn: the generator's forward without grad (its
+        quantizer in train mode, so the EMA advances), then
+        ``_discriminator_losses``. Returns (loss, out) with the new RVQ state."""
+        with torch.no_grad():
+            recon, aux = self._reconstruct(speech, generator, rvq_state, training=training)
+        loss, out = self._discriminator_losses(discriminator, speech.to(recon.dtype), recon, gen_loss_carry,
+                                               training=training)
+        out["rvq_state"] = aux["rvq_state"]
+        return loss, out
+
+    def _discriminator_losses(self, discriminator: Discriminator, orig: torch.Tensor, fake: torch.Tensor,
+                              gen_loss_carry: torch.Tensor, training: bool = True):
+        """Hinge loss on real and (detached) fake, in fp32; in training it is
+        gated to 0 while the discriminator already wins (disc_loss <=
+        gen_loss_carry)."""
+        if getattr(self.cfg, "phase_invariant_training", False):
+            raise NotImplementedError("phase-invariant training is not ported yet (ROADMAP.md slice C)")
+        fake = fake.detach()
+        real_outs = discriminator(orig)
+        fake_outs = discriminator(fake)
+        disc_loss = torch.stack([
+            F.relu(1.0 - r.float()).mean() + F.relu(1.0 + f.float()).mean()
+            for (r, _), (f, _) in zip(real_outs, fake_outs)
+        ]).mean()
+        loss = disc_loss * (disc_loss > gen_loss_carry).to(disc_loss.dtype) if training else disc_loss
+        stats = dict(discriminator_total_loss=loss.detach(), discriminator_loss=disc_loss.detach())
+        return loss, dict(stats=stats, real=orig, fake=fake)
+
+
+def _without_param_grad(discriminator: Discriminator):
+    """The discriminator as a function of x whose parameters carry no
+    gradient (a module's detached parameters; a function as given)."""
+    if not isinstance(discriminator, nn.Module):
+        return discriminator
+    params = {name: p.detach() for name, p in discriminator.named_parameters()}
+    return lambda x: torch.func.functional_call(discriminator, params, (x,))

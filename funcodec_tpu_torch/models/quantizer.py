@@ -3,15 +3,16 @@
 ``Quantizer`` is the reference CostumeQuantizer: optional in/out linear
 projections (``quantizer.input_proj``, ``quantizer.output_proj``), an
 optional tanh range clamp, and the stacked codebooks at
-``quantizer.rq.model.*``. Inference only; the EMA training forward is
-ROADMAP.md slice B.
+``quantizer.rq.model.*``. ``train_forward`` is the EMA training forward
+(quant/rvq.py rvq_train_forward); it returns the new codebook state
+without writing the buffers.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -19,25 +20,31 @@ import torch.nn as nn
 from funcodec_tpu_torch.quant.rvq import (
     RVQConfig,
     RVQState,
+    RVQTensors,
     rvq_decode,
     rvq_encode,
     rvq_inference,
+    rvq_train_forward,
 )
 
 
 @dataclasses.dataclass(frozen=True)
 class QuantizerConfig:
-    """The inference fields of funcodec_tpu's QuantizerConfig; the training
-    ones (EMA decay, dropout, expiry) are ignored in a config until slice B."""
+    """funcodec_tpu's QuantizerConfig (the CostumeQuantizer arguments)."""
 
     input_size: int = 128
     codebook_size: int = 1024
     num_quantizers: int = 32
+    ema_decay: float = 0.99
     kmeans_init: bool = True
     sampling_rate: int = 16_000
+    quantize_dropout: bool = False
+    rand_num_quant: Optional[Tuple[int, ...]] = None
     encoder_hop_length: int = 320
+    q0_ds_ratio: int = 1
     codec_dim: Optional[int] = None
     codec_range: Optional[float] = None
+    expiry_mode: str = "reference"
 
     @property
     def effective_dim(self) -> int:
@@ -48,9 +55,14 @@ class QuantizerConfig:
             dim=self.effective_dim,
             codebook_size=self.codebook_size,
             num_quantizers=self.num_quantizers,
+            decay=self.ema_decay,
             kmeans_init=self.kmeans_init,
+            quantize_dropout=self.quantize_dropout,
+            rand_num_quant=tuple(self.rand_num_quant) if self.rand_num_quant else None,
+            q0_ds_ratio=self.q0_ds_ratio,
             sampling_rate=self.sampling_rate,
             encoder_hop_length=self.encoder_hop_length,
+            expiry_mode=self.expiry_mode,
         )
 
 
@@ -63,7 +75,7 @@ class _ResidualVQ(nn.Module):
 
 
 class Quantizer(nn.Module):
-    """Eval-mode quantizer; all modes take and return (B, T, C)."""
+    """The quantizer; all modes take and return (B, T, C)."""
 
     def __init__(self, cfg: QuantizerConfig, *, device=None, generator: torch.Generator):
         super().__init__()
@@ -100,6 +112,17 @@ class Quantizer(nn.Module):
 
     def n_q_for_bandwidth(self, bandwidth: Optional[float]) -> int:
         return self.rvq_cfg.num_quantizers_for_bandwidth(bandwidth)
+
+    def train_forward(self, x: torch.Tensor, generator: torch.Generator, state: Optional[RVQTensors] = None,
+                      bandwidth: Optional[float] = None):
+        """(quantized, indices (n_q, B, T), commit loss, sub_quants, new state)
+        from `state` (the buffers when None). The commit loss is the mean
+        over all n_q layers, a dropped layer counting 0."""
+        n_q = self.n_q_for_bandwidth(bandwidth)
+        state = self.state.tensors() if state is None else state
+        quantized, indices, commits, sub_quants, new_state = rvq_train_forward(
+            self.rvq_cfg, state, self._pre(x), generator, n_q=n_q)
+        return self._post(quantized), indices, commits.mean(), sub_quants, new_state
 
     def inference(self, x: torch.Tensor, bandwidth: Optional[float] = None):
         """(quantized, indices (n_q, B, T), sub_quants (n_q, B, T, C))."""

@@ -9,8 +9,11 @@ Layout is torch's (B, C, T). Weights are torch's own: (Cout, Cin/g, K) for
 a forward conv, (Cin, Cout/g, K) for a transposed one, so a released
 checkpoint loads with plain ``load_state_dict``.
 
-Only the 1D subset with norms ``none`` and ``time_group_norm`` is ported;
-2D convs come with slice C of ROADMAP.md.
+Only the 1D subset with norms ``none``, ``weight_norm`` and
+``time_group_norm`` is ported; ``layer_norm`` and the 2D streamable convs
+come with slice C of ROADMAP.md. A weight-normed layer holds the reference
+``weight_g``/``weight_v`` and computes its weight with ``weight_norm_fuse``,
+the one fusion the discriminator's 2D convs share.
 
 ``FUSED_STRIDE1`` routes each stride-1 conv with K > 1 (and, through
 ``apply_sconv1d_act``, an ELU right before it) to the fused pad + conv
@@ -40,7 +43,7 @@ from funcodec_tpu_torch.ops.pad import (
 )
 
 CONV_NORMS = ("none", "weight_norm", "time_group_norm", "layer_norm")
-PORTED_NORMS = ("none", "time_group_norm")
+PORTED_NORMS = ("none", "weight_norm", "time_group_norm")
 
 # The fused stride-1 conv kernel (csrc/conv1d_s1.cu): one read of x and one
 # write of y per layer, the pad and a preceding ELU done on load.
@@ -76,9 +79,18 @@ class ConvSpec:
 def check_norm_ported(norm: str) -> None:
     if norm not in PORTED_NORMS:
         raise NotImplementedError(
-            f"conv norm {norm!r} is not ported yet (ROADMAP.md queue 1, "
-            "'Still raising': weight_norm and layer_norm)"
+            f"conv norm {norm!r} is not ported yet (ROADMAP.md slice C, item 16)"
         )
+
+
+def weight_norm_fuse(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The weight of a weight-normed conv: g * v / ||v||, the norm over every
+    axis but the first (torch weight_norm dim=0: per output channel of a
+    forward conv, per input channel of a transposed one) in fp32 and kept
+    from 0 by 1e-12, the result in v's type (funcodec_tpu ops/conv.fused_kernel)."""
+    dims = tuple(range(1, v.dim()))
+    norm = v.float().square().sum(dim=dims, keepdim=True).sqrt()
+    return (v.float() * (g.float().reshape(norm.shape) / norm.clamp_min(1e-12))).to(v.dtype)
 
 
 def apply_post_norm(
@@ -182,12 +194,30 @@ def _uniform_(t: torch.Tensor, bound: float, generator: torch.Generator) -> None
         t.uniform_(-bound, bound, generator=generator)
 
 
+def add_weight_norm(layer: nn.Module) -> None:
+    """Replace a conv layer's ``weight`` by ``weight_v`` (the same values)
+    and ``weight_g`` (their norm per dim-0 slice), as torch weight_norm does."""
+    w = layer.weight.detach()
+    del layer.weight
+    layer.weight_v = nn.Parameter(w.clone())
+    layer.weight_g = nn.Parameter(w.square().sum(dim=tuple(range(1, w.dim())), keepdim=True).sqrt())
+
+
+def layer_weight(layer: nn.Module) -> torch.Tensor:
+    """A conv layer's weight: its ``weight``, or the weight-norm fusion."""
+    if hasattr(layer, "weight_v"):
+        return weight_norm_fuse(layer.weight_v, layer.weight_g)
+    return layer.weight
+
+
 class _NormConv(nn.Module):
     """A conv and its post-norm, named like the reference NormConv1d
     (``.conv``, ``.norm``) or NormConvTranspose1d (``.convtr``, ``.norm``).
 
     Init is torch's Conv default (kaiming_uniform(a=sqrt(5)): U(+-1/sqrt(fan_in))
-    for weight and bias), drawn from the explicit `generator`.
+    for weight and bias), drawn from the explicit `generator`. With
+    ``weight_norm`` the inner layer holds ``weight_v`` (that draw) and
+    ``weight_g`` (its norm, shaped (dim 0, 1, 1)) in place of ``weight``.
     """
 
     def __init__(self, spec: ConvSpec, *, device, generator: torch.Generator):
@@ -210,6 +240,8 @@ class _NormConv(nn.Module):
         _uniform_(layer.weight, bound, generator)
         if layer.bias is not None:
             _uniform_(layer.bias, bound, generator)
+        if spec.norm == "weight_norm":
+            add_weight_norm(layer)
         setattr(self, "convtr" if spec.transposed else "conv", layer)
         if spec.norm == "time_group_norm":
             self.norm = nn.GroupNorm(1, spec.out_channels, eps=1e-5, device=device)
@@ -219,6 +251,9 @@ class _NormConv(nn.Module):
     @property
     def layer(self) -> nn.Module:
         return self.convtr if self.transposed else self.conv
+
+    def weight(self) -> torch.Tensor:
+        return layer_weight(self.layer)
 
     def norm_params(self) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
         if isinstance(self.norm, nn.GroupNorm):
@@ -238,7 +273,7 @@ class SConv1d(nn.Module):
     def params(self) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor], Optional[torch.Tensor]]:
         """(weight, bias, norm_scale, norm_bias); the last three may be None."""
         c = self.conv
-        return (c.layer.weight, c.layer.bias, *c.norm_params())
+        return (c.weight(), c.layer.bias, *c.norm_params())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return apply_sconv1d(self.spec, x, *self.params())
@@ -260,7 +295,7 @@ class SConvTranspose1d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = self.convtr
         return apply_sconv_transpose1d(
-            self.spec, x, c.layer.weight, c.layer.bias, *c.norm_params()
+            self.spec, x, c.weight(), c.layer.bias, *c.norm_params()
         )
 
 

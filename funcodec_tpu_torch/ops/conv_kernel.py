@@ -25,8 +25,13 @@ channel-packed ``_plan``/``_pack_weights`` lowering and its 8-row alignment)
 are dropped: the CUDA kernel masks its own ragged time and channel tiles.
 
 The wrapper takes the plain version only for tensors on the CPU; for a
-CUDA tensor it launches the kernel or raises. Forward only: a tensor that
-requires grad, with grad enabled, raises (training is slice B).
+CUDA tensor it launches the kernel or raises. Where an input requires grad,
+the call is a ``torch.autograd.Function`` (funcodec_tpu's ``custom_vjp``
+around the Pallas call): its forward is the kernel (the plain version on
+the CPU), and ``conv1d_s1_backward`` is its backward, fp32 transposes of the
+linear pad + conv through cuDNN's conv gradients and the activation's
+derivative, as JAX has XLA compute them. The backward launches no kernel of
+this module and never replays the forward.
 """
 
 from __future__ import annotations
@@ -176,20 +181,24 @@ def packed_conv_weights(weight: torch.Tensor, bias: Optional[torch.Tensor], dtyp
     return pack
 
 
+def act_fp32(xf: torch.Tensor, act: Optional[str]) -> torch.Tensor:
+    """The fused activation of an fp32 tensor (ELU as exp(min(x, 0)) - 1)."""
+    if act is None:
+        return xf
+    if act == "elu":
+        return torch.where(xf > 0, xf, torch.exp(torch.clamp(xf, max=0.0)) - 1.0)
+    if act == "relu":
+        return torch.clamp(xf, min=0.0)
+    if act == "gelu":
+        return F.gelu(xf, approximate="tanh")
+    raise ValueError(f"unsupported fused act: {act}")
+
+
 def apply_act(x: torch.Tensor, act: Optional[str]) -> torch.Tensor:
     """The fused activation in fp32, rounded back to x's type."""
     if act is None:
         return x
-    xf = x.float()
-    if act == "elu":
-        y = torch.where(xf > 0, xf, torch.exp(torch.clamp(xf, max=0.0)) - 1.0)
-    elif act == "relu":
-        y = torch.clamp(xf, min=0.0)
-    elif act == "gelu":
-        y = F.gelu(xf, approximate="tanh")
-    else:
-        raise ValueError(f"unsupported fused act: {act}")
-    return y.to(x.dtype)
+    return act_fp32(x.float(), act).to(x.dtype)
 
 
 def qualifies(T: int, K: int, left: int, right: int, dilation: int, pad_mode: str) -> bool:
@@ -201,12 +210,76 @@ def qualifies(T: int, K: int, left: int, right: int, dilation: int, pad_mode: st
     )
 
 
-def check_no_grad(name: str, *tensors: Optional[torch.Tensor]) -> None:
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name} is forward-only: its backward comes with training (ROADMAP.md slice B); "
-            "run under torch.no_grad() or torch.inference_mode()"
-        )
+def pad_transpose(d_up: torch.Tensor, left: int, right: int, pad_mode: str) -> torch.Tensor:
+    """The transpose of pad1d_time(., (left, right), pad_mode) for T > max(left,
+    right): the cotangent of the padded (B, C, left + T + right) tensor
+    folded onto (B, C, T), the pad rows added onto the rows they copy."""
+    T = d_up.shape[-1] - left - right
+    du = d_up[..., left: left + T].clone()
+    if pad_mode == "reflect":
+        if left:
+            du[..., 1: left + 1] += d_up[..., :left].flip(-1)
+        if right:
+            du[..., T - 1 - right: T - 1] += d_up[..., left + T:].flip(-1)
+    elif pad_mode == "replicate":
+        if left:
+            du[..., :1] += d_up[..., :left].sum(dim=-1, keepdim=True)
+        if right:
+            du[..., -1:] += d_up[..., left + T:].sum(dim=-1, keepdim=True)
+    return du
+
+
+def conv1d_s1_backward(
+    g: torch.Tensor,
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    left: int,
+    right: int,
+    dilation: int,
+    pad_mode: str,
+    act: Optional[str],
+    need: Tuple[bool, bool, bool] = (True, True, True),
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """(dx, dw, db) of y = conv(pad(act(x)), weight) + bias for the cotangent
+    g (B, Cout, T), in fp32: with u = act(x), dx = act'(x) * pad^T(conv^T(g, w)),
+    dw = the weight gradient of the conv at pad(u), db = sum of g over batch
+    and time (funcodec_tpu ops/conv_pallas.py f_bwd). Each is None where
+    `need` says so."""
+    g32, x32, w32 = g.float(), x.float(), weight.float()
+    dx = dw = db = None
+    if need[0]:
+        d_up = torch.nn.grad.conv1d_input((x.shape[0], x.shape[1], x.shape[2] + left + right), w32, g32,
+                                          dilation=dilation)
+        dx = pad_transpose(d_up, left, right, pad_mode)
+        if act is not None:
+            with torch.enable_grad():
+                xr = x32.detach().requires_grad_()
+                (dx,) = torch.autograd.grad(act_fp32(xr, act), xr, dx)
+    if need[1]:
+        up = pad1d_time(act_fp32(x32, act), (left, right), mode=pad_mode)
+        dw = torch.nn.grad.conv1d_weight(up, w32.shape, g32, dilation=dilation)
+    if need[2]:
+        db = g32.sum(dim=(0, 2))
+    return dx, dw, db
+
+
+class _FusedConv1dS1(torch.autograd.Function):
+    """The kernel's forward with conv1d_s1_backward as its backward; each
+    gradient in its input's type."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, left, right, dilation, pad_mode, act, variant):
+        ctx.save_for_backward(x, weight)
+        ctx.geometry = (left, right, dilation, pad_mode, act)
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        return _conv1d_s1_forward(x, weight, bias, left, right, dilation, pad_mode, act, variant)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        grads = conv1d_s1_backward(g, x, weight, *ctx.geometry, need=tuple(ctx.needs_input_grad[:3]))
+        dtypes = (x.dtype, weight.dtype, ctx.bias_dtype)
+        return (*(None if d is None else d.to(t) for d, t in zip(grads, dtypes)), None, None, None, None, None, None)
 
 
 def fused_conv1d_s1_reference(
@@ -247,7 +320,8 @@ def fused_conv1d_s1(
     (Cout, Cin, K) -> (B, Cout, T), or None when the layer does not qualify.
     ``variant`` picks the device code ("auto": the kernel ``plan`` names;
     "legacy": the first kernel); it exists for timing and tests and changes
-    no result beyond the summation order."""
+    no result beyond the summation order. Differentiable in x, weight and
+    bias (see conv1d_s1_backward)."""
     if x.dim() != 3 or weight.dim() != 3:
         return None
     if not qualifies(x.shape[-1], weight.shape[-1], left, right, dilation, pad_mode):
@@ -256,7 +330,11 @@ def fused_conv1d_s1(
         raise ValueError(f"unsupported fused act: {act}")
     if variant not in VARIANTS:
         raise ValueError(f"fused_conv1d_s1: variant {variant!r} is not one of {sorted(VARIANTS)}")
-    check_no_grad("fused_conv1d_s1", x, weight, bias)
+    return _FusedConv1dS1.apply(x, weight, bias, left, right, dilation, pad_mode, act, variant)
+
+
+def _conv1d_s1_forward(x, weight, bias, left, right, dilation, pad_mode, act, variant) -> torch.Tensor:
+    """The plain version for a CPU tensor, the kernel for a CUDA one."""
     if x.device.type == "cpu":
         return fused_conv1d_s1_reference(x, weight, bias, left, right, dilation, pad_mode, act)
     if x.device.type != "cuda":

@@ -33,8 +33,12 @@ are dropped: the kernel computes its halo by index arithmetic and masks the
 ragged last tile.
 
 The wrapper takes the plain version only for tensors on the CPU; for a CUDA
-tensor it launches the kernel or raises. Forward only: a tensor that
-requires grad, with grad enabled, raises (training is slice B).
+tensor it launches the kernel or raises. Where an input requires grad, the
+call is a ``torch.autograd.Function`` (funcodec_tpu's ``fused_fn``
+custom_vjp): its forward is the kernel (the plain version on the CPU); its
+backward replays the plain chain from the saved x and parameters under
+autograd and returns the gradients of x and of every conv and norm
+parameter, launching no kernel of this module.
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from funcodec_tpu_torch.kernels import build
-from funcodec_tpu_torch.ops.conv_kernel import DTYPES, PAD_MODES, apply_act, check_no_grad
+from funcodec_tpu_torch.ops.conv_kernel import DTYPES, PAD_MODES, apply_act
 from funcodec_tpu_torch.ops.pad import conv_padding_total, pad1d_time, split_padding
 
 # Launches of a pass since the last reset (three per block); a run sets it to 0
@@ -150,7 +154,10 @@ def packed_weights(conv1, conv2, shortcut, dtype: torch.dtype) -> Dict[str, torc
             g2=g2.detach().float().contiguous(), be2=be2.detach().float().contiguous(),
             gs=gs.detach().float().contiguous(), bes=bes.detach().float().contiguous(),
         )
-    conv1._resblock_pack = (key, pack)
+    # the sources are held beside the pack, so that while it is cached no
+    # other tensor (a later step's compute-type copy) can take their storage
+    # and so their key
+    conv1._resblock_pack = (key, pack, params)
     return pack
 
 
@@ -177,6 +184,11 @@ def finalize_mirror(
     return finalize_affine(lanes[:, 0, 0], lanes[:, 0, 1], T * gamma.shape[0], gamma, beta)
 
 
+def _block_params(conv1, conv2, shortcut) -> Tuple[Optional[torch.Tensor], ...]:
+    """(w1, b1, g1, be1, w2, b2, g2, be2, ws, bs, gs, bes) of the block's convs."""
+    return (*conv1.params(), *conv2.params(), *shortcut.params())
+
+
 def fused_resblock_tgn_reference(x: torch.Tensor, conv1, conv2, shortcut) -> torch.Tensor:
     """Plain torch with the kernel's numerics; conv1/conv2/shortcut are the
     block's SConv1d modules. x (B, C, T) -> (B, C, T) in x's type."""
@@ -184,11 +196,15 @@ def fused_resblock_tgn_reference(x: torch.Tensor, conv1, conv2, shortcut) -> tor
     if plan is None:
         raise ValueError("fused_resblock_tgn_reference: the block does not qualify")
     _, d, left, right = plan
+    return resblock_chain(x, _block_params(conv1, conv2, shortcut), d, left, right, conv1.spec.pad_mode)
+
+
+def resblock_chain(x: torch.Tensor, params, d: int, left: int, right: int, pad_mode: str) -> torch.Tensor:
+    """The plain version on explicit parameters (as _block_params orders
+    them); differentiable in x and in every parameter."""
     dt = x.dtype
     B, C, T = x.shape
-    w1, b1, g1, be1 = conv1.params()
-    w2, b2, g2, be2 = conv2.params()
-    ws, bs, gs, bes = shortcut.params()
+    w1, b1, g1, be1, w2, b2, g2, be2, ws, bs, gs, bes = params
     H = w1.shape[0]
 
     def conv(u, w, b, dilation=1):
@@ -199,7 +215,7 @@ def fused_resblock_tgn_reference(x: torch.Tensor, conv1, conv2, shortcut) -> tor
         yd = y.double()
         return yd.sum(dim=(1, 2)), (yd * yd).sum(dim=(1, 2))
 
-    u = pad1d_time(apply_act(x, "elu"), (left, right), mode=conv1.spec.pad_mode)
+    u = pad1d_time(apply_act(x, "elu"), (left, right), mode=pad_mode)
     b = conv(u, w1, b1, d)
     s = conv(x, ws, bs)
     a1, d1 = finalize_affine(*sums(b), T * H, g1, be1)
@@ -220,12 +236,42 @@ def fused_resblock_tgn(
     the block does not qualify. ``variant`` picks the device code ("auto":
     a persistent kernel where one applies; "legacy": the one-tile-per-block
     kernel) and ``max_blocks`` > 0 caps a persistent grid; both exist for
-    timing and tests and change no result beyond the tile sums' grouping."""
+    timing and tests and change no result beyond the tile sums' grouping.
+    Differentiable in x and in the block's parameters."""
     plan = _plan(x, conv1, conv2, shortcut)
     if plan is None:
         return None
+    params = _block_params(conv1, conv2, shortcut)
+    return _FusedResblockTGN.apply(x, (conv1, conv2, shortcut, plan, variant, max_blocks), *params)
+
+
+class _FusedResblockTGN(torch.autograd.Function):
+    """The kernel's forward; the backward replays resblock_chain from the
+    saved x and parameters and returns their gradients."""
+
+    @staticmethod
+    def forward(ctx, x, call, *params):
+        conv1, conv2, shortcut, plan, variant, max_blocks = call
+        ctx.save_for_backward(x, *params)
+        ctx.geometry = (plan[1], plan[2], plan[3], conv1.spec.pad_mode)
+        return _resblock_forward(x, conv1, conv2, shortcut, plan, variant, max_blocks)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        want = ctx.needs_input_grad[:1] + ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            leaves = [None if t is None else t.detach().requires_grad_(w) for t, w in zip(saved, want)]
+            y = resblock_chain(leaves[0], leaves[1:], *ctx.geometry)
+            inputs = [t for t, w in zip(leaves, want) if w and t is not None]
+            grads = iter(torch.autograd.grad(y, inputs, g, allow_unused=True))
+        out = [next(grads) if w and t is not None else None for t, w in zip(leaves, want)]
+        return (out[0], None, *out[1:])
+
+
+def _resblock_forward(x, conv1, conv2, shortcut, plan, variant, max_blocks) -> torch.Tensor:
+    """The plain version for a CPU tensor, the kernel for a CUDA one."""
     K, d, left, _ = plan
-    check_no_grad("fused_resblock_tgn", x, *conv1.params(), *conv2.params(), *shortcut.params())
     if x.device.type == "cpu":
         return fused_resblock_tgn_reference(x, conv1, conv2, shortcut)
     if x.device.type != "cuda":

@@ -3,7 +3,7 @@
 The same config dict or yaml that builds the JAX model builds this one, so
 one file drives both packages and a released checkpoint's config.yaml
 round-trips. Only the ``encodec`` model with the 1D SEANet encoder/decoder
-and the ``costume_quantizer`` is ported.
+and the ``costume_quantizer`` is ported, with the MS-STFT discriminator.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from typing import Any, Dict, Optional, Union
 
 import torch
 
+from funcodec_tpu_torch.models.discriminators import MultipleDiscriminator
 from funcodec_tpu_torch.models.encodec import Encodec, EncodecConfig
 from funcodec_tpu_torch.models.quantizer import Quantizer, QuantizerConfig
 from funcodec_tpu_torch.models.seanet import SEANetConfig, SEANetDecoder, SEANetEncoder
@@ -67,6 +68,18 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
     return dev
 
 
+DEFAULT_DISCRIMINATOR_CONF = {"disc_conf_list": [{"name": "encodec_multi_scale_stft_discriminator", "filters": 32}]}
+
+
+def build_discriminator(conf: Optional[Dict[str, Any]], *, device, generator: torch.Generator):
+    """The discriminator of ``discriminator_conf`` (the MS-STFT one when
+    None). It always sees the 1-channel waveform: the model's input_size is
+    the encoder's channel count, not the discriminator's."""
+    conf = conf or DEFAULT_DISCRIMINATOR_CONF
+    return MultipleDiscriminator(input_size=conf.get("input_size", 1), disc_conf_list=conf["disc_conf_list"],
+                                 device=device, generator=generator)
+
+
 def build_codec_model(
     config: Dict[str, Any],
     *,
@@ -75,10 +88,10 @@ def build_codec_model(
 ):
     """Build (model, discriminator) from a FunCodec-style config dict.
 
-    The model lives on `device`, the card unless the caller asks for the
-    CPU. Weights and (non-kmeans) codebooks are drawn from `generator`; the
-    default is a generator on `device` seeded with 0. The discriminator is
-    ROADMAP.md slice B, so the second element is always None.
+    Both live on `device`, the card unless the caller asks for the CPU.
+    Weights and (non-kmeans) codebooks are drawn from `generator`, the
+    discriminator's after the model's; the default is a generator on
+    `device` seeded with 0.
     """
     device = resolve_device(device)
     if generator is None:
@@ -111,7 +124,9 @@ def build_codec_model(
     encoder = SEANetEncoder(enc_cfg, device=device, generator=generator)
     quantizer = Quantizer(QuantizerConfig(**q_kw), device=device, generator=generator)
     decoder = SEANetDecoder(dec_cfg, device=device, generator=generator)
-    return Encodec(EncodecConfig(**ec_kw), encoder, quantizer, decoder), None
+    model = Encodec(EncodecConfig(**ec_kw), encoder, quantizer, decoder)
+    discriminator = build_discriminator(config.get("discriminator_conf"), device=device, generator=generator)
+    return model, discriminator
 
 
 def load_config(path: str) -> Dict[str, Any]:

@@ -145,11 +145,16 @@ def test_apply_sconv1d_routes_through_the_fused_conv(monkeypatch):
 
 
 def test_requires_grad_raises():
+    """A weight that requires grad used to raise (the kernel was forward
+    only); the call is now the differentiable Function, whose backward
+    (tests/test_torch_fused_grad.py) gives the weight its gradient."""
     x, kernel, bias = _inputs(1, 64, 8, 8, 3, seed=5)
     xt, w, b = _port(x, kernel, bias)
     w.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="slice B"):
-        conv_kernel.fused_conv1d_s1(xt, w, b, 1, 1)
+    y = conv_kernel.fused_conv1d_s1(xt, w, b, 1, 1)
+    assert type(y.grad_fn).__name__ == "_FusedConv1dS1Backward"
+    (dw,) = torch.autograd.grad(y.sum(), w)
+    assert dw.shape == w.shape and torch.isfinite(dw).all()
     with torch.no_grad():
         assert conv_kernel.fused_conv1d_s1(xt, w, b, 1, 1) is not None
 

@@ -405,3 +405,68 @@ def test_cuda_copy_kernels_reject_bad_inputs(cuda):
         copy_kernel.dma_copy(torch.zeros(4096, 128, device=cuda), chunk_rows=1024)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         copy_kernel.scale_copy(x.half(), 4)
+
+
+# ---------------------------------------------------------------------------
+# the backwards: the Functions around the kernels against autograd through the
+# plain versions (fp32: summation order; bf16: the plain version's bf16 casts)
+# ---------------------------------------------------------------------------
+
+BACKWARD_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _max_rel(got, want) -> float:
+    return max(float((g.float() - w.float()).abs().max()) / max(float(w.float().abs().max()), 1e-30)
+               for g, w in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("case", [
+    (2, 1, 32, 4003, 7, 1, False, "reflect", None),  # the encoder's first conv
+    (2, 32, 1, 4001, 7, 1, False, "reflect", "elu"),  # the decoder's last
+    (2, 512, 128, 130, 7, 1, False, "reflect", "elu"),  # the encoder's last
+    (2, 128, 512, 130, 7, 1, False, "reflect", None),  # the decoder's first
+    (2, 64, 32, 1003, 3, 3, True, "replicate", "elu"),
+    (2, 24, 40, 300, 3, 1, False, "constant", "gelu"),
+], ids=["1to32", "32to1-elu", "512to128-elu", "128to512", "64to32-d3-causal", "24to40-gelu"])
+def test_cuda_conv_backward_matches_autograd_of_the_plain_version(cuda, case, dtype):
+    B, Cin, Cout, T, K, dil, causal, pad_mode, act = case
+    rs = np.random.RandomState(Cin + Cout)
+    x = torch.from_numpy(rs.randn(B, Cin, T).astype(np.float32)).to(cuda, dtype).requires_grad_()
+    w = torch.from_numpy((rs.uniform(-1, 1, (Cout, Cin, K)) / np.sqrt(Cin * K)).astype(np.float32)).to(cuda)
+    b = torch.from_numpy((0.1 * rs.randn(Cout)).astype(np.float32)).to(cuda)
+    w, b = w.to(dtype).requires_grad_(), b.requires_grad_()
+    cot = torch.from_numpy(rs.randn(B, Cout, T).astype(np.float32)).to(cuda)
+    left, right = split_padding(conv_padding_total(K, 1, dil), causal)
+    before = conv_kernel.LAUNCHES
+    y = conv_kernel.fused_conv1d_s1(x, w, b, left, right, dil, pad_mode, act)
+    got = torch.autograd.grad((y.float() * cot).sum(), (x, w, b))
+    torch.cuda.synchronize()
+    assert conv_kernel.LAUNCHES == before + 1  # the forward's; the backward launches none
+    ref = conv_kernel.fused_conv1d_s1_reference(x, w, b, left, right, dil, pad_mode, act)
+    want = torch.autograd.grad((ref.float() * cot).sum(), (x, w, b))
+    assert [g.dtype for g in got] == [dtype, dtype, torch.float32]
+    assert _max_rel(got, want) <= BACKWARD_REL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("C,T,dil,causal", [(32, 4000, 1, False), (64, 2000, 1, False), (128, 500, 1, False),
+                                            (256, 130, 1, False), (64, 1003, 3, True)],
+                         ids=["C32", "C64", "C128", "C256", "C64-d3-causal"])
+def test_cuda_resblock_backward_matches_autograd_of_the_plain_version(cuda, C, T, dil, causal, dtype):
+    convs = _resblock_convs(C, 3, dil, causal, cuda, seed=C)
+    params = [p for m in convs for p in m.parameters()]
+    rs = np.random.RandomState(C)
+    x = torch.from_numpy(rs.randn(2, C, T).astype(np.float32)).to(cuda, dtype).requires_grad_()
+    cot = torch.from_numpy(rs.randn(2, C, T).astype(np.float32)).to(cuda)
+    before = resblock_kernel.LAUNCHES
+    y = resblock_kernel.fused_resblock_tgn(x, *convs)
+    got = torch.autograd.grad((y.float() * cot).sum(), [x, *params])
+    torch.cuda.synchronize()
+    assert resblock_kernel.LAUNCHES == before + 3  # the forward's three passes; the backward launches none
+    ref = resblock_kernel.fused_resblock_tgn_reference(x, *convs)
+    want = torch.autograd.grad((ref.float() * cot).sum(), [x, *params])
+    assert got[0].dtype == dtype and all(torch.isfinite(g).all() for g in got)
+    assert _max_rel(got, want) <= BACKWARD_REL[dtype]

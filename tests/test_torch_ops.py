@@ -196,6 +196,12 @@ def test_snake_and_unknown_activation():
 
 @pytest.mark.parametrize("norm", ["weight_norm", "layer_norm"])
 def test_unported_norms_raise(norm):
+    """layer_norm (ROADMAP.md slice C) raises; weight_norm, which raised until
+    the training slice ported it, builds with the reference weight_g/weight_v."""
     spec = tconv.ConvSpec(2, 2, 3, norm=norm)
+    if norm == "weight_norm":
+        m = tconv.SConv1d(spec, device="cpu", generator=torch.Generator())
+        assert set(m.state_dict()) == {"conv.conv.weight_g", "conv.conv.weight_v", "conv.conv.bias"}
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tconv.SConv1d(spec, device="cpu", generator=torch.Generator())

@@ -186,11 +186,17 @@ def test_ragged_lengths_match_the_unfused_block(C, T, causal, monkeypatch):
 
 
 def test_requires_grad_raises():
+    """Parameters that require grad used to raise (the kernel was forward
+    only); the call is now the differentiable Function, whose backward
+    (tests/test_torch_fused_grad.py) reaches every parameter."""
     kws = _specs(32)
     convs = _port_convs(kws, _params(kws, seed=5))
-    x = torch.zeros(1, 32, 64)
-    with pytest.raises(NotImplementedError, match="slice B"):
-        resblock_kernel.fused_resblock_tgn(x, *convs)  # the modules' parameters require grad
+    x = torch.from_numpy(np.random.RandomState(5).randn(1, 32, 64).astype(np.float32))
+    y = resblock_kernel.fused_resblock_tgn(x, *convs)  # the modules' parameters require grad
+    assert type(y.grad_fn).__name__ == "_FusedResblockTGNBackward"
+    params = [p for m in convs for p in m.parameters()]
+    grads = torch.autograd.grad(y.square().sum(), params)
+    assert all(g is not None and torch.isfinite(g).all() for g in grads)
     with torch.no_grad():
         assert resblock_kernel.fused_resblock_tgn(x, *convs) is not None
 
