@@ -6,10 +6,11 @@
                                       # of one bf16 shared training step (B = 16)
                                       # (tables also in build/chip_smoke/)
 
-Drives the port's two main paths on the flagship (EnCodec 16 kHz nq32ds320,
+Drives the port's main paths on the flagship (EnCodec 16 kHz nq32ds320,
 the egs/LibriTTS/codec/conf/encodec_16k_n32_600k_step.yaml model at full
-width, seeded random weights): serving through ``Speech2Token``, and the
-GAN train step (``train.step.make_gan_train_step``) with its discriminator.
+width, seeded random weights): serving through ``Speech2Token``, the GAN
+train step (``train.step.make_gan_train_step``) with its discriminator, and
+the training loop behind ``cli/codec_train``.
 In phases that each raise on failure:
 
 1. checks: a CUDA card is present; TF32 is turned off for fp32 matmuls and
@@ -78,10 +79,28 @@ In phases that each raise on failure:
    and per-module gradient norms); and ms a step, training audio-s/s and
    peak memory of the four configurations at B = 16 and of the bf16 shared
    step at B = 64, steady state (initialized codebooks).
+9. trainer: the training entry point, cli/codec_train.main, on the flagship
+   yaml (the recipe's quantizer) with a seeded corpus under
+   build/chip_smoke/train/ (40 train utterances of 1.5-6 s, so that both the
+   pad and the crop to 2.56 s happen; 8 valid utterances of 1.5-2.5 s):
+   bf16, the three kernels on, batch 16, 2 epochs x 4 steps with exact
+   launch counts (8 steps x the fused step's, and each validation batch's
+   one encode + decode with rvq_encode); the checkpoint contract's files and
+   finite stats; resumed to epoch 3 (the loaded state equal to
+   checkpoint.pth bit for bit, step 12, epochs 1-2 unchanged); after one
+   more in-place update, validation with the fused SEANet kernels against
+   without (no stale packed weights); one epoch from the device cache with
+   stats_interval 2 (its crops equal to the host gather of the same
+   offsets); latest.pth served by cli/codec_inference (tokens equal to a
+   direct Speech2Token.dispatch, every codebook initialized); the loop's
+   audio-s/s over its steady epoch with the host loader and with the device
+   cache, against the bare step's, the checkpoint write and the validation
+   wall.
 
 The line before the last is the card's name and power limit (nvidia-smi),
 the one before it a JSON object of the kernels (with each one's launches in
-the fused training configuration and the backwards' times); the last line is
+the fused training configuration and in the trainer phase's two-epoch run, and
+the backwards' times); the last line is
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
 """
 
@@ -89,6 +108,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import shutil
 import sys
 import time
@@ -119,6 +139,7 @@ from funcodec_tpu_torch.quant import rvq_kernel  # noqa: E402
 from funcodec_tpu_torch.tasks.codec import build_codec_model, load_config  # noqa: E402
 from funcodec_tpu_torch.tools import bw_probe  # noqa: E402
 from funcodec_tpu_torch.tools.benchlib import PEAK_BYTES, card_line, timeit, timeit_amortized  # noqa: E402
+from funcodec_tpu_torch.train.gan_trainer import step_generator  # noqa: E402
 from funcodec_tpu_torch.train.step import (  # noqa: E402
     create_gan_train_state,
     generator_grads,
@@ -1191,6 +1212,314 @@ def training_timing(dev, card: str):
 
 
 # ---------------------------------------------------------------------------
+# trainer phase
+# ---------------------------------------------------------------------------
+
+TRAINER_DIR = OUT_DIR / "train"
+# the train split pads (< 2.56 s) and crops (> 2.56 s) to speech_max_length; the
+# valid split is all shorter than it, so validation draws nothing on the host
+TRAINER_UTTS, TRAINER_SECONDS = 40, (1.5, 6.0)
+VALID_UTTS, VALID_SECONDS = 8, (1.5, 2.5)
+TRAINER_CONF = dict(batch_size=16, num_iters_per_epoch=4, max_epoch=2, keep_nbest_models=1, num_valid_dump_wavs=2,
+                    num_workers=4, log_interval=4, use_tensorboard=False)
+SERVE_UTTS = 4
+# fused against unfused validation on the same weights (fp32 masters, the fp32
+# RVQ scan in both): the resblock kernel's fp32 tolerance, of each stat's scale
+# (at least 1: the quality metrics in dB may sit near 0)
+VALID_REL = FP32_REL_TOL["resblock_tgn"]
+
+
+def _trainer_corpus(d: Path, n: int, seconds, seed: int) -> dict:
+    """Seeded sine mixtures plus noise as 16 kHz PCM16 wavs and their wav.scp: {key: samples}."""
+    d.mkdir(parents=True, exist_ok=True)
+    rs = np.random.RandomState(seed)
+    lengths = {}
+    with open(d / "wav.scp", "w") as scp:
+        for i, sec in enumerate(rs.uniform(*seconds, n)):
+            key, m = f"utt{i:03d}", int(round(sec * SR))
+            t = np.arange(m) / SR
+            w = sum(a * np.sin(2 * np.pi * f * t + ph) for a, f, ph in
+                    zip(rs.uniform(0.05, 0.2, 3), rs.uniform(80, 4000, 3), rs.uniform(0, 2 * np.pi, 3)))
+            write_wav(d / f"{key}.wav", (w + 0.02 * rs.randn(m)).astype(np.float32), SR)
+            scp.write(f"{key} {d / f'{key}.wav'}\n")
+            lengths[key] = m
+    return lengths
+
+
+def _train_cli(dev, config: Path, out: Path, *extra) -> list:
+    return ["--config", str(config), "--output_dir", str(out), "--train_wav_scp",
+            str(TRAINER_DIR / "train" / "wav.scp"), "--valid_wav_scp", str(TRAINER_DIR / "valid" / "wav.scp"),
+            "--train_dtype", "bfloat16", "--device", str(dev), *extra]
+
+
+def _expected(steps: int, valid_batches: int) -> dict:
+    """Launches of `steps` fused training steps and `valid_batches` validation forwards (one encode + decode each)."""
+    return {k: steps * TRAIN_EXPECT[k] + valid_batches * EXPECT[MAIN_PATH][k] for k in TRAIN_EXPECT}
+
+
+def _same_tree(a, b, path="") -> None:
+    """Raise unless two checkpoint trees hold the same structure, ints and tensors bit for bit."""
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            raise RuntimeError(f"trainer resume: keys differ at {path}")
+        for k in a:
+            _same_tree(a[k], b[k], f"{path}/{k}")
+    elif isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            raise RuntimeError(f"trainer resume: lengths differ at {path}")
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same_tree(x, y, f"{path}/{i}")
+    elif isinstance(a, torch.Tensor):
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a.cpu(), b.cpu()):
+            raise RuntimeError(f"trainer resume: tensor {path} differs from checkpoint.pth")
+    elif a != b:
+        raise RuntimeError(f"trainer resume: {path} is {a}, checkpoint.pth holds {b}")
+
+
+def _check_run(out: Path, epochs: int, what: str, best_link: bool = True) -> dict:
+    """The checkpoint contract's artifacts and a finite reporter.json; returns its stats.
+    A run resumed in another directory holds the best link only if its own epoch was the best."""
+    best = out / "valid.generator_multi_spectral_recon_loss.best.pth"
+    missing = [n for n in ("checkpoint.pth", f"{epochs}epoch.pth", "config.yaml", "reporter.json")
+               if not (out / n).exists()]
+    if missing or not (out / "latest.pth").is_symlink() or (best_link and not (best.is_symlink() and best.exists())):
+        raise RuntimeError(f"trainer {what}: missing artifacts {missing} or links in {sorted(os.listdir(out))}")
+    if len(list(out.glob("*epoch.pth"))) > 2 or len(list((out / "valid_wavs").rglob("*.wav"))) < 2:
+        raise RuntimeError(f"trainer {what}: n-best pruning or validation dumps wrong: {sorted(os.listdir(out))}")
+    stats = json.loads((out / "reporter.json").read_text())["stats"]
+    bad = [(e, ph, k) for e, phases in stats.items() for ph, kv in phases.items() for k, v in kv.items()
+           if not math.isfinite(v)]
+    if bad or set(stats) != {str(e) for e in range(1, epochs + 1)}:
+        raise RuntimeError(f"trainer {what}: epochs {sorted(stats)}, stats not finite: {bad[:5]}")
+    return stats
+
+
+def _prepared_is_current(embed: torch.Tensor) -> bool:
+    """rvq_encode's cached view of the codebooks holds their current values."""
+    hit = rvq_kernel._PREPARED.get(id(embed))
+    return hit is not None and torch.equal(hit[2]["embed"], embed.to(torch.bfloat16))
+
+
+def _stale_packs(model) -> list:
+    """The fused kernels' cached packs that differ from a fresh pack of the current weights."""
+    stale = []
+    for name, p in model.named_parameters():
+        cached = getattr(p, "_conv1d_s1_pack", None)
+        if cached is not None:
+            (dtype, chunk, *_), pack = cached
+            fresh = conv_kernel.pack_weight(p, dtype, chunk)
+            bias = pack["bias_ref"]
+            if not torch.equal(pack["w"], fresh) or (bias is not None and not torch.equal(pack["bias"], bias.float())):
+                stale.append(name)
+    for mod_name, block in model.named_modules():
+        if isinstance(block, SEANetResnetBlock) and hasattr(block.block[1], "_resblock_pack"):
+            (dtype, _), pack, _ = block.block[1]._resblock_pack
+            del block.block[1]._resblock_pack
+            fresh = resblock_kernel.packed_weights(block.block[1], block.block[3], block.shortcut, dtype)
+            if any(not torch.equal(pack[k], fresh[k]) for k in fresh):
+                stale.append(mod_name)
+    return stale
+
+
+def _back_to_back_rate(trainer, state, dev, B: int, steps: int) -> float:
+    """Training audio-s/s of `steps` of the trainer's own step, back to back
+    on one resident batch (no loader, no stats fetch), fenced once: the loop
+    without its host work, in the same process state as the loop."""
+    batch = {"speech": _train_speech(dev, B, seed=45)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, _ = trainer._train_step(state, batch, step_generator(dev, 0, state.step))
+    torch.cuda.synchronize()
+    return steps * B * TRAIN_SECONDS / (time.perf_counter() - t0)
+
+
+def trainer_phase(dev, card: str, train_rows):
+    """cli/codec_train on the flagship (bf16, the three kernels on), resumed,
+    its validation fused against unfused after an in-place update, one
+    epoch from the device cache, and its weights served; returns its numbers."""
+    import yaml
+
+    from funcodec_tpu_torch.cli import codec_train
+    from funcodec_tpu_torch.data.dataset import collate_fn
+    from funcodec_tpu_torch.data.device_cache import DeviceCachedCrops
+    from funcodec_tpu_torch.data.loader import PrefetchLoader
+    from funcodec_tpu_torch.data.sampler import shuffle_batches_for_epoch, unsorted_batches
+    from funcodec_tpu_torch.train.checkpoint import train_state_dict
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(TRAINER_DIR, ignore_errors=True)
+    lengths = _trainer_corpus(TRAINER_DIR / "train", TRAINER_UTTS, TRAINER_SECONDS, seed=30)
+    _trainer_corpus(TRAINER_DIR / "valid", VALID_UTTS, VALID_SECONDS, seed=31)
+    config = load_config(str(FLAGSHIP_YAML))
+    config.update(TRAINER_CONF)
+    conf = TRAINER_DIR / "config.yaml"
+    conf.write_text(yaml.safe_dump(config))
+    crop = config["speech_max_length"]
+    n_pad = sum(n <= crop for n in lengths.values())
+    if not 0 < n_pad < len(lengths):
+        raise RuntimeError(f"trainer corpus: {n_pad} of {len(lengths)} utterances padded; both pad and crop must occur")
+    iters, epochs = config["num_iters_per_epoch"], config["max_epoch"]
+    v_batches = -(-VALID_UTTS // config["batch_size"])
+
+    # 1. two epochs, bf16, the three kernels on
+    exp = TRAINER_DIR / "exp"
+    set_flags(MAIN_PATH)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer, state = codec_train.main(_train_cli(dev, conf, exp))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, expect = read_counts(), _expected(epochs * iters, epochs * v_batches)
+    if counts != expect:
+        raise RuntimeError(f"trainer: launches {counts}, expected {expect} ({epochs * iters} steps, "
+                           f"{epochs * v_batches} validation batches)")
+    stats = _check_run(exp, epochs, "run")
+    walls = trainer.epoch_walls
+    steady = walls[epochs]
+    host_rate = steady["train_audio_s"] / steady["train_s"]
+    log(f"[trainer] codec_train bf16 B={config['batch_size']}, {epochs} epochs x {iters} steps, {VALID_UTTS} valid "
+        f"utterances: {wall:.2f} s (model build included); launches {counts} = {epochs * iters} steps x "
+        f"{TRAIN_EXPECT} + {epochs * v_batches} validation batches x {EXPECT[MAIN_PATH]}; every stat finite; "
+        f"epoch {epochs} valid multi-spectral {stats[str(epochs)]['valid']['generator_multi_spectral_recon_loss']:.4f}, "
+        f"stoi {stats[str(epochs)]['valid']['stoi']:.4f}")
+    back_to_back = _back_to_back_rate(trainer, state, dev, config["batch_size"], iters)
+    del trainer, state
+
+    # 2. resume to a third epoch: the loaded state is checkpoint.pth bit for bit
+    saved = torch.load(exp / "checkpoint.pth", map_location="cpu", weights_only=True)
+    trainer, state = codec_train.main(_train_cli(dev, conf, exp, "--max_epoch", "3", "--dry_run"))
+    state, start = trainer.resume(state)
+    _same_tree(train_state_dict(state), saved)
+    if start != epochs + 1 or state.step != epochs * iters:
+        raise RuntimeError(f"trainer resume: start epoch {start}, step {state.step}")
+    del trainer, state, saved
+    set_flags(MAIN_PATH)
+    reset_counts()
+    trainer, state = codec_train.main(_train_cli(dev, conf, exp, "--max_epoch", "3"))
+    torch.cuda.synchronize()
+    if read_counts() != _expected(iters, v_batches):
+        raise RuntimeError(f"trainer resume: launches {read_counts()}, expected {_expected(iters, v_batches)}")
+    resumed = _check_run(exp, 3, "resume")
+    if state.step != 3 * iters or any(resumed[e] != stats[e] for e in stats):
+        raise RuntimeError(f"trainer resume: step {state.step}, or the stats of epochs 1-{epochs} changed")
+    if not _prepared_is_current(state.model.quantizer.state.embed):
+        raise RuntimeError("trainer: rvq_encode's prepared codebooks are not those the last step committed")
+    log(f"[trainer] resume: the loaded state equals checkpoint.pth bit for bit; step {state.step}, epochs 1-{epochs} "
+        f"unchanged in reporter.json, epoch 3 trained and validated")
+
+    # 3. stale packs: fused against unfused validation after one more in-place update
+    args = codec_train.get_parser().parse_args(_train_cli(dev, conf, exp))
+    train_ds, valid_ds = codec_train.build_datasets(args, config)
+
+    def v_loader():
+        return PrefetchLoader(valid_ds, unsorted_batches(valid_ds.uttids, config["batch_size"], drop_last=False),
+                              collate_fn, num_workers=2)
+
+    _set_seanet_flags(True)
+    before = trainer.validate(state, v_loader(), 100, 0)
+    state, _ = trainer._train_step(state, {"speech": _train_speech(dev, config["batch_size"], seed=44)},
+                                   step_generator(dev, 0, state.step))
+    t0 = time.perf_counter()
+    fused = trainer.validate(state, v_loader(), 101, 0)
+    torch.cuda.synchronize()
+    valid_wall = time.perf_counter() - t0
+    stale = _stale_packs(state.model)
+    _set_seanet_flags(False)
+    unfused = trainer.validate(state, v_loader(), 102, 0)
+    worst = max(abs(fused[k] - unfused[k]) / max(abs(unfused[k]), 1.0) for k in unfused)
+    moved = before["generator_multi_spectral_recon_loss"] != fused["generator_multi_spectral_recon_loss"]
+    log(f"[trainer] validation after an in-place update, fused SEANet kernels against unfused (fp32 masters, fp32 "
+        f"RVQ scan): worst of {len(unfused)} stats {worst:.3e} of its scale (limit {VALID_REL:.0e}); stale packs "
+        f"{stale}; the update moved the stats: {moved}")
+    if stale or worst > VALID_REL or not moved:
+        raise RuntimeError("trainer: the fused validation served stale packs or disagrees with the unfused one")
+    del trainer, state
+    torch.cuda.empty_cache()
+
+    # 4. one epoch from the device cache, stats every 2nd step, resumed from the run above
+    cache_conf = TRAINER_DIR / "config_cache.yaml"
+    cache_conf.write_text(yaml.safe_dump(dict(config, device_cache=True, stats_interval=2)))
+    exp_cache = TRAINER_DIR / "exp_cache"
+    exp_cache.mkdir()
+    for name in ("checkpoint.pth", "reporter.json"):
+        shutil.copy(exp / name, exp_cache / name)
+    set_flags(MAIN_PATH)
+    reset_counts()
+    trainer, state = codec_train.main(_train_cli(dev, cache_conf, exp_cache, "--max_epoch", "4"))
+    torch.cuda.synchronize()
+    if read_counts() != _expected(iters, v_batches) or state.step != 4 * iters:
+        raise RuntimeError(f"trainer device cache: launches {read_counts()}, step {state.step}")
+    _check_run(exp_cache, 4, "device cache", best_link=False)
+    cache_walls = trainer.epoch_walls[4]
+    cache_rate = cache_walls["train_audio_s"] / cache_walls["train_s"]
+    ids = list(train_ds.uttids)
+    cache = DeviceCachedCrops(train_ds, ids, crop, seed=config["seed"], device=dev)
+    batches = shuffle_batches_for_epoch(unsorted_batches(ids, config["batch_size"], True), config["seed"], 4)
+    batches = (batches * -(-iters // len(batches)))[:iters]
+    host = {u: np.asarray(train_ds.raw_item(u)[1]["speech"], np.float32) for u in ids}
+    for (keys, batch), (idx, off) in zip(cache.epoch_loader(batches, 4), cache.epoch_offsets(batches, 4)):
+        want = np.stack([np.pad(host[u], (0, max(0, o + crop - len(host[u]))))[o: o + crop]
+                         for u, o in zip(keys, off)])
+        if not np.array_equal(batch["speech"].cpu().numpy(), want):
+            raise RuntimeError("trainer device cache: the card's crops differ from the host gather of the offsets")
+    log(f"[trainer] device cache + stats_interval 2: 1 epoch x {iters} steps resumed at epoch 4, launches exact, "
+        f"{cache.nbytes() / 1e6:.1f} MB staged (padding overhead {cache.padding_overhead:.2f}x); its crops equal the "
+        f"host gather of the same offsets")
+    del trainer, state, cache
+    torch.cuda.empty_cache()
+
+    # 5. the trained weights served through the inference CLI (bf16 main path)
+    serve = TRAINER_DIR / "serve"
+    keys = sorted(lengths)[:SERVE_UTTS]
+    (TRAINER_DIR / "serve.scp").write_text("".join(f"{k} {TRAINER_DIR / 'train' / f'{k}.wav'}\n" for k in keys))
+    set_flags(MAIN_PATH)
+    reset_counts()
+    cli.main(["--config_file", str(exp / "config.yaml"), "--model_file", str(exp / "latest.pth"), "--output_dir",
+              str(serve), "--data_path_and_name_and_type", f"{TRAINER_DIR / 'serve.scp'},speech,sound", "--dtype",
+              "bfloat16", "--batch_size", str(SERVE_UTTS), "--bit_width", str(CLI_BIT_WIDTH), "--device", str(dev)])
+    if read_counts() != EXPECT[MAIN_PATH]:
+        raise RuntimeError(f"trainer serve: launches {read_counts()} for one batch")
+    codes = _codecs(serve / "codecs.txt")
+    s2t = Speech2Token(str(exp / "config.yaml"), str(exp / "latest.pth"), "bfloat16", SR, CLI_BIT_WIDTH, device=dev)
+    order = sorted(keys, key=lambda k: lengths[k])
+    wavs = [read_wav(TRAINER_DIR / "train" / f"{k}.wav", normalize=False)[1] for k in order]
+    batch = cli._wrap_pad(wavs, cli._bucket_length(max(len(w) for w in wavs), s2t.hop_length))
+    direct = s2t.collect(s2t.dispatch(batch, pcm16_ilens=[len(w) for w in wavs]))[0][0]
+    for i, key in enumerate(order):
+        if not np.array_equal(direct[:, i, : codes[key].shape[1]], codes[key]):
+            raise RuntimeError(f"trainer serve: {key}'s tokens differ from a direct Speech2Token.dispatch")
+    inited = s2t.model.quantizer.state.inited
+    if not bool(inited.all()):
+        raise RuntimeError(f"trainer serve: codebooks initialized {inited.tolist()}")
+    del s2t
+    log(f"[trainer] latest.pth served by cli/codec_inference (bf16, the three kernels): {SERVE_UTTS} utterances, "
+        f"tokens equal a direct Speech2Token.dispatch; all {inited.numel()} codebooks initialized")
+
+    # 6. the loop's numbers beside the bare step's
+    bare = next(r for r in train_rows if r["name"] == TRAIN_FUSED and r["batch"] == config["batch_size"])
+    out = dict(launches=counts, wall_s=wall, epochs={str(e): w for e, w in walls.items()},
+               host_loader_audio_s_per_s=host_rate, device_cache_audio_s_per_s=cache_rate,
+               bare_step_audio_s_per_s=bare["audio_s_per_s"], host_loader_ratio=host_rate / bare["audio_s_per_s"],
+               device_cache_ratio=cache_rate / bare["audio_s_per_s"], checkpoint_s=steady["checkpoint_s"],
+               checkpoint_bytes=steady["checkpoint_bytes"], valid_s=steady["valid_s"],
+               valid_fused_s=valid_wall, valid_worst_relative=worst, back_to_back_audio_s_per_s=back_to_back,
+               phase_s=time.perf_counter() - t_phase)
+    log(f"[time] trainer loop, bf16 + the SEANet kernels, B={config['batch_size']} x {crop / SR} s, steady epoch "
+        f"({iters} steps): host loader {host_rate:.1f} audio-s/s ({steady['train_s']:.3f} s), device cache + "
+        f"stats_interval 2 {cache_rate:.1f} audio-s/s ({cache_walls['train_s']:.3f} s); the bare step "
+        f"{bare['audio_s_per_s']:.1f} audio-s/s (ratio {out['host_loader_ratio']:.3f} / {out['device_cache_ratio']:.3f}), "
+        f"the trainer's step back to back after the run {back_to_back:.1f} audio-s/s (ratio "
+        f"{host_rate / back_to_back:.3f} / {cache_rate / back_to_back:.3f}); "
+        f"checkpoint.pth write {steady['checkpoint_s']:.3f} s for {steady['checkpoint_bytes'] / 2**20:.1f} MiB; "
+        f"validation {steady['valid_s']:.3f} s ({VALID_UTTS} utterances, 2 dumps scored); phase "
+        f"{out['phase_s']:.1f} s ({card})")
+    _set_seanet_flags(False)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # timing phase
 # ---------------------------------------------------------------------------
 
@@ -1397,6 +1726,7 @@ def main() -> int:
     backward_rows, backward_errs, train_fwd_errs = backward_phase(dev, card)
     card_cpu = card_cpu_phase(dev)
     train_rows = training_timing(dev, card)
+    trainer = trainer_phase(dev, card, train_rows)
     if "funcodec_tpu" in sys.modules or ("jax" in sys.modules and not _JAX_PRELOADED):
         raise RuntimeError("the port imported JAX or the JAX package")
 
@@ -1407,7 +1737,7 @@ def main() -> int:
         copy_ceiling_bytes_per_s=ceiling, cli=cli_stats, training=dict(
             configs=train_results, launches=train_counts, fused_gradients=fused_grads, backward=backward_rows,
             backward_max_relative_error=backward_errs, forward_max_abs_error=train_fwd_errs,
-            card_vs_cpu=card_cpu, timing=train_rows)), indent=1))
+            card_vs_cpu=card_cpu, timing=train_rows), trainer=trainer), indent=1))
     conv_main = _summed([r for r in conv_rows if r["main_path"]])
     conv_main["library_ms"] = sum(r["library_ms"] for r in conv_rows if r["main_path"])
     conv_main["legacy_ms"] = sum(r["legacy_ms"] for r in conv_rows if r["main_path"])
@@ -1446,8 +1776,9 @@ def main() -> int:
             replaces=REPLACES[name], launches=probe_launches[name], max_abs_err=0.0, ms=row["ms"],
             plain_ms=probe_plain[torch.bfloat16], bound_ms=row["bound_ms"], bound_by="bytes",
             library_ms=row["library_ms"]))
-    for k in kernels:  # what the training phase's fused configuration launched in its steps
+    for k in kernels:  # the training phase's fused steps, the trainer phase's two-epoch run
         k["training_launches"] = train_counts.get(k["name"], 0)
+        k["trainer_launches"] = trainer["launches"].get(k["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -59,7 +59,8 @@ class Speech2Token:
     """Codec model wrapper with run_mod in {inference, encode, decode, decode_emb}.
 
     `config_file` is a FunCodec config.yaml path or an already-loaded dict.
-    `model_file` is a FunCodec .pth; without one the weights are random,
+    `model_file` is a FunCodec .pth or a weights file of the port's trainer
+    (cli/codec_train: {epoch}epoch.pth, latest.pth); without one the weights are random,
     drawn from a torch.Generator seeded with INIT_SEED. dtype "bfloat16" casts
     the parameters but not the codebooks (fp32 buffers, as in the JAX
     package); "float32" also turns off TF32 in cuDNN and cuBLAS, which would
@@ -101,8 +102,9 @@ class Speech2Token:
         if model_file and os.path.exists(model_file):
             if not model_file.endswith((".pth", ".pt", ".bin")):
                 raise NotImplementedError(
-                    "only FunCodec .pth checkpoints load in the port; training checkpoints "
-                    "come with train/checkpoint (ROADMAP.md slice B)"
+                    f"{model_file}: only PyTorch state_dict files (.pth: FunCodec's, or the port "
+                    "trainer's {epoch}epoch.pth / latest.pth) load in the port; the JAX package's "
+                    "flax-msgpack .ckpt files need flax, which the port does not use"
                 )
             self.model.load_state_dict(load_torch_state_dict(model_file))
         else:

@@ -4,7 +4,9 @@
 the port's own layer list (the same (kind, spec) list as the JAX package's)
 beside the JAX params and returns a state_dict under the reference FunCodec
 names, which the port's modules carry; ``discriminator_state_dict_from_jax``
-does the same for the discriminator's parameters. Weight-normed convs carry
+does the same for the discriminator's parameters, and ``train_state_from_jax``
+carries a whole GAN train state (both modules, the Adam moments and counts,
+the gate carry and the step). Weight-normed convs carry
 ``v``/``g`` across as ``weight_v``/``weight_g``, and all four RVQ buffers
 come along. The JAX params arrive as numpy arrays (``np.asarray`` of each
 leaf); this module never imports jax.
@@ -12,7 +14,7 @@ leaf); this module never imports jax.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Sequence
+from typing import Any, Callable, Dict, List, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -143,3 +145,69 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     for key in [k for k in sd if k.endswith("rq.model.inited")]:
         sd[key] = sd[key].reshape(-1).float()
     return sd
+
+
+def _jax_adam_states(tree) -> list:
+    """The optax ScaleByAdamState nodes (count, mu, nu) of a JAX optimizer state."""
+    if all(hasattr(tree, a) for a in ("count", "mu", "nu")):
+        return [tree]
+    if isinstance(tree, (list, tuple)):
+        return [s for t in tree for s in _jax_adam_states(t)]
+    return []
+
+
+def _optimizer_state_from_jax(template, jax_opt_state, to_port: Callable[[Any], List[torch.Tensor]]):
+    """A port optimizer state (`template`, a chain of make_optimizer's
+    transformations) with the Adam moments and counts of `jax_opt_state`
+    (an optax chain with one Adam); `to_port` maps a JAX parameter-shaped
+    tree to the port's parameter list."""
+    adams = _jax_adam_states(jax_opt_state)
+    if len(adams) != 1:
+        raise NotImplementedError(f"a JAX optimizer state with {len(adams)} Adam states does not carry across")
+    count = int(np.asarray(adams[0].count))
+
+    def carry(node):
+        if isinstance(node, dict) and set(node) == {"count", "mu", "nu"}:
+            return dict(count=count, mu=to_port(adams[0].mu), nu=to_port(adams[0].nu))
+        if isinstance(node, tuple):
+            return tuple(carry(n) for n in node)
+        if isinstance(node, int):  # scale_by_learning_rate's update count
+            return count
+        raise NotImplementedError(f"optimizer state {type(node).__name__} does not carry across from JAX")
+
+    return carry(template)
+
+
+def train_state_from_jax(model, discriminator, jax_state, optimizer_g=None, optimizer_d=None):
+    """A funcodec_tpu GANTrainState (JAX arrays or numpy) as the port's.
+
+    Loads the generator's parameters and RVQ buffers into `model` and the
+    discriminator's parameters into `discriminator`, and returns the port's
+    GANTrainState over them with both optimizers' Adam moments and counts,
+    the gate carry and the step. The optimizer states take the structure of
+    `optimizer_g` / `optimizer_d` (default: ``make_optimizer()``, Adam)."""
+    from funcodec_tpu_torch.train.step import GANTrainState, make_optimizer
+
+    device = next(model.parameters()).device
+    rvq_state = jax_state.rvq_state
+    model.load_state_dict(state_dict_from_jax(model, jax_state.params, rvq_state))
+    discriminator.load_state_dict(discriminator_state_dict_from_jax(jax_state.disc_params))
+
+    def gen_list(tree):
+        sd = state_dict_from_jax(model, tree, rvq_state)
+        return [sd[n].to(device) for n, _ in model.named_parameters()]
+
+    def disc_list(tree):
+        sd = discriminator_state_dict_from_jax(tree)
+        return [sd[n].to(device) for n, _ in discriminator.named_parameters()]
+
+    opt_g = (optimizer_g or make_optimizer()).init(list(model.parameters()))
+    opt_d = (optimizer_d or make_optimizer()).init(list(discriminator.parameters()))
+    return GANTrainState(
+        step=int(np.asarray(jax_state.step)),
+        model=model,
+        discriminator=discriminator,
+        opt_state_g=_optimizer_state_from_jax(opt_g, jax_state.opt_state_g, gen_list),
+        opt_state_d=_optimizer_state_from_jax(opt_d, jax_state.opt_state_d, disc_list),
+        gen_loss_carry=torch.tensor(float(np.asarray(jax_state.gen_loss_carry)), device=device),
+    )

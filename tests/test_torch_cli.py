@@ -186,7 +186,7 @@ def test_unported_options_raise(corpus, tmp_path):
         tcli.main(base + ["--stat_flops"])
     ckpt = tmp_path / "model.ckpt"
     ckpt.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="slice B"):
+    with pytest.raises(NotImplementedError, match="flax-msgpack .ckpt"):
         tcli.Speech2Token(str(corpus / "config.yaml"), str(ckpt), device="cpu")
 
 
