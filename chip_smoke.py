@@ -2,15 +2,17 @@
 
     python3 chip_smoke.py             # the smoke run below
     python3 chip_smoke.py --profile   # checks, build, then a torch.profiler table of
-                                      # one B = 64 x 10 s request per serving path and
-                                      # of one bf16 shared training step (B = 16)
+                                      # one B = 64 x 10 s request per serving path,
+                                      # of one bf16 shared training step (B = 16) and
+                                      # of one 16-slot LauraTTS session segment
                                       # (tables also in build/chip_smoke/)
 
 Drives the port's main paths on the flagship (EnCodec 16 kHz nq32ds320,
 the egs/LibriTTS/codec/conf/encodec_16k_n32_600k_step.yaml model at full
 width, seeded random weights): serving through ``Speech2Token``, the GAN
 train step (``train.step.make_gan_train_step``) with its discriminator, and
-the training loop behind ``cli/codec_train``.
+the training loop behind ``cli/codec_train``; then LauraTTS serving on the
+shipped LauraTTS topology through ``cli/text2audio_inference``.
 In phases that each raise on failure:
 
 1. checks: a CUDA card is present; TF32 is turned off for fp32 matmuls and
@@ -87,9 +89,10 @@ In phases that each raise on failure:
    launch counts (8 steps x the fused step's, and each validation batch's
    one encode + decode with rvq_encode); the checkpoint contract's files and
    finite stats; resumed to epoch 3 (the loaded state equal to
-   checkpoint.pth bit for bit, step 12, epochs 1-2 unchanged); after one
-   more in-place update, validation with the fused SEANet kernels against
-   without (no stale packed weights); one epoch from the device cache with
+   checkpoint.pth bit for bit, step 12, epochs 1-2 unchanged); after each
+   of 4 more in-place updates, validation with the fused SEANet kernels
+   against without, on the same RVQ codes (no stale packed weights; codes
+   of the unfused scan differ only at near-ties); one epoch from the device cache with
    stats_interval 2 (its crops equal to the host gather of the same
    offsets); latest.pth served by cli/codec_inference (tokens equal to a
    direct Speech2Token.dispatch, every codebook initialized); the loop's
@@ -97,15 +100,37 @@ In phases that each raise on failure:
    cache, against the bare step's, the checkpoint write and the validation
    wall.
 
+10. tts: LauraTTS serving (models/{transformer,laura,tts_serving}.py,
+   cli/text2audio_inference) on the shipped
+   egs/LibriTTS/text2speech_laura yaml at full width (88,669,186
+   parameters with a seeded 256-word list; seeded weights; the flagship
+   codec's codebooks grafted in): fp32 logits on the card against the CPU
+   (the prefill of three requests, 32 teacher-forced steps, syn_audio's
+   codec_emb) and the incremental decode against the full forward, within
+   1e-3; 8 greedy requests through decode_codec, decode_codec_batch and a
+   4-slot session with slot reuse (token agreement, and the three layouts'
+   teacher-forced logits within 1e-3); one zero-shot request through
+   Text2Audio with the three codec kernels, launches exact (the prompt's
+   encode, decode and decode_emb), each of its SEANet kernel calls against
+   the plain version on its own inputs, gen and gen_only_lm against the
+   kernels off; the CLI with --serving_slots 4 and --batch_size 1 on an 8-line
+   text_scp under build/chip_smoke/tts/; and the timing of
+   scripts/bench_tts_serving.py's workload (48 requests, caps 50-250, 16
+   slots) on the session (best of 3) and on lockstep batches (one timed
+   run), bf16 and fp32.
+   ``--profile`` adds one 25-step segment of a 16-slot session.
+
 The line before the last is the card's name and power limit (nvidia-smi),
 the one before it a JSON object of the kernels (with each one's launches in
-the fused training configuration and in the trainer phase's two-epoch run, and
-the backwards' times); the last line is
+the fused training configuration, in the trainer phase's two-epoch run and
+in the TTS phase's zero-shot request, and the backwards' times); the last
+line is
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -1225,8 +1250,14 @@ TRAINER_CONF = dict(batch_size=16, num_iters_per_epoch=4, max_epoch=2, keep_nbes
 SERVE_UTTS = 4
 # fused against unfused validation on the same weights (fp32 masters, the fp32
 # RVQ scan in both): the resblock kernel's fp32 tolerance, of each stat's scale
-# (at least 1: the quality metrics in dB may sit near 0)
+# (at least 1: the quality metrics in dB may sit near 0). The two encoders' latents
+# agree to rounding, which flips an RVQ code now and then at a near-tie, and one flip
+# can move a stat (si_snr_db) by more than the limit. So the unfused validation
+# quantizes with the fused one's codes, and a code of its own scan may differ only at
+# a near-tie: the two codewords' distances to the residual within VALID_REL of its
+# squared norm, at the frame's first differing stage
 VALID_REL = FP32_REL_TOL["resblock_tgn"]
+VALID_UPDATES = 4
 
 
 def _trainer_corpus(d: Path, n: int, seconds, seed: int) -> dict:
@@ -1321,6 +1352,52 @@ def _stale_packs(model) -> list:
     return stale
 
 
+@contextlib.contextmanager
+def _rvq_calls(forced=None):
+    """Record each eval quantize inside the block (models/quantizer.py calls
+    rvq_inference by name): [(input (B, T, D) fp32, codes (n_q, B, T), embed)].
+    With `forced`, the i-th call returns the codewords of forced[i]'s codes
+    in place of its own."""
+    import funcodec_tpu_torch.models.quantizer as quantizer_mod
+
+    calls, inner = [], quantizer_mod.rvq_inference
+
+    def wrapper(cfg, state, x, n_q=None):
+        out = inner(cfg, state, x, n_q)
+        calls.append((x.float().clone(), out[1].clone(), state.embed))
+        if forced is None:
+            return out
+        codes = forced[len(calls) - 1][1]
+        subq = rvq.gather_codewords(state.embed, codes)
+        return subq.sum(dim=0).to(x.dtype), codes, subq.to(x.dtype)
+
+    quantizer_mod.rvq_inference = wrapper
+    try:
+        yield calls
+    finally:
+        quantizer_mod.rvq_inference = inner
+
+
+def _code_flips(calls_a, calls_b):
+    """(codes that differ, codes, the largest distance gap): at each frame's
+    first differing stage, |d(r, e_a) - d(r, e_b)| / |r|^2 in fp64, r the
+    residual of b's input after the stages before it (where a and b agree)."""
+    flips, gap = 0, 0.0
+    for (_, a, embed), (x, b, _) in zip(calls_a, calls_b):
+        n_q = a.shape[0]
+        a, b = a.reshape(n_q, -1), b.reshape(n_q, -1)
+        differ = a != b
+        flips += int(differ.sum())
+        for j in differ.any(dim=0).nonzero().flatten().tolist():
+            s = int(differ[:, j].int().argmax())
+            r = x.reshape(-1, x.shape[-1])[j].double()
+            for q in range(s):
+                r = r - embed[q, b[q, j]].double()
+            d = [float(((r - embed[s, c[s, j]].double()) ** 2).sum()) for c in (a, b)]
+            gap = max(gap, abs(d[0] - d[1]) / max(float((r * r).sum()), 1e-30))
+    return flips, sum(c[1].numel() for c in calls_b), gap
+
+
 def _back_to_back_rate(trainer, state, dev, B: int, steps: int) -> float:
     """Training audio-s/s of `steps` of the trainer's own step, back to back
     on one resident batch (no loader, no stats fetch), fenced once: the loop
@@ -1336,7 +1413,7 @@ def _back_to_back_rate(trainer, state, dev, B: int, steps: int) -> float:
 
 def trainer_phase(dev, card: str, train_rows):
     """cli/codec_train on the flagship (bf16, the three kernels on), resumed,
-    its validation fused against unfused after an in-place update, one
+    its validation fused against unfused after in-place updates, one
     epoch from the device cache, and its weights served; returns its numbers."""
     import yaml
 
@@ -1409,7 +1486,7 @@ def trainer_phase(dev, card: str, train_rows):
     log(f"[trainer] resume: the loaded state equals checkpoint.pth bit for bit; step {state.step}, epochs 1-{epochs} "
         f"unchanged in reporter.json, epoch 3 trained and validated")
 
-    # 3. stale packs: fused against unfused validation after one more in-place update
+    # 3. stale packs: fused against unfused validation after each of a few more in-place updates
     args = codec_train.get_parser().parse_args(_train_cli(dev, conf, exp))
     train_ds, valid_ds = codec_train.build_datasets(args, config)
 
@@ -1418,23 +1495,38 @@ def trainer_phase(dev, card: str, train_rows):
                               collate_fn, num_workers=2)
 
     _set_seanet_flags(True)
-    before = trainer.validate(state, v_loader(), 100, 0)
-    state, _ = trainer._train_step(state, {"speech": _train_speech(dev, config["batch_size"], seed=44)},
-                                   step_generator(dev, 0, state.step))
-    t0 = time.perf_counter()
-    fused = trainer.validate(state, v_loader(), 101, 0)
-    torch.cuda.synchronize()
-    valid_wall = time.perf_counter() - t0
-    stale = _stale_packs(state.model)
-    _set_seanet_flags(False)
-    unfused = trainer.validate(state, v_loader(), 102, 0)
-    worst = max(abs(fused[k] - unfused[k]) / max(abs(unfused[k]), 1.0) for k in unfused)
-    moved = before["generator_multi_spectral_recon_loss"] != fused["generator_multi_spectral_recon_loss"]
-    log(f"[trainer] validation after an in-place update, fused SEANet kernels against unfused (fp32 masters, fp32 "
-        f"RVQ scan): worst of {len(unfused)} stats {worst:.3e} of its scale (limit {VALID_REL:.0e}); stale packs "
-        f"{stale}; the update moved the stats: {moved}")
-    if stale or worst > VALID_REL or not moved:
-        raise RuntimeError("trainer: the fused validation served stale packs or disagrees with the unfused one")
+    fused = trainer.validate(state, v_loader(), 100, 0)
+    worst = latent = gap = 0.0
+    flips = n_codes = 0
+    for u in range(VALID_UPDATES):
+        before = fused
+        _set_seanet_flags(True)
+        state, _ = trainer._train_step(state, {"speech": _train_speech(dev, config["batch_size"], seed=44 + u)},
+                                       step_generator(dev, 0, state.step))
+        t0 = time.perf_counter()
+        with _rvq_calls() as fused_rvq:
+            fused = trainer.validate(state, v_loader(), 101, 0)
+        torch.cuda.synchronize()
+        if u == 0:
+            valid_wall = time.perf_counter() - t0
+        stale = _stale_packs(state.model)
+        _set_seanet_flags(False)
+        with _rvq_calls(forced=fused_rvq) as unfused_rvq:
+            unfused = trainer.validate(state, v_loader(), 102, 0)
+        worst = max(worst, *(abs(fused[k] - unfused[k]) / max(abs(unfused[k]), 1.0) for k in unfused))
+        latent = max(latent, *(_rel(f[0].cpu().numpy(), v[0].cpu().numpy()) for f, v in zip(fused_rvq, unfused_rvq)))
+        n_flips, n, g = _code_flips(fused_rvq, unfused_rvq)
+        flips, n_codes, gap = flips + n_flips, n_codes + n, max(gap, g)
+        moved = before["generator_multi_spectral_recon_loss"] != fused["generator_multi_spectral_recon_loss"]
+        if stale or not moved:
+            raise RuntimeError(f"trainer: after in-place update {u + 1}, stale packs {stale}, or the stats did not move")
+    log(f"[trainer] validation after each of {VALID_UPDATES} in-place updates, fused SEANet kernels against unfused "
+        f"(fp32 masters, fp32 RVQ scan, the unfused one on the fused one's codes): worst of {len(unfused)} stats "
+        f"{worst:.3e} of its scale, RVQ input {latent:.3e} relative L2; {flips} of {n_codes} codes of the unfused scan "
+        f"differ, the largest distance gap at a first differing stage {gap:.3e} of the residual's squared norm (each "
+        f"limit {VALID_REL:.0e}); no stale packs; every update moved the stats")
+    if max(worst, latent, gap) > VALID_REL:
+        raise RuntimeError("trainer: the fused validation disagrees with the unfused one")
     del trainer, state
     torch.cuda.empty_cache()
 
@@ -1504,7 +1596,8 @@ def trainer_phase(dev, card: str, train_rows):
                bare_step_audio_s_per_s=bare["audio_s_per_s"], host_loader_ratio=host_rate / bare["audio_s_per_s"],
                device_cache_ratio=cache_rate / bare["audio_s_per_s"], checkpoint_s=steady["checkpoint_s"],
                checkpoint_bytes=steady["checkpoint_bytes"], valid_s=steady["valid_s"],
-               valid_fused_s=valid_wall, valid_worst_relative=worst, back_to_back_audio_s_per_s=back_to_back,
+               valid_fused_s=valid_wall, valid_worst_relative=worst, valid_rvq_input_relative=latent,
+               valid_code_flips=flips, valid_codes=n_codes, valid_flip_gap=gap, back_to_back_audio_s_per_s=back_to_back,
                phase_s=time.perf_counter() - t_phase)
     log(f"[time] trainer loop, bf16 + the SEANet kernels, B={config['batch_size']} x {crop / SR} s, steady epoch "
         f"({iters} steps): host loader {host_rate:.1f} audio-s/s ({steady['train_s']:.3f} s), device cache + "
@@ -1516,6 +1609,536 @@ def trainer_phase(dev, card: str, train_rows):
         f"validation {steady['valid_s']:.3f} s ({VALID_UTTS} utterances, 2 dumps scored); phase "
         f"{out['phase_s']:.1f} s ({card})")
     _set_seanet_flags(False)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tts phase
+# ---------------------------------------------------------------------------
+
+TTS_YAML = REPO / "egs/LibriTTS/text2speech_laura/conf/text2audio_codec_lm_nq2_uni_rel_pos.yaml"
+TTS_DIR = OUT_DIR / "tts"
+TTS_VOCAB = 256  # a seeded word list: token-id text inputs (the repo holds no T5 embeddings)
+TTS_PARAMS = 88_669_186  # the shipped yaml with the 256-word list, both packages (tests/test_torch_laura.py)
+# card against CPU (fp32, TF32 off), and one decode layout against another: logits
+# differ by summation order only, expected at about 1e-5 of their O(1) scale
+TTS_LOGIT_TOL = 1e-3
+TTS_FORCED = 32  # teacher-forced decode steps
+TTS_GREEDY = 48  # groups each request of the decode-mode check generates
+# one zero-shot request: the prompt's encode, then decode (AR tokens) and decode_emb (non-AR embeddings)
+TTS_EXPECT = {k: EXPECT[MAIN_PATH][k] + DECODE_PER_BATCH[k] for k in EXPECT[MAIN_PATH]}
+TTS_CLI_SECONDS = 2  # the CLI config's audio_max_duration: 50 groups a request (random weights never emit eos)
+# scripts/bench_tts_serving.py's workload: text length 40, caps uniform over 50..250 groups, 16 slots
+TTS_BENCH = dict(requests=48, text=40, caps=(50, 100, 150, 200, 250), slots=16, segment=25, single=250)
+TTS_REPS_OTHER = 1  # timed runs of the lockstep and batch-1 rows after their warm-up (the session's: best of 3)
+
+
+def _tts_text(rs, n: int) -> np.ndarray:
+    return rs.randint(0, TTS_VOCAB, n).astype(np.int64)
+
+
+def _prompt_tokens(codec, rs, seconds: float, nq: int) -> np.ndarray:
+    """(P, nq) codec tokens of seeded noise (the zero-shot prompt's encode)."""
+    wav = (0.1 * rs.randn(int(seconds * SR))).astype(np.float32)
+    token_id, *_ = codec(wav[None], need_recon=False, run_mod="encode", bit_width=None)
+    return np.asarray(token_id[0])[:nq, 0, :].T.astype(np.int64)
+
+
+def build_tts(dev, codec):
+    """The shipped LauraTTS yaml at full width with seeded weights, a seeded
+    256-word list, the codec's codebooks grafted into quantizer_codebook."""
+    import yaml
+
+    from funcodec_tpu_torch.tasks.text2audio import build_laura_model
+
+    config = yaml.safe_load(TTS_YAML.read_text())
+    tokens = [f"w{i:03d}" for i in range(TTS_VOCAB)]
+    model = build_laura_model(config, token_list=tokens, device=dev)
+    with torch.no_grad():
+        model.quantizer_codebook.embed.copy_(codec.model.quantizer.state.embed)
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != TTS_PARAMS:
+        raise RuntimeError(f"LauraTTS parameters {n_params}, expected {TTS_PARAMS}")
+    return config, tokens, model
+
+
+def _forced_b1(model, ids, prompt, forced) -> torch.Tensor:
+    """The prefill logits and len(forced) teacher-forced step logits of one
+    request in the batch-1 layout: (1 + S, nq * V)."""
+    dev = model.device
+    cont = None if prompt is None else prompt[None]
+    emb, shift = model.batch_prefix(ids[None], np.array([len(ids)]), cont, None if cont is None else [len(prompt)])
+    logits, cache, attend, rel = model.prefill(emb, shift, len(forced))
+    out = [logits]
+    f = torch.as_tensor(forced, device=dev)
+    plen = torch.tensor([0 if prompt is None else len(prompt)], device=dev)
+    for i in range(len(forced)):
+        logits, cache = model.lm_step(cache, f[None, i], plen + i, attend, rel, len(forced))
+        out.append(logits)
+    return torch.cat(out)
+
+
+def _padded(model, reqs):
+    """(text, text_lengths, prompts, prompt_lengths) of (ids, prompt or None) requests, as a batch."""
+    from funcodec_tpu_torch.models.laura import pad_requests
+
+    return pad_requests([ids for ids, _ in reqs], [p for _, p in reqs], model.cfg.predict_nq, model.cfg.ignore_id)
+
+
+def _forced_batch(model, reqs, forced) -> torch.Tensor:
+    """The same for all requests in one left-aligned batch: (B, 1 + S, nq * V)."""
+    S = forced.shape[1]
+    text, tl, prompts, pl = _padded(model, reqs)
+    emb, shift = model.batch_prefix(text, tl, prompts, pl)
+    logits, cache, attend, rel = model.prefill(emb, shift, S)
+    out = [logits]
+    f = torch.as_tensor(forced, device=model.device)
+    plen = torch.as_tensor(pl, device=model.device)
+    for i in range(S):
+        logits, cache = model.lm_step(cache, f[:, i], plen + i, attend, rel, S)
+        out.append(logits)
+    return torch.stack(out, 1)
+
+
+def _forced_session(model, reqs, forced, slots: int, budget: int) -> torch.Tensor:
+    """The same through a LauraServingSession's slots, in waves of `slots`
+    requests that reuse the slots (stale keys of the last wave in place)."""
+    from funcodec_tpu_torch.models.tts_serving import LauraServingSession
+
+    S = forced.shape[1]
+    sess = LauraServingSession(model, num_slots=slots, max_new=S, prefix_budget=budget, sampling=False)
+    f = torch.as_tensor(forced, device=model.device)
+    rows = []
+    with torch.inference_mode():
+        for w in range(0, len(reqs), slots):
+            sess._slot_uid = [None] * slots
+            for b in range(w, w + slots):
+                sess.submit(f"r{b}", reqs[b][0], 0, prompt=reqs[b][1])
+            sess._admit_ready()
+            out = [sess.logits.clone()]
+            write = torch.ones(slots, dtype=torch.bool, device=model.device)
+            for i in range(S):
+                logits, sess.cache = model.lm_step(sess.cache, f[w: w + slots, i], None, sess.valid_key[:, None, :],
+                                                   sess._rel_proj, S, write_mask=write)
+                out.append(logits.float())
+            rows.append(torch.stack(out, 1))
+    return torch.cat(rows)
+
+
+def _first_diff(a: np.ndarray, b: np.ndarray):
+    n = min(len(a), len(b))
+    bad = np.nonzero((a[:n] != b[:n]).any(-1))[0]
+    return int(bad[0]) if len(bad) else (None if len(a) == len(b) else n)
+
+
+def _rel(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-12))
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def tts_parity(dev, model, model_cpu, codec) -> dict:
+    """Card against CPU logits (prefill, teacher-forced steps, syn_audio's
+    codec_emb), incremental decode against the full forward."""
+    rs = np.random.RandomState(50)
+    reqs = [(_tts_text(rs, 12), None), (_tts_text(rs, 40), None), (_tts_text(rs, 40), _prompt_tokens(codec, rs, 3.0, 2))]
+    forced = rs.randint(0, 1024, (TTS_FORCED, 2))
+    worst = dict(prefill=0.0, steps=0.0, codec_emb=0.0, full_forward=0.0)
+    with torch.inference_mode():
+        for ids, prompt in reqs:
+            card = _forced_b1(model, ids, prompt, forced)
+            cpu = _forced_b1(model_cpu, ids, prompt, forced)
+            d = (card.cpu() - cpu).abs()
+            worst["prefill"] = max(worst["prefill"], float(d[0].max()))
+            worst["steps"] = max(worst["steps"], float(d[1:].max()))
+            # the full forward over [prefix, forced groups], causal (speech_lengths 1: no
+            # bidirectional prefix, as the cached decode's prefill)
+            P = 0 if prompt is None else len(prompt)
+            tokens = np.concatenate([prompt if P else np.zeros((0, 2), np.int64), forced])[None]
+            text_h, tl = model.encode_text(torch.as_tensor(ids[None], device=dev), torch.tensor([len(ids)], device=dev))
+            inputs, lengths = model.build_llm_io(text_h, tl, codec=torch.as_tensor(tokens, device=dev),
+                                                 codec_lengths=torch.tensor([P + TTS_FORCED], device=dev))
+            full = model._lm_forward(inputs, lengths, torch.ones_like(tl))[0]
+            start = len(ids) + 2 + P - 1  # the prefix's last position
+            worst["full_forward"] = max(worst["full_forward"],
+                                        float((full[start: start + TTS_FORCED + 1] - card).abs().max()))
+            e_card = model.syn_audio(tokens, ids[None], [len(ids)], lambda e: e, continual_length=P)
+            e_cpu = model_cpu.syn_audio(tokens, ids[None], [len(ids)], lambda e: e, continual_length=P)
+            worst["codec_emb"] = max(worst["codec_emb"], float((e_card.cpu() - e_cpu).abs().max()))
+    log(f"[tts] fp32 card vs CPU (TF32 off), text 12 / 40 / 40 + a 3 s prompt ({len(reqs[2][1])} groups): max|dlogits| "
+        f"prefill {worst['prefill']:.3e}, {TTS_FORCED} teacher-forced steps {worst['steps']:.3e}; syn_audio codec_emb "
+        f"{worst['codec_emb']:.3e}; card incremental decode vs full forward {worst['full_forward']:.3e} "
+        f"(limit {TTS_LOGIT_TOL})")
+    if max(worst.values()) > TTS_LOGIT_TOL:
+        raise RuntimeError(f"tts parity: {worst} above {TTS_LOGIT_TOL}")
+    return worst
+
+
+def tts_modes(dev, model, codec) -> dict:
+    """8 requests, greedy, fp32: decode_codec, decode_codec_batch (B = 8) and a
+    4-slot session with slot reuse; token agreement, and the three layouts'
+    teacher-forced logits within TTS_LOGIT_TOL."""
+    from funcodec_tpu_torch.models.tts_serving import LauraServingSession
+
+    rs = np.random.RandomState(51)
+    reqs = [(_tts_text(rs, int(rs.randint(10, 41))), _prompt_tokens(codec, rs, 1.0, 2) if i % 2 else None)
+            for i in range(8)]
+    budget = max(len(ids) + 2 + (0 if p is None else len(p)) for ids, p in reqs)
+    single = [model.decode_codec(ids[None], [len(ids)], max_length=TTS_GREEDY, sampling=False, continual=p)[0]
+              for ids, p in reqs]
+    text, tl, prompts, pl = _padded(model, reqs)
+    batch = model.decode_codec_batch(text, tl, max_length=TTS_GREEDY, sampling=False, continual=prompts,
+                                     continual_lengths=pl)
+    sess = LauraServingSession(model, num_slots=4, max_new=TTS_GREEDY, prefix_budget=budget, sampling=False)
+    for b, (ids, p) in enumerate(reqs):
+        sess.submit(f"r{b}", ids, 0, prompt=p)
+    served = sess.drain()
+    served = [served[f"r{b}"] for b in range(8)]
+    out = {}
+    for name, rows in (("batch", batch), ("session", served)):
+        agree = np.mean([(np.asarray(a) == s).all(-1).mean() if len(a) == len(s) else 0.0
+                         for a, s in zip(rows, single)])
+        firsts = [_first_diff(np.asarray(a)[pl[b]:], s[pl[b]:]) for b, (a, s) in enumerate(zip(rows, single))]
+        firsts = [f for f in firsts if f is not None]
+        out[name] = dict(token_agreement=float(agree), first_diff_step=min(firsts) if firsts else None)
+    gen = np.stack([s[pl[b]: pl[b] + TTS_FORCED] for b, s in enumerate(single)])  # teacher-force the b1 tokens
+    with torch.inference_mode():
+        f_single = torch.stack([_forced_b1(model, ids, p, gen[b]) for b, (ids, p) in enumerate(reqs)])
+        f_batch = _forced_batch(model, reqs, gen)
+    f_sess = _forced_session(model, reqs, gen, 4, budget)
+    out["forced_max_abs"] = dict(batch=float((f_batch - f_single).abs().max()),
+                                 session=float((f_sess - f_single).abs().max()))
+    # a segment of decode steps makes no host synchronisation (torch raises on one in "error" mode)
+    sess = LauraServingSession(model, num_slots=4, max_new=TTS_GREEDY, prefix_budget=budget, sampling=0.8)
+    for b, (ids, p) in enumerate(reqs[:4]):
+        sess.submit(f"r{b}", ids, b, prompt=p)
+    sess._admit_ready()
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        sess._segment(5)
+    finally:
+        if dev.type == "cuda":
+            torch.cuda.set_sync_debug_mode("default")
+    log(f"[tts] decode modes, 8 requests (text 10-40, 1 s prompts on 4), greedy fp32, {TTS_GREEDY} groups: against "
+        f"decode_codec, decode_codec_batch B=8 token agreement {out['batch']['token_agreement']:.4f} (first differing "
+        f"step {out['batch']['first_diff_step']}), 4-slot session with slot reuse {out['session']['token_agreement']:.4f} "
+        f"(first differing step {out['session']['first_diff_step']}); teacher-forced logits ({TTS_FORCED} steps) max|d| "
+        f"batch {out['forced_max_abs']['batch']:.3e}, session {out['forced_max_abs']['session']:.3e} "
+        f"(limit {TTS_LOGIT_TOL}); a 5-step session segment (top-p 0.8) ran under torch.cuda.set_sync_debug_mode('error')")
+    if max(out["forced_max_abs"].values()) > TTS_LOGIT_TOL:
+        raise RuntimeError(f"tts decode modes: teacher-forced logits differ by {out['forced_max_abs']}")
+    return out
+
+
+def _write_tts_files(model, tokens, codec_config, codec_fp) -> None:
+    import yaml
+
+    shutil.rmtree(TTS_DIR, ignore_errors=True)
+    TTS_DIR.mkdir(parents=True)
+    config = yaml.safe_load(TTS_YAML.read_text())
+    config["audio_max_duration"] = TTS_CLI_SECONDS
+    (TTS_DIR / "laura.yaml").write_text(yaml.safe_dump(config))
+    (TTS_DIR / "tokens.txt").write_text("".join(f"{t}\n" for t in tokens))
+    torch.save(model.state_dict(), TTS_DIR / "laura.pth")
+    (TTS_DIR / "codec.yaml").write_text(yaml.safe_dump(codec_config))
+    torch.save(codec_fp.model.state_dict(), TTS_DIR / "codec.pth")
+
+
+PLAIN = {"conv1d_s1": conv_kernel.fused_conv1d_s1_reference, "resblock_tgn": resblock_kernel.fused_resblock_tgn_reference}
+
+
+@contextlib.contextmanager
+def _recorded_seanet_calls():
+    """Record the arguments of every SEANet kernel wrapper call made inside
+    the block (ops/conv.py and models/seanet.py call the wrappers by name):
+    [(kernel, wrapper, x, args, kwargs)], x cloned."""
+    import funcodec_tpu_torch.models.seanet as seanet_mod
+
+    calls = []
+
+    def recording(kernel, fn):
+        def wrapper(x, *args, **kwargs):
+            calls.append((kernel, fn, x.clone(), args, kwargs))
+            return fn(x, *args, **kwargs)
+
+        return wrapper
+
+    conv_fn, rb_fn = conv_ops.fused_conv1d_s1, seanet_mod.fused_resblock_tgn
+    conv_ops.fused_conv1d_s1 = recording("conv1d_s1", conv_fn)
+    seanet_mod.fused_resblock_tgn = recording("resblock_tgn", rb_fn)
+    try:
+        yield calls
+    finally:
+        conv_ops.fused_conv1d_s1, seanet_mod.fused_resblock_tgn = conv_fn, rb_fn
+
+
+def _held_calls(calls) -> dict:
+    """Each recorded call's wrapper against its plain version on the same
+    inputs (_held: 2 bf16 ulps, or FP32_REL_TOL of the output's scale for
+    fp32 inputs); these launches are not counted."""
+    worst = {"conv1d_s1": 0.0, "resblock_tgn": 0.0}
+    with torch.inference_mode():
+        for i, (kernel, fn, x, args, kwargs) in enumerate(calls):
+            out = fn(x, *args, **kwargs)
+            if out is None:
+                raise RuntimeError(f"tts {kernel} call {i}: the wrapper did not launch at {tuple(x.shape)}")
+            worst[kernel] = max(worst[kernel], _held(kernel, f"tts call {i} B={x.shape[0]} C={x.shape[1]} "
+                                                     f"T={x.shape[2]}", out, PLAIN[kernel](x, *args, **kwargs)))
+    return worst
+
+
+def tts_kernels(dev, tokens) -> dict:
+    """One zero-shot request through Text2Audio (bf16 codec) with the three
+    kernels on, launches exact; every SEANet kernel call of the request
+    (prompt encode, decode, decode_emb) held against its plain version on
+    its own inputs; gen and gen_only_lm against the same tokens with the
+    kernels off, within twice the bf16-against-fp32 distance."""
+    from funcodec_tpu_torch.cli.text2audio_inference import Text2Audio
+
+    pipe = Text2Audio(str(TTS_DIR / "laura.yaml"), str(TTS_DIR / "laura.pth"), str(TTS_DIR / "codec.yaml"),
+                      str(TTS_DIR / "codec.pth"), token_list=str(TTS_DIR / "tokens.txt"), token_type="word",
+                      sampling=False, device=dev)
+    pipe.codec = Speech2Token(str(TTS_DIR / "codec.yaml"), str(TTS_DIR / "codec.pth"), dtype="bfloat16", device=dev)
+    rs = np.random.RandomState(52)
+    text = " ".join(tokens[i] for i in rs.randint(0, TTS_VOCAB, 20))
+    item = dict(text=text, prompt_audio=(0.1 * rs.randn(2 * SR)).astype(np.float32))
+    groups = 50
+    set_flags(MAIN_PATH)
+    with _recorded_seanet_calls() as calls:
+        _sync(dev)
+        reset_counts()
+        out_k = pipe(item["text"], prompt_audio=item["prompt_audio"], max_length=groups)
+        counts = read_counts()
+    if counts != TTS_EXPECT:
+        raise RuntimeError(f"tts zero-shot request: launches {counts}, expected {TTS_EXPECT}")
+    held = _held_calls(calls)
+    feats, cont_k = pipe._prep_item(item)
+    toks = pipe.model.decode_codec(feats, [feats.shape[1]], max_length=groups, sampling=False, continual=cont_k)
+    conv_ops.FUSED_STRIDE1 = conv_ops.FUSED_RESBLOCK = rvq.FUSED_RVQ = False
+    _, cont_p = pipe._prep_item(item)
+    prompt_flips = _flips(cont_k.T, cont_p.T)
+    out_p = pipe._synthesize_tokens(toks, feats, len(cont_k))
+    pipe.codec = Speech2Token(str(TTS_DIR / "codec.yaml"), str(TTS_DIR / "codec.pth"), dtype="float32", device=dev)
+    out_f = pipe._synthesize_tokens(toks, feats, len(cont_k))
+    res = dict(launches=counts, held_calls=len(calls), max_abs_err=held,
+               prompt_flips=dict(q0=prompt_flips[0], all=prompt_flips[1]))
+    for tag in ("gen", "gen_only_lm"):
+        if not (out_k[tag].shape == out_p[tag].shape == (groups * 320,)) or not np.isfinite(out_k[tag]).all():
+            raise RuntimeError(f"tts {tag}: {out_k[tag].shape} / {out_p[tag].shape}, expected ({groups * 320},)")
+        yard = _rel(out_p[tag], out_f[tag])
+        err = _rel(out_k[tag], out_p[tag])
+        res[tag] = dict(kernels_vs_plain=err, bf16_vs_fp32=yard)
+        if err > max(2 * yard, 1e-4):
+            raise RuntimeError(f"tts {tag}: kernels vs plain {err:.3e} above twice bf16 vs fp32 ({yard:.3e})")
+    if prompt_flips[1] > MAX_FLIP_ALL:
+        raise RuntimeError(f"tts prompt tokens: kernels vs plain flip {prompt_flips[1]:.3f}")
+    log(f"[tts] zero-shot request (text 20 words, 2 s prompt = {len(cont_k)} groups, {groups} groups, bf16 codec, "
+        f"the three kernels): launches {counts} exact; its {len(calls)} SEANet kernel calls (the encode's in bf16, the "
+        f"decodes' in fp32 over bf16 weights) each within its limit of the plain version on the same inputs (max|err| "
+        f"conv1d_s1 {held['conv1d_s1']:.3e}, resblock_tgn {held['resblock_tgn']:.3e}); prompt token flips vs plain q0 {prompt_flips[0]:.4f} all "
+        f"{prompt_flips[1]:.4f}; relative L2 vs plain, same tokens: gen {res['gen']['kernels_vs_plain']:.3e} "
+        f"(bf16 vs fp32 {res['gen']['bf16_vs_fp32']:.3e}), gen_only_lm {res['gen_only_lm']['kernels_vs_plain']:.3e} "
+        f"(bf16 vs fp32 {res['gen_only_lm']['bf16_vs_fp32']:.3e})")
+    return res
+
+
+def tts_cli(dev, tokens) -> dict:
+    """cli/text2audio_inference.main on a seeded 8-line text_scp of words,
+    prompts on half the lines, with --serving_slots 4 and --batch_size 1."""
+    from funcodec_tpu_torch.cli import text2audio_inference as tcli
+
+    rs = np.random.RandomState(53)
+    lines, prompts = [], []
+    for i in range(8):
+        lines.append(f"s{i} " + " ".join(tokens[j] for j in rs.randint(0, TTS_VOCAB, int(rs.randint(10, 41)))))
+        if i % 2:
+            pcm = np.clip(np.round(rs.randn(SR) * 0.1 * 32767), -32768, 32767).astype(np.int16)
+            write_wav(TTS_DIR / f"prompt{i}.wav", pcm, SR)
+            prompts.append(f"s{i} {TTS_DIR / f'prompt{i}.wav'}")
+    (TTS_DIR / "text.scp").write_text("\n".join(lines) + "\n")
+    (TTS_DIR / "prompt.scp").write_text("\n".join(prompts) + "\n")
+    cap = TTS_CLI_SECONDS * 25
+    walls = {}
+    for name, extra in (("serving_slots_4", ["--serving_slots", "4"]), ("batch_size_1", ["--batch_size", "1"])):
+        out = TTS_DIR / name
+        _sync(dev)
+        t0 = time.perf_counter()
+        tcli.main(["--output_dir", str(out), "--config_file", str(TTS_DIR / "laura.yaml"), "--model_file",
+                   str(TTS_DIR / "laura.pth"), "--codec_config_file", str(TTS_DIR / "codec.yaml"),
+                   "--codec_model_file", str(TTS_DIR / "codec.pth"), "--text_scp", str(TTS_DIR / "text.scp"),
+                   "--token_list", str(TTS_DIR / "tokens.txt"), "--token_type", "word", "--prompt_wav_scp",
+                   str(TTS_DIR / "prompt.scp"), "--device", str(dev), *extra])
+        walls[name] = time.perf_counter() - t0
+        if not (out / "tts_eval.json").exists():
+            raise RuntimeError(f"tts cli {name}: no tts_eval.json")
+        for i in range(8):
+            n = {}
+            for tag in ("gen", "gen_only_lm"):
+                sr, wav = read_wav(out / f"s{i}_{tag}.wav", normalize=False)
+                n[tag] = wav.shape[0]
+                if sr != SR or wav.shape[0] % 320 or not 0 < wav.shape[0] <= cap * 320:
+                    raise RuntimeError(f"tts cli {name}: s{i}_{tag}.wav has {wav.shape[0]} samples at {sr} Hz")
+            if n["gen"] != n["gen_only_lm"]:
+                raise RuntimeError(f"tts cli {name}: s{i}'s gen and gen_only_lm lengths differ: {n}")
+    log(f"[tts] cli/text2audio_inference: 8 lines (4 with 1 s prompts), top-k 25, <= {cap} groups, 16 wavs and "
+        f"tts_eval.json each with --serving_slots 4 ({walls['serving_slots_4']:.1f} s) and --batch_size 1 "
+        f"({walls['batch_size_1']:.1f} s); every wav 320 samples a group")
+    return walls
+
+
+def _timed(fn, dev, warm=None, reps: int = 3) -> float:
+    """Best of `reps` wall seconds of fn() after a warm-up (`warm`, a shorter
+    run of the same shapes, or fn itself), fenced with synchronize."""
+    (warm or fn)()
+    _sync(dev)
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        _sync(dev)
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def tts_timing(dev, model, codec_fp, card: str) -> dict:
+    """scripts/bench_tts_serving.py's workload (greedy) on the session and on
+    lockstep decode_codec_batch, bf16 and fp32, and batch-1 / prefill /
+    syn_audio times."""
+    import copy
+
+    from funcodec_tpu_torch.models.tts_serving import LauraServingSession
+
+    cfg = TTS_BENCH
+    rs = np.random.RandomState(54)
+    n, lt, slots = cfg["requests"], cfg["text"], cfg["slots"]
+    caps = rs.choice(np.asarray(cfg["caps"]), n)
+    texts = [_tts_text(rs, lt) for _ in range(n)]
+    useful = int(caps.sum())
+    rows = {}
+    for dtype in ("float32", "bfloat16"):
+        m = model if dtype == "float32" else copy.deepcopy(model).to(torch.bfloat16)
+        sess = LauraServingSession(m, num_slots=slots, max_new=max(cfg["caps"]), prefix_budget=lt + 2,
+                                   sampling=False, segment_steps=cfg["segment"])
+
+        def serve(count=n, cap=None):
+            sess.stats = dict.fromkeys(sess.stats, 0)
+            for i in range(count):
+                sess.submit(f"u{i}", texts[i], i, max_new=cap or int(caps[i]))
+            got = sess.drain()
+            if cap is None and sum(len(v) for v in got.values()) != useful:
+                raise RuntimeError("tts timing: the session's groups are not the caps' sum (an eos under greedy)")
+
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        wall_s = _timed(serve, dev, warm=lambda: serve(slots, cfg["segment"]))
+        peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else float("nan")
+        steps_s = sess.stats["slot_steps"] // slots
+        plans = [(list(range(i, min(i + slots, n))), int(caps[i: i + slots].max())) for i in range(0, n, slots)]
+
+        def lockstep(plan=plans):
+            for idx, cap in plan:
+                m.decode_codec_batch(np.stack([texts[j] for j in idx]), np.full(len(idx), lt), max_length=cap,
+                                     sampling=False)
+
+        warm = [(plans[0][0], cfg["segment"])]
+        lockstep(warm)
+        syncs0 = m.host_syncs
+        wall_l = _timed(lockstep, dev, warm=lambda: lockstep(warm), reps=TTS_REPS_OTHER)
+        syncs_l = (m.host_syncs - syncs0 - 1) / (TTS_REPS_OTHER * len(plans))  # the warm-up batch syncs once
+        steps_l = sum(cap for _, cap in plans)
+        G = cfg["single"]
+
+        def single(length=G):
+            m.decode_codec(texts[0][None], [lt], max_length=length, sampling=False)
+
+        single(cfg["segment"])
+        syncs0 = m.host_syncs
+        wall_1 = _timed(single, dev, warm=lambda: single(cfg["segment"]), reps=TTS_REPS_OTHER)
+        syncs_1 = (m.host_syncs - syncs0 - 1) / TTS_REPS_OTHER
+
+        def prefill():
+            with torch.inference_mode():
+                emb, shift = m.batch_prefix(texts[0][None], [lt])
+                m.prefill(emb, shift, G)
+
+        wall_p = _timed(prefill, dev)
+        toks = np.zeros((1, G, 2), np.int64)
+        wall_syn = _timed(lambda: m.syn_audio(toks, texts[0][None], [lt], lambda e: e), dev)
+        wall_syn_dec = _timed(lambda: m.syn_audio(toks, texts[0][None], [lt],
+                                                  lambda e: codec_fp(e, run_mod="decode_emb")[2]), dev)
+        row = dict(
+            session_groups_per_s=useful / wall_s, session_ms_per_step=1e3 * wall_s / steps_s, session_steps=steps_s,
+            session_wall_s=wall_s, session_host_syncs=sess.stats["host_syncs"],
+            session_host_syncs_per_step=sess.stats["host_syncs"] / steps_s,
+            session_slot_utilisation=sess.stats["live_steps"] / sess.stats["slot_steps"],
+            lockstep_groups_per_s=useful / wall_l, lockstep_ms_per_step=1e3 * wall_l / steps_l, lockstep_steps=steps_l,
+            lockstep_wall_s=wall_l, lockstep_host_syncs_per_batch=syncs_l, lockstep_host_syncs_per_step=syncs_l * len(
+                plans) / steps_l,
+            single_ms_per_group=1e3 * wall_1 / G, single_host_syncs=syncs_1, single_host_syncs_per_step=syncs_1 / G,
+            prefill_ms=1e3 * wall_p, syn_audio_ms=1e3 * wall_syn, syn_audio_decode_emb_ms=1e3 * wall_syn_dec,
+            session_peak_gib=peak, useful_groups=useful)
+        rows[dtype] = row
+        log(f"[time] tts {dtype}, {n} requests (text {lt}, caps {min(cfg['caps'])}-{max(cfg['caps'])}, {useful} "
+            f"groups), greedy: session {slots} slots seg {cfg['segment']}: {row['session_groups_per_s']:.1f} groups/s, "
+            f"{row['session_ms_per_step']:.3f} ms/step ({steps_s} steps, slot utilisation "
+            f"{row['session_slot_utilisation']:.3f}, {sess.stats['host_syncs']} host syncs); lockstep "
+            f"decode_codec_batch B={slots} in arrival order: {row['lockstep_groups_per_s']:.1f} groups/s, "
+            f"{row['lockstep_ms_per_step']:.3f} ms/step ({steps_l} steps, {syncs_l:.1f} host syncs a batch); "
+            f"batch-1 {G} groups {row['single_ms_per_group']:.3f} ms/group ({syncs_1:.0f} host syncs); prefill "
+            f"{row['prefill_ms']:.2f} ms; syn_audio {row['syn_audio_ms']:.2f} ms (+ decode_emb "
+            f"{row['syn_audio_decode_emb_ms']:.2f} ms); session peak memory {peak:.2f} GiB ({card})")
+        del sess, m
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return rows
+
+
+def tts_phase(dev, card: str) -> dict:
+    """LauraTTS serving on the card: build, parity, decode modes, the codec
+    kernels on the TTS path, the CLI, timing."""
+    t_phase = t_lap = time.perf_counter()
+    walls = {}
+
+    def lap(name: str) -> None:
+        nonlocal t_lap
+        now = time.perf_counter()
+        walls[name], t_lap = now - t_lap, now
+
+    codec_config = _flagship_config()
+    codec_fp = Speech2Token(codec_config, None, dtype="float32", device=dev)
+    conv_ops.FUSED_STRIDE1 = conv_ops.FUSED_RESBLOCK = rvq.FUSED_RVQ = False
+    config, tokens, model = build_tts(dev, codec_fp)
+    log(f"[tts] {TTS_YAML.name} at full width: {TTS_PARAMS} parameters (the 256-word list and the frozen 32 x 1024 x "
+        f"128 codebook, grafted from the flagship codec, included)")
+    from funcodec_tpu_torch.tasks.text2audio import build_laura_model
+
+    model_cpu = build_laura_model(config, token_list=tokens, device="cpu")
+    model_cpu.load_state_dict(model.state_dict())
+    codec_cpu = Speech2Token(codec_config, None, dtype="float32", device="cpu")
+    codec_cpu.model.load_state_dict(codec_fp.model.state_dict())
+    lap("build")
+    parity = tts_parity(dev, model, model_cpu, codec_cpu)
+    del model_cpu, codec_cpu
+    lap("parity")
+    modes = tts_modes(dev, model, codec_fp)
+    lap("modes")
+    _write_tts_files(model, tokens, codec_config, codec_fp)
+    kernels = tts_kernels(dev, tokens)
+    conv_ops.FUSED_STRIDE1 = conv_ops.FUSED_RESBLOCK = rvq.FUSED_RVQ = False
+    lap("kernels")
+    cli_walls = tts_cli(dev, tokens)
+    lap("cli")
+    timing = tts_timing(dev, model, codec_fp, card)
+    lap("timing")
+    out = dict(parity=parity, modes=modes, kernels=kernels, cli_wall_s=cli_walls, timing=timing,
+               phase_s=time.perf_counter() - t_phase, part_s=walls)
+    log(f"[tts] phase {out['phase_s']:.1f} s: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
+        + f" ({card})")
     return out
 
 
@@ -1659,8 +2282,8 @@ def _profiled(run, what: str, tag: str) -> None:
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy = sum(e.self_device_time_total for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    device_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in device_events) / 1e3
     averages = prof.key_averages()
     table = averages.table(sort_by="self_device_time_total", row_limit=30)
     for family, names in PROFILE_FAMILIES.items():  # one kernel's template instances, summed
@@ -1669,7 +2292,8 @@ def _profiled(run, what: str, tag: str) -> None:
             log(f"[profile] {what}: {family}: {sum(e.self_device_time_total for e in rows) / 1e3:.2f} ms "
                 f"in {sum(e.count for e in rows)} launches")
     (OUT_DIR / f"profile_{tag}.txt").write_text(table)
-    log(f"[profile] {what}: wall {wall * 1e3:.1f} ms, device kernel time {busy:.1f} ms, idle share "
+    log(f"[profile] {what}: wall {wall * 1e3:.1f} ms, {len(device_events)} device kernels, {busy:.1f} ms of device "
+        f"kernel time, idle share "
         f"{max(0.0, 1 - busy / (wall * 1e3)):.3f}, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
         f"({card_line(CARD)})")
     log(table)
@@ -1702,6 +2326,31 @@ def profile(dev) -> None:
         del state, step
         torch.cuda.empty_cache()
     _set_seanet_flags(False)
+    tts_profile(dev)
+
+
+def tts_profile(dev) -> None:
+    """torch.profiler over one 25-step segment of a 16-slot LauraTTS session
+    (text 40, greedy) in fp32 and bf16, after admission and a warm segment."""
+    import copy
+
+    from funcodec_tpu_torch.models.tts_serving import LauraServingSession
+
+    codec_fp = Speech2Token(_flagship_config(), None, dtype="float32", device=dev)
+    _, _, model = build_tts(dev, codec_fp)
+    del codec_fp
+    rs = np.random.RandomState(55)
+    texts = [_tts_text(rs, 40) for _ in range(16)]
+    for dtype in ("float32", "bfloat16"):
+        m = model if dtype == "float32" else copy.deepcopy(model).to(torch.bfloat16)
+        sess = LauraServingSession(m, num_slots=16, max_new=250, prefix_budget=42, sampling=False, segment_steps=25)
+        for i, t in enumerate(texts):
+            sess.submit(f"u{i}", t, i)
+        sess.poll()
+        sess.poll()
+        _profiled(sess.poll, f"tts session segment, 16 slots x 25 steps, {dtype}", f"tts_session_{dtype}")
+        del sess, m
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1727,6 +2376,7 @@ def main() -> int:
     card_cpu = card_cpu_phase(dev)
     train_rows = training_timing(dev, card)
     trainer = trainer_phase(dev, card, train_rows)
+    tts = tts_phase(dev, card)
     if "funcodec_tpu" in sys.modules or ("jax" in sys.modules and not _JAX_PRELOADED):
         raise RuntimeError("the port imported JAX or the JAX package")
 
@@ -1737,7 +2387,7 @@ def main() -> int:
         copy_ceiling_bytes_per_s=ceiling, cli=cli_stats, training=dict(
             configs=train_results, launches=train_counts, fused_gradients=fused_grads, backward=backward_rows,
             backward_max_relative_error=backward_errs, forward_max_abs_error=train_fwd_errs,
-            card_vs_cpu=card_cpu, timing=train_rows), trainer=trainer), indent=1))
+            card_vs_cpu=card_cpu, timing=train_rows), trainer=trainer, tts=tts), indent=1))
     conv_main = _summed([r for r in conv_rows if r["main_path"]])
     conv_main["library_ms"] = sum(r["library_ms"] for r in conv_rows if r["main_path"])
     conv_main["legacy_ms"] = sum(r["legacy_ms"] for r in conv_rows if r["main_path"])
@@ -1776,9 +2426,12 @@ def main() -> int:
             replaces=REPLACES[name], launches=probe_launches[name], max_abs_err=0.0, ms=row["ms"],
             plain_ms=probe_plain[torch.bfloat16], bound_ms=row["bound_ms"], bound_by="bytes",
             library_ms=row["library_ms"]))
-    for k in kernels:  # the training phase's fused steps, the trainer phase's two-epoch run
+    for k in kernels:  # the training phase's fused steps, the trainer phase's two-epoch run, a TTS request
         k["training_launches"] = train_counts.get(k["name"], 0)
         k["trainer_launches"] = trainer["launches"].get(k["name"], 0)
+        k["tts_launches"] = tts["kernels"]["launches"].get(k["name"], 0)
+        if k["name"] in tts["kernels"]["max_abs_err"]:  # the request's own calls against the plain version
+            k["tts_max_abs_err"] = tts["kernels"]["max_abs_err"][k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

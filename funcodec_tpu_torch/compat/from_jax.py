@@ -8,7 +8,10 @@ does the same for the discriminator's parameters, and ``train_state_from_jax``
 carries a whole GAN train state (both modules, the Adam moments and counts,
 the gate carry and the step). Weight-normed convs carry
 ``v``/``g`` across as ``weight_v``/``weight_g``, and all four RVQ buffers
-come along. The JAX params arrive as numpy arrays (``np.asarray`` of each
+come along. ``encoder_state_dict_from_jax`` and ``laura_state_dict_from_jax``
+do the same for the transformer/conformer stacks and a whole LauraGenModel,
+under the names funcodec_tpu/compat/torch_import.import_laura reads. The
+JAX params arrive as numpy arrays (``np.asarray`` of each
 leaf); this module never imports jax.
 """
 
@@ -82,6 +85,10 @@ def _layers(sd: Dict[str, torch.Tensor], prefix: str, layers: Sequence[Layer], p
             _layers(sd, f"{base}.block", block, p["block"])
             if shortcut is not None:
                 _conv(sd, f"{base}.shortcut", shortcut, p["shortcut"])
+        elif kind == "tfm":
+            from funcodec_tpu_torch.models.seanet import seq_tfm_cfg
+
+            encoder_state_dict_from_jax(sd, base, seq_tfm_cfg(spec), p)
         elif kind == "act":
             continue
         else:
@@ -105,6 +112,81 @@ def state_dict_from_jax(model, params: Mapping[str, Any], rvq_state) -> Dict[str
     for name in RVQ_BUFFERS:
         value = rvq_state[name] if isinstance(rvq_state, Mapping) else getattr(rvq_state, name)
         sd[f"quantizer.rq.model.{name}"] = _t(value)
+    return sd
+
+
+def _linear(sd: Dict[str, torch.Tensor], base: str, p: Mapping[str, Any]) -> None:
+    sd[f"{base}.weight"] = _t(np.asarray(p["w"]).T)
+    if "b" in p:
+        sd[f"{base}.bias"] = _t(p["b"])
+
+
+def _layer_norm(sd: Dict[str, torch.Tensor], base: str, p: Mapping[str, Any]) -> None:
+    sd[f"{base}.weight"] = _t(p["scale"])
+    sd[f"{base}.bias"] = _t(p["bias"])
+
+
+def encoder_state_dict_from_jax(sd: Dict[str, torch.Tensor], prefix: str, cfg, p: Mapping[str, Any]) -> None:
+    """One funcodec_tpu transformer/conformer encoder's params (numpy) into
+    `sd` under `prefix` (the port's TransformerEncoder names; `cfg` is the
+    port's TransformerConfig, whose block_names picks the norms' names)."""
+    pfx = f"{prefix}." if prefix else ""
+    if cfg.input_layer in ("linear", "linear_relu"):
+        _linear(sd, f"{pfx}embed.0", p["embed_linear"])
+        _layer_norm(sd, f"{pfx}embed.1", p["embed_norm"])
+    elif cfg.input_layer == "embed":
+        sd[f"{pfx}embed.0.weight"] = _t(p["embed_table"])
+    norm_mha, norm_ff = ("norm1", "norm2") if cfg.block_names == "transformer" else ("norm_mha", "norm_ff")
+    for i, lp in enumerate(p["layers"]):
+        base = f"{pfx}encoders.{i}"
+        a = lp["attn"]
+        for name, key in (("linear_q", "q"), ("linear_k", "k"), ("linear_v", "v"), ("linear_out", "out")):
+            _linear(sd, f"{base}.self_attn.{name}", a[key])
+        if cfg.rel:
+            _linear(sd, f"{base}.self_attn.linear_pos", a["pos"])
+            sd[f"{base}.self_attn.pos_bias_u"] = _t(a["bias_u"])
+            sd[f"{base}.self_attn.pos_bias_v"] = _t(a["bias_v"])
+        _layer_norm(sd, f"{base}.{norm_mha}", lp["norm_mha"])
+        _layer_norm(sd, f"{base}.{norm_ff}", lp["norm_ff"])
+        _linear(sd, f"{base}.feed_forward.w_1", lp["ff"]["w1"])
+        _linear(sd, f"{base}.feed_forward.w_2", lp["ff"]["w2"])
+        if cfg.macaron_style:
+            _linear(sd, f"{base}.feed_forward_macaron.w_1", lp["ff_macaron"]["w1"])
+            _linear(sd, f"{base}.feed_forward_macaron.w_2", lp["ff_macaron"]["w2"])
+            _layer_norm(sd, f"{base}.norm_ff_macaron", lp["norm_ff_macaron"])
+        if cfg.use_cnn_module:
+            c, cm = lp["conv"], f"{base}.conv_module"
+            for name, key in (("pointwise_conv1", "pw1"), ("depthwise_conv", "dw"), ("pointwise_conv2", "pw2")):
+                sd[f"{cm}.{name}.weight"] = _t(np.transpose(np.asarray(c[key]["w"]), (2, 1, 0)))
+                sd[f"{cm}.{name}.bias"] = _t(c[key]["b"])
+            for name, key in (("weight", "bn_scale"), ("bias", "bn_bias"), ("running_mean", "bn_mean"),
+                              ("running_var", "bn_var")):
+                sd[f"{cm}.norm.{name}"] = _t(c[key])
+            sd[f"{cm}.norm.num_batches_tracked"] = torch.tensor(0)
+            _layer_norm(sd, f"{base}.norm_conv", lp["norm_conv"])
+            _layer_norm(sd, f"{base}.norm_final", lp["norm_final"])
+    if cfg.normalize_before:
+        _layer_norm(sd, f"{pfx}after_norm", p["after_norm"])
+
+
+def laura_state_dict_from_jax(model, params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """funcodec_tpu LauraGenModel params (numpy) -> the port's state_dict
+    under the reference names (`model` is the port's LauraGenModel, whose
+    configs drive the walk)."""
+    sd: Dict[str, torch.Tensor] = {}
+    if model.text_encoder_cfg is not None:
+        encoder_state_dict_from_jax(sd, "text_encoder", model.text_encoder_cfg, params["text_encoder"])
+    _linear(sd, "text_enc_out_layer", params["text_enc_out_layer"])
+    if "token_embedding" in params:
+        sd["token_embedding.weight"] = _t(params["token_embedding"])
+    sd["lm_embedding.weight"] = _t(params["lm_embedding"])
+    encoder_state_dict_from_jax(sd, "codec_lm.encoder", model.codec_lm_cfg, params["codec_lm"])
+    if "lm_input_layer" in params:
+        _linear(sd, "codec_lm.input_layer", params["lm_input_layer"])
+    _linear(sd, "codec_lm.decoder", params["lm_decoder"])
+    encoder_state_dict_from_jax(sd, "codec_encoder", model.codec_encoder_cfg, params["codec_encoder"])
+    _linear(sd, "codec_encoder_out_layer", params["codec_encoder_out_layer"])
+    sd["quantizer_codebook.embed"] = _t(params["quantizer_codebook"])
     return sd
 
 
@@ -133,7 +215,8 @@ def discriminator_state_dict_from_jax(disc_params: Sequence[Any]) -> Dict[str, t
 
 
 def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
-    """Load a FunCodec .pth state_dict onto the CPU (unwrapping {"model": sd}).
+    """Load a FunCodec .pth state_dict (a codec's or a LauraGenModel's) onto
+    the CPU, unwrapping {"model": sd}.
 
     The codebooks' `inited` flags become an (n_q,) float vector, as
     funcodec_tpu's importer reads them.

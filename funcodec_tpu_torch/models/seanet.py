@@ -27,6 +27,12 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.nn as nn
 
+from funcodec_tpu_torch.models.transformer import (
+    TransformerConfig,
+    TransformerEncoder,
+    causal_mask,
+    make_pad_mask_bool,
+)
 from funcodec_tpu_torch.ops import activations as act_ops
 from funcodec_tpu_torch.ops import conv as conv_ops
 from funcodec_tpu_torch.ops.conv import ConvSpec, SConv1d, make_conv
@@ -99,6 +105,33 @@ def _resblock_layers(cfg: SEANetConfig, dim: int, dilation: int) -> Layer:
         block.append(_conv(cfg, in_chs, out_chs, k, dilation=d))
     shortcut = None if cfg.true_skip else _conv(cfg, dim, dim, 1)[1]
     return ("resblock", (tuple(block), shortcut))
+
+
+def seq_tfm_cfg(spec) -> TransformerConfig:
+    """The SEANet bottleneck transformer (the reference's normed_modules
+    TransformerEncoder: 4 heads, FFN 2048, no input layer, no positional
+    encoding; transformer norm names)."""
+    dim, num_blocks = spec[0], spec[1]
+    return TransformerConfig(input_size=dim, attention_dim=dim, attention_heads=4, linear_units=2048,
+                             num_blocks=num_blocks, input_layer="none", pos_enc_type="none",
+                             block_names="transformer")
+
+
+class SeqTransformer(TransformerEncoder):
+    """The "tfm" layer: (B, C, T) -> (B, C, T), optionally causal, with an
+    optional residual skip."""
+
+    def __init__(self, spec, *, device, generator: torch.Generator):
+        super().__init__(seq_tfm_cfg(spec), device=device, generator=generator)
+        self.causal, self.skip = spec[2], spec[3]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x.transpose(1, 2)
+        B, T = h.shape[0], h.shape[1]
+        lengths = torch.full((B,), T, device=h.device)
+        mask = causal_mask(lengths, T) if self.causal else make_pad_mask_bool(lengths, T)[:, None, :]
+        y = super().forward(h, mask)
+        return (h + y if self.skip else y).transpose(1, 2)
 
 
 def _seq_layer(cfg: SEANetConfig, dim: int) -> List[Layer]:
@@ -282,9 +315,7 @@ def make_layer(kind: str, spec, *, device, generator: torch.Generator) -> nn.Mod
     if kind == "resblock":
         return SEANetResnetBlock(spec, device=device, generator=generator)
     if kind == "tfm":
-        raise NotImplementedError(
-            'seq_model="transformer" is not ported yet (ROADMAP.md slice D)'
-        )
+        return SeqTransformer(spec, device=device, generator=generator)
     raise ValueError(kind)
 
 

@@ -277,12 +277,18 @@ def test_flagship_yaml_param_count_matches_jax():
 )
 def test_unported_options_raise(section, key, value):
     """Options of later slices raise. weight_norm raised until the training
-    slice ported it: that case now builds weight-normed encoder convs."""
+    slice ported it: that case now builds weight-normed encoder convs; the
+    transformer seq_model raised until LauraTTS serving ported the
+    transformer: that case now builds the bottleneck transformer."""
     config = _config()
     (config[section] if section else config)[key] = value
     if value == "weight_norm":
         tm, _ = tbuild(config, device="cpu")
         assert "encoder.model.0.conv.conv.weight_g" in tm.state_dict()
+        return
+    if value == "transformer":
+        tm, _ = tbuild(config, device="cpu")
+        assert any(k.endswith(".encoders.0.self_attn.linear_q.weight") for k in tm.state_dict())
         return
     with pytest.raises(NotImplementedError):
         tbuild(config, device="cpu")
