@@ -3,8 +3,9 @@
     python3 chip_smoke.py             # the smoke run below
     python3 chip_smoke.py --profile   # checks, build, then a torch.profiler table of
                                       # one B = 64 x 10 s request per serving path,
-                                      # of one bf16 shared training step (B = 16) and
-                                      # of one 16-slot LauraTTS session segment
+                                      # of one bf16 shared training step (B = 16), of
+                                      # one 16-slot LauraTTS session segment and of
+                                      # one FreqCodec gr8 bf16 request (B = 64)
                                       # (tables also in build/chip_smoke/)
 
 Drives the port's main paths on the flagship (EnCodec 16 kHz nq32ds320,
@@ -12,7 +13,9 @@ the egs/LibriTTS/codec/conf/encodec_16k_n32_600k_step.yaml model at full
 width, seeded random weights): serving through ``Speech2Token``, the GAN
 train step (``train.step.make_gan_train_step``) with its discriminator, and
 the training loop behind ``cli/codec_train``; then LauraTTS serving on the
-shipped LauraTTS topology through ``cli/text2audio_inference``.
+shipped LauraTTS topology through ``cli/text2audio_inference``; then
+FreqCodec, the second codec family, served and trained at its released
+gr8 and gr1 topologies.
 In phases that each raise on failure:
 
 1. checks: a CUDA card is present; TF32 is turned off for fp32 matmuls and
@@ -119,11 +122,29 @@ In phases that each raise on failure:
    slots) on the session (best of 3) and on lockstep batches (one timed
    run), bf16 and fp32.
    ``--profile`` adds one 25-step segment of a 16-slot session.
+11. freq: FreqCodec mag_phase at the gr8 and gr1 topologies of
+   scripts/bench_freqcodec.py (a copy of its freq_config; 9,932,201 and
+   9,418,793 parameters, seeded, kmeans_init off): B = 8 x 10 s requests
+   on three bf16 paths (no kernel; FUSED_RVQ; + FUSED_STRIDE1 +
+   FUSED_RESBLOCK) with exact launches (the main path: rvq_encode 1,
+   conv1d_s1 2, the resblock kernels 0 a request: FreqCodec's residual
+   blocks are 2D), each kernel call of the main path's requests against its
+   plain version on its own inputs, the first request served again equal;
+   flips against the fp32-exact path; fp32 on the card against the CPU
+   (tokens equal but at near-ties, the decode of the same tokens within
+   1e-4); conv1d_s1 at its two T = 501 shapes against its plain version and
+   cuDNN; the CLI (encode, then decode) on 4 seeded utterances; encode +
+   decode of B = 64 x 10 s, fp32-exact and the three bf16 paths, with peak
+   memory; istft alone; 2 bf16 shared GAN steps with phase-invariant
+   training at B = 16 x 2.56 s (exact launches), then ms a step.
+   ``--profile`` adds one gr8 bf16 main-path request (the share of cuDNN's
+   2D convs and of cuFFT).
 
 The line before the last is the card's name and power limit (nvidia-smi),
 the one before it a JSON object of the kernels (with each one's launches in
-the fused training configuration, in the trainer phase's two-epoch run and
-in the TTS phase's zero-shot request, and the backwards' times); the last
+the fused training configuration, in the trainer phase's two-epoch run, in
+the TTS phase's zero-shot request and in the FreqCodec main-path requests,
+and the backwards' times); the last
 line is
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
 """
@@ -567,6 +588,42 @@ def _flagship_config():
     # kmeans init leaves every codebook at zero until a checkpoint loads
     config["quantizer_conf"]["kmeans_init"] = False
     return config
+
+
+def freq_config(gr: int) -> dict:
+    """FreqCodec mag_phase at the released gr8 / gr1 topology: a copy of
+    scripts/bench_freqcodec.freq_config (tests/test_torch_freqcodec.py holds
+    the two equal)."""
+    return {
+        "input_size": 3,
+        "encoder": "encodec_seanet_encoder_2d",
+        "encoder_conf": {
+            "ratios": [[4, 1], [4, 1], [4, 2], [4, 1]],
+            "norm": "time_group_norm", "causal": False, "dilation_base": 1,
+            "conv_group_ratio": gr,
+        },
+        "quantizer": "costume_quantizer",
+        "quantizer_conf": {
+            "codebook_size": 1024, "num_quantizers": 32, "ema_decay": 0.99,
+            "kmeans_init": False, "sampling_rate": 16000,
+            "encoder_hop_length": 320, "use_ddp": True,
+        },
+        "decoder": "encodec_seanet_decoder_2d",
+        "decoder_conf": {
+            "ratios": [[4, 1], [4, 1], [4, 2], [4, 1]],
+            "norm": "time_group_norm", "causal": False, "channels": 3,
+            "dilation_base": 1, "conv_group_ratio": gr,
+            "tr_conv_group_ratio": gr,
+        },
+        "model": "freq_codec",
+        "model_conf": {
+            "odim": 128,
+            "target_sample_hz": 16000,
+            "audio_normalize": True,
+            "segment_dur": None, "overlap_ratio": None,
+            "codec_domain": ["mag_phase", "mag_phase"],
+        },
+    }
 
 
 def build_models(dev):
@@ -1877,7 +1934,7 @@ def _recorded_seanet_calls():
         conv_ops.fused_conv1d_s1, seanet_mod.fused_resblock_tgn = conv_fn, rb_fn
 
 
-def _held_calls(calls) -> dict:
+def _held_calls(calls, what: str = "tts") -> dict:
     """Each recorded call's wrapper against its plain version on the same
     inputs (_held: 2 bf16 ulps, or FP32_REL_TOL of the output's scale for
     fp32 inputs); these launches are not counted."""
@@ -1886,8 +1943,8 @@ def _held_calls(calls) -> dict:
         for i, (kernel, fn, x, args, kwargs) in enumerate(calls):
             out = fn(x, *args, **kwargs)
             if out is None:
-                raise RuntimeError(f"tts {kernel} call {i}: the wrapper did not launch at {tuple(x.shape)}")
-            worst[kernel] = max(worst[kernel], _held(kernel, f"tts call {i} B={x.shape[0]} C={x.shape[1]} "
+                raise RuntimeError(f"{what} {kernel} call {i}: the wrapper did not launch at {tuple(x.shape)}")
+            worst[kernel] = max(worst[kernel], _held(kernel, f"{what} call {i} B={x.shape[0]} C={x.shape[1]} "
                                                      f"T={x.shape[2]}", out, PLAIN[kernel](x, *args, **kwargs)))
     return worst
 
@@ -2147,6 +2204,369 @@ def tts_phase(dev, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# FreqCodec phase
+# ---------------------------------------------------------------------------
+
+FREQ_PARAMS = {8: 9_932_201, 1: 9_418_793}  # encoder + decoder, both packages (tests/test_torch_freqcodec.py)
+FREQ_B, FREQ_TIME_B, FREQ_SECONDS = 8, 64, 10.0
+FREQ_FRAMES = 501  # 10 s: the center 512 / 160 STFT's 1,001 frames, the encoder's time stride 2
+# (FUSED_STRIDE1 and FUSED_RESBLOCK, FUSED_RVQ) of each bf16 serving path
+FREQ_PATHS = {"none": (False, False), "rvq": (False, True), "rvq+stride1+resblock": (True, True)}
+FREQ_MAIN = "rvq+stride1+resblock"
+# per request: the fused conv takes the 1D tail only (the encoder's ELU + 512 -> 128 k7, the
+# decoder's 128 -> 512 k7); the 2D resblocks never reach the resblock kernel
+FREQ_EXPECT = {
+    "none": {"conv1d_s1": 0, "resblock_tgn": 0, "resblock_tgn_finalize": 0, "rvq_encode": 0},
+    "rvq": {"conv1d_s1": 0, "resblock_tgn": 0, "resblock_tgn_finalize": 0, "rvq_encode": 1},
+    FREQ_MAIN: {"conv1d_s1": 2, "resblock_tgn": 0, "resblock_tgn_finalize": 0, "rvq_encode": 1},
+}
+# one shared training step with both SEANet flags: the generator's encode and decode once
+FREQ_TRAIN_EXPECT = {**FREQ_EXPECT[FREQ_MAIN], "rvq_encode": 0}
+FREQ_TRAIN_B, FREQ_TRAIN_STEPS, FREQ_TIMED_STEPS = 16, 2, 2
+# fp32 card against CPU: a differing code only where its two codewords' distances to the
+# residual differ by at most this share of the residual's squared norm; the reconstruction
+# of the same tokens within this relative L2
+FREQ_NEAR_TIE, FREQ_RECON_REL = 1e-4, 1e-4
+FREQ_DIR = OUT_DIR / "freq"
+
+
+def _freq_flags(path: str) -> None:
+    seanet, fused_rvq = FREQ_PATHS[path]
+    conv_ops.FUSED_STRIDE1 = conv_ops.FUSED_RESBLOCK = seanet
+    rvq.FUSED_RVQ = fused_rvq
+
+
+@contextlib.contextmanager
+def _recorded_rvq_calls():
+    """Record every rvq_encode wrapper call inside the block (quant/rvq.py
+    calls rvq_kernel.rvq_encode_fused by name): [(x, embed, n_q)], x cloned."""
+    calls, inner = [], rvq_kernel.rvq_encode_fused
+
+    def wrapper(x, embed, n_q, **kwargs):
+        calls.append((x.clone(), embed, n_q))
+        return inner(x, embed, n_q, **kwargs)
+
+    rvq_kernel.rvq_encode_fused = wrapper
+    try:
+        yield calls
+    finally:
+        rvq_kernel.rvq_encode_fused = inner
+
+
+def _held_rvq(calls, what: str) -> float:
+    """Each recorded rvq_encode call against its plain version on the same
+    inputs (the flagship's agreement limits); the worst max|dquant| on
+    agreeing rows. These launches are not counted."""
+    worst = 0.0
+    with torch.inference_mode():
+        for i, (x, embed, n_q) in enumerate(calls):
+            k_idx, k_quant = rvq_kernel.rvq_encode_fused(x, embed, n_q)
+            r_idx, r_quant = rvq_kernel.rvq_encode_reference(x, embed, n_q)
+            q0, all_, rows, err = _compare(k_idx, k_quant, r_idx, r_quant)
+            log(f"[freq] {what} rvq_encode call {i} x {tuple(x.shape)}: agree q0={q0:.6f} all={all_:.6f} "
+                f"rows={rows:.6f} max|dquant| {err:.3e}")
+            if q0 < MIN_AGREE_Q0 or all_ < MIN_AGREE_ALL or err > MAX_QUANT_ERR or not torch.isfinite(k_quant).all():
+                raise RuntimeError(f"freq {what}: rvq_encode disagrees with its plain version")
+            worst = max(worst, err)
+    return worst
+
+
+def build_freq(dev, gr: int, dtype: str, seed: int = 0):
+    s2t = Speech2Token(freq_config(gr), None, dtype=dtype, device=dev)
+    n = sum(p.numel() for p in s2t.model.parameters())
+    if n != FREQ_PARAMS[gr]:
+        raise RuntimeError(f"freq gr{gr}: {n} parameters, expected {FREQ_PARAMS[gr]}")
+    return s2t
+
+
+def _freq_output(what, codes, recon, batch, seconds):
+    n = int(seconds * SR)
+    frames = -(-(n // 160 + 1) // 2)
+    if codes[0].shape != (32, batch, frames) or recon.shape != (batch, n):
+        raise RuntimeError(f"freq {what}: tokens {codes[0].shape}, recon {recon.shape}")
+    if not np.isfinite(recon).all() or codes[0].min() < 0 or codes[0].max() >= 1024:
+        raise RuntimeError(f"freq {what}: non-finite recon or out-of-range tokens")
+
+
+def freq_serving(dev, gr: int, s_bf, s_fp) -> dict:
+    """B = 8 x 10 s requests on the three bf16 paths with exact launch counts;
+    on the main path every kernel call of the requests against its plain
+    version on its own inputs, and the first request served again: the same
+    tokens, and a reconstruction that moves less than bf16 moves it from
+    fp32 (cuDNN's transposed 2D convs may sum in another order from run to
+    run); the flip rates against the fp32-exact path."""
+    requests = [_speech(70 + i, FREQ_B, FREQ_SECONDS) for i in range(2)]
+    _freq_flags("none")
+    codes_fp, _, recon_fp, _ = s_fp(requests[0], bit_width=None)
+    _freq_output(f"gr{gr} fp32", codes_fp, recon_fp, FREQ_B, FREQ_SECONDS)
+    tokens, res = {}, {}
+    for path in FREQ_PATHS:
+        _freq_flags(path)
+        with _recorded_seanet_calls() as seanet_calls, _recorded_rvq_calls() as rvq_calls:
+            torch.cuda.synchronize()
+            reset_counts()
+            outs = []
+            for i, x in enumerate(requests):
+                before = read_counts()
+                outs.append(s_bf(x, bit_width=None))
+                per_request = {k: v - before[k] for k, v in read_counts().items()}
+                if per_request != FREQ_EXPECT[path]:
+                    raise RuntimeError(f"freq gr{gr} {path} request {i}: launches {per_request}, "
+                                       f"expected {FREQ_EXPECT[path]}")
+            counts = read_counts()
+        for i, (codes, _, recon, _) in enumerate(outs):
+            _freq_output(f"gr{gr} {path} request {i}", codes, recon, FREQ_B, FREQ_SECONDS)
+        tokens[path] = outs[0][0][0]
+        if path == FREQ_MAIN:
+            if any(x.shape[-1] != FREQ_FRAMES for _, _, x, _, _ in seanet_calls):
+                raise RuntimeError(f"freq gr{gr}: a conv1d_s1 call off T = {FREQ_FRAMES}")
+            held = _held_calls(seanet_calls, f"freq gr{gr}")
+            held["rvq_encode"] = _held_rvq(rvq_calls, f"gr{gr}")
+            again = s_bf(requests[0], bit_width=None)
+            token_diff = int((again[0][0] != outs[0][0][0]).sum())
+            rerun, yard = _rel(again[2], outs[0][2]), _rel(outs[0][2], recon_fp)
+            log(f"[freq] gr{gr} {path}: the first request served again: {token_diff} tokens differ; recon relative "
+                f"L2 {rerun:.3e} from the first serving (bf16 vs fp32 {yard:.3e})")
+            if token_diff or rerun > yard:
+                raise RuntimeError(f"freq gr{gr}: the main path served the same request twice with different results")
+            res.update(launches=counts, held_calls=len(seanet_calls) + len(rvq_calls), rerun_recon_rel_l2=rerun,
+                       recon_bf16_vs_fp32_rel_l2=yard, max_abs_err={k: held[k] for k in ("conv1d_s1", "rvq_encode")})
+        log(f"[freq] gr{gr} {path}: {len(requests)} requests of B={FREQ_B} x {FREQ_SECONDS} s, launches {counts} (per request "
+            f"{FREQ_EXPECT[path]})")
+    _freq_flags("none")
+    res["flips_vs_fp32"] = {}
+    for path in FREQ_PATHS:
+        q0, all_ = _flips(tokens[path], codes_fp[0])
+        res["flips_vs_fp32"][path] = {"q0": q0, "all": all_}
+        if all_ > MAX_FLIP_ALL:
+            raise RuntimeError(f"freq gr{gr}: bf16 {path} and fp32 disagree on {all_:.3f} of the tokens")
+    q0, all_ = _flips(tokens[FREQ_MAIN], tokens["none"])
+    res["flips_main_vs_none"] = {"q0": q0, "all": all_}
+    log(f"[freq] gr{gr} main path: {res['held_calls']} kernel calls each within its limit of the plain version on "
+        f"the same inputs (max|err| conv1d_s1 {res['max_abs_err']['conv1d_s1']:.3e}, rvq_encode "
+        f"{res['max_abs_err']['rvq_encode']:.3e}); token flips fp32 vs bf16 "
+        + ", ".join(f"{p} q0 {v['q0']:.5f} all {v['all']:.5f}" for p, v in res["flips_vs_fp32"].items())
+        + f"; main vs none q0 {q0:.5f} all {all_:.5f}")
+    return res
+
+
+def freq_card_cpu(dev, gr: int, s_fp) -> dict:
+    """fp32 on the card (TF32 off) against the CPU, same weights, one 2 s clip:
+    tokens equal but at near-ties (_code_flips), and the decode of the CPU's
+    tokens within FREQ_RECON_REL relative L2."""
+    s_cpu = Speech2Token(freq_config(gr), None, dtype="float32", device="cpu")
+    s_cpu.model.load_state_dict(s_fp.model.state_dict())
+    _freq_flags("none")
+    clip = _speech(98, 1, 2.0)
+    with _rvq_calls() as card_calls:
+        c_gpu, _, r_gpu, _ = s_fp(clip, bit_width=None)
+    with _rvq_calls() as cpu_calls:
+        c_cpu, _, r_cpu, _ = s_cpu(clip, bit_width=None)
+    card_calls = [tuple(t.cpu() for t in c) for c in card_calls]
+    flips, n, gap = _code_flips(card_calls, cpu_calls)
+    btq = np.ascontiguousarray(np.transpose(c_cpu[0], (1, 2, 0)))
+    d_gpu = s_fp(btq, run_mod="decode", bit_width=None)[2]
+    d_cpu = s_cpu(btq, run_mod="decode", bit_width=None)[2]
+    rel = _rel(d_gpu, d_cpu)
+    log(f"[freq] gr{gr} fp32 card vs CPU on 2 s: {flips} of {n} codes differ (largest distance gap at a first "
+        f"differing stage {gap:.3e} of the residual's squared norm, limit {FREQ_NEAR_TIE:.0e}); max|drecon| "
+        f"{float(np.abs(r_gpu - r_cpu).max()):.3e}; the CPU tokens decoded on both: relative L2 {rel:.3e} "
+        f"(limit {FREQ_RECON_REL:.0e})")
+    if gap > FREQ_NEAR_TIE or rel > FREQ_RECON_REL or not np.isfinite(r_gpu).all():
+        raise RuntimeError(f"freq gr{gr}: fp32 on the card disagrees with the CPU")
+    return dict(code_flips=flips, codes=n, flip_gap=gap, decode_rel_l2=rel,
+                recon_max_abs_diff=float(np.abs(r_gpu - r_cpu).max()))
+
+
+def _peak_seconds(fn, dev) -> tuple:
+    """(best of 3 wall seconds after a warm-up, fenced; peak device memory GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = timeit(fn, dev, warmup=1, iters=3)
+    return t, torch.cuda.max_memory_allocated() / 2**30
+
+
+def freq_conv_rows(dev, s_bf, card: str) -> list:
+    """conv1d_s1 at the two FreqCodec shapes (B = 64, T = 501, the served
+    model's own weights): held against the plain version, then timed
+    against it and against cuDNN, beside the bound, and at T = 500 (rows
+    16-byte aligned, where T = 501's are 2-byte aligned on every other
+    channel) in the same call."""
+    enc, dec = s_bf.model.encoder.model, s_bf.model.decoder.model
+    layers = [ConvLayer("freq enc_last elu 512->128 k7", enc[len(enc) - 1], FREQ_TIME_B, FREQ_FRAMES, "elu",
+                        torch.bfloat16, dev, 14),
+              ConvLayer("freq dec_first 128->512 k7", dec[0], FREQ_TIME_B, FREQ_FRAMES, None, torch.bfloat16, dev, 15)]
+    rows = []
+    with torch.inference_mode():
+        for layer in layers:
+            err = _held("conv1d_s1", f"{layer.name} B={FREQ_TIME_B} T={FREQ_FRAMES}", layer.kernel(), layer.plain())
+            even = ConvLayer(layer.name, layer.conv, FREQ_TIME_B, FREQ_FRAMES - 1, layer.act, torch.bfloat16, dev, 16)
+            row = _row(layer.name, _cuda_ms(layer.kernel, 20), _cuda_ms(layer.plain, 5), layer.bound_ms(),
+                       library_ms=_cuda_ms(layer.library, 20), max_abs_err=err, t_minus_1_ms=_cuda_ms(even.kernel, 20),
+                       regime=conv_kernel.REGIMES[build.load().conv1d_s1_regime(
+                           layer.x.shape[1], layer.w.shape[0], layer.spec.kernel_size, layer.spec.dilation,
+                           layer.left, conv_kernel.DTYPES[layer.x.dtype], conv_kernel.VARIANTS["auto"])])
+            rows.append(row)
+            log(f"[freq] conv1d_s1 {layer.name} B={FREQ_TIME_B} T={FREQ_FRAMES}: kernel {row['ms']:.4f} ms "
+                f"({row['regime']}; at T={FREQ_FRAMES - 1} {row['t_minus_1_ms']:.4f} ms), plain "
+                f"{row['plain_ms']:.3f} ms, cuDNN {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']}) ({card})")
+    return rows
+
+
+def freq_timing(dev, gr: int, s_bf, s_fp, card: str) -> dict:
+    """B = 64 x 10 s encode + decode: fp32-exact and the three bf16 paths,
+    best of 3 after a warm-up, with peak memory."""
+    speech = torch.from_numpy(_speech(75, FREQ_TIME_B, FREQ_SECONDS)).to(dev)
+    audio_s = FREQ_TIME_B * FREQ_SECONDS
+    out = {}
+    _freq_flags("none")
+    runs = [("fp32-exact", "none", s_fp)] + [(f"bf16 {p}", p, s_bf) for p in FREQ_PATHS]
+    for label, path, s2t in runs:
+        _freq_flags(path)
+        t, peak = _peak_seconds(lambda: s2t.dispatch(speech, bit_width=None), dev)
+        out[label] = dict(seconds=t, audio_s_per_s=audio_s / t, peak_gib=peak)
+        log(f"[freq] gr{gr} B={FREQ_TIME_B} x {FREQ_SECONDS} s encode+decode {label}: {audio_s / t:.1f} audio-s/s "
+            f"({t * 1e3:.1f} ms), peak {peak:.2f} GiB ({card})")
+    _freq_flags("none")
+    return out
+
+
+def freq_istft_row(dev, card: str) -> dict:
+    """istft alone at the decode's shape: (64, 257, 1001) complex64 -> (64, 160,000)."""
+    from funcodec_tpu_torch.ops.stft import istft
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    spec = torch.complex(torch.randn(64, 257, 1001, device=dev, generator=gen),
+                         torch.randn(64, 257, 1001, device=dev, generator=gen))
+    ms = _cuda_ms(lambda: istft(spec, 512, 160, length=160_000), 10)
+    nbytes = spec.numel() * 8 + 64 * 160_000 * 4
+    frames = 64 * 1001
+    bound = _bound(nbytes, frames * (2.5 * 512 * math.log2(512) + 2 * 512), PEAK_FP32)
+    log(f"[freq] istft (64, 257, 1001) -> (64, 160000): {ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}) ({card})")
+    return dict(ms=ms, bound_ms=bound[0], bound_by=bound[1])
+
+
+def freq_training(dev, card: str) -> dict:
+    """gr8 with phase-invariant training and its MS-STFT discriminator: bf16
+    shared steps at B = 16 x 2.56 s with both SEANet flags, exact launches
+    and finite stats (pit_disc_loss among them) for FREQ_TRAIN_STEPS steps,
+    then ms a step over FREQ_TIMED_STEPS more, and peak memory."""
+    config = freq_config(8)
+    config["model_conf"]["phase_invariant_training"] = True
+    model, disc = build_codec_model(config, device=dev, generator=torch.Generator(device=dev).manual_seed(3))
+    opts = [make_optimizer(lr=3e-4, betas=(0.5, 0.9)) for _ in range(2)]
+    state = create_gan_train_state(model, disc, *opts)
+    step = make_gan_train_step(model, disc, *opts, shared_forward=True, compute_dtype=torch.bfloat16)
+    speech = _train_speech(dev, FREQ_TRAIN_B, seed=46)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    _set_seanet_flags(True)
+    before_d = [p.detach().clone() for p in disc.parameters()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    stats = []
+    for i in range(FREQ_TRAIN_STEPS):
+        before = read_counts()
+        state, s = step(state, {"speech": speech}, gen)
+        per_step = {k: v - before[k] for k, v in read_counts().items()}
+        if per_step != FREQ_TRAIN_EXPECT:
+            raise RuntimeError(f"freq training step {i}: launches {per_step}, expected {FREQ_TRAIN_EXPECT}")
+        stats.append(_floats(s))
+    counts = read_counts()
+    if not stats[0].get("pit_disc_loss", 0.0) > 0 or not any(
+            not torch.equal(a, p) for a, p in zip(before_d, disc.parameters())):
+        raise RuntimeError("freq training: no positive pit_disc_loss on the first step (its disc turn runs "
+                           "ungated), or the discriminator did not move")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(FREQ_TIMED_STEPS):
+        state, _ = step(state, {"speech": speech}, gen)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / FREQ_TIMED_STEPS * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _set_seanet_flags(False)
+    log(f"[freq] training gr8 PIT, bf16 shared_train_step, both SEANet flags, B={FREQ_TRAIN_B} x {TRAIN_SECONDS} s: "
+        f"{FREQ_TRAIN_STEPS} steps, launches {counts} (per step {FREQ_TRAIN_EXPECT}), stats finite (step 0: "
+        f"generator_loss {stats[0]['generator_loss']:.4f}, discriminator_loss {stats[0]['discriminator_loss']:.4f}, "
+        f"pit_disc_loss {stats[0]['pit_disc_loss']:.4f}); {ms:.1f} ms a step over {FREQ_TIMED_STEPS} more "
+        f"({FREQ_TRAIN_B * TRAIN_SECONDS / ms * 1e3:.1f} training audio-s/s), peak {peak:.2f} GiB ({card})")
+    return dict(launches=counts, stats=stats, ms_per_step=ms, peak_gib=peak)
+
+
+def freq_cli(dev, s_fp) -> dict:
+    """cli/codec_inference.main on 4 seeded utterances of 1-3 s: bf16 encode on
+    the main path (one conv1d_s1 a batch; the encode mode's token search is
+    the greedy fp32 scan, not rvq_encode), then decode of its codecs.txt (one
+    conv1d_s1 a batch); the frames the CLI writes (ceil(n / 320), its hop)
+    and the decoded lengths (320 a frame, less the ISTFT's 160 for the
+    longest of a batch; the CLI cuts the others at 320 a frame)."""
+    FREQ_DIR.mkdir(parents=True, exist_ok=True)
+    import yaml
+
+    (FREQ_DIR / "config.yaml").write_text(yaml.safe_dump(freq_config(8)))
+    torch.save(s_fp.model.state_dict(), FREQ_DIR / "model.pth")
+    want = _write_corpus(FREQ_DIR, (1.0, 1.4375, 2.5625, 3.0), SR, 77)
+    common = ["--config_file", str(FREQ_DIR / "config.yaml"), "--model_file", str(FREQ_DIR / "model.pth"),
+              "--batch_size", "2", "--bit_width", "16000", "--dtype", "bfloat16", "--device", str(dev)]
+    _freq_flags(FREQ_MAIN)
+    reset_counts()
+    cli.main(["--output_dir", str(FREQ_DIR / "enc"), "--run_mod", "encode", "--data_path_and_name_and_type",
+              f"{FREQ_DIR / 'wav.scp'},speech,sound", *common])
+    enc_counts = read_counts()
+    reset_counts()
+    cli.main(["--output_dir", str(FREQ_DIR / "dec"), "--run_mod", "decode", "--data_path_and_name_and_type",
+              f"{FREQ_DIR / 'enc' / 'codecs.txt'},speech,codec_json", *common])
+    dec_counts = read_counts()
+    _freq_flags("none")
+    batches = 2
+    expect = {"conv1d_s1": batches, "resblock_tgn": 0, "resblock_tgn_finalize": 0, "rvq_encode": 0}
+    if enc_counts != expect or dec_counts != expect:
+        raise RuntimeError(f"freq cli: launches encode {enc_counts}, decode {dec_counts}")
+    codes = _codecs(FREQ_DIR / "enc" / "codecs.txt")
+    for key, n in want.items():
+        frames = -(-n // 320)
+        if codes[key].shape != (32, frames):
+            raise RuntimeError(f"freq cli: {key} tokens {codes[key].shape}, expected (32, {frames})")
+        sr, wav = read_wav(FREQ_DIR / "dec" / f"{key}.wav", normalize=False)
+        if sr != SR or not frames * 320 - 160 <= wav.shape[0] <= frames * 320:
+            raise RuntimeError(f"freq cli: {key}.wav has {wav.shape[0]} samples at {sr} Hz")
+    log(f"[freq] cli/codec_inference: 4 utterances of 1-3 s, bf16 encode on the main path (launches {enc_counts}) "
+        f"then decode of codecs.txt (launches {dec_counts}); tokens (1, 32, ceil(n / 320)) and wavs of "
+        f"320 x frames (- 160) samples")
+    return dict(encode_launches=enc_counts, decode_launches=dec_counts)
+
+
+def freq_phase(dev, card: str) -> dict:
+    """FreqCodec gr8 and gr1 at full width, seeded weights: serving, fp32 card
+    against CPU, timing, conv1d_s1 at T = 501, istft, training, the CLI."""
+    t0 = time.perf_counter()
+    res = {"serving": {}, "card_vs_cpu": {}, "timing": {}}
+    for gr in (8, 1):
+        s_bf, s_fp = build_freq(dev, gr, "bfloat16"), build_freq(dev, gr, "float32")
+        if not torch.equal(s_fp.model.quantizer.state.embed, s_bf.model.quantizer.state.embed):
+            raise RuntimeError(f"freq gr{gr}: the fp32 and bf16 models were not built with the same weights")
+        log(f"[freq] gr{gr}: {FREQ_PARAMS[gr]} parameters (encoder + decoder), 32 x 1024 codebooks")
+        res["serving"][gr] = freq_serving(dev, gr, s_bf, s_fp)
+        res["card_vs_cpu"][gr] = freq_card_cpu(dev, gr, s_fp)
+        if gr == 8:
+            res["conv_rows"] = freq_conv_rows(dev, s_bf, card)
+            res["cli"] = freq_cli(dev, s_fp)
+        res["timing"][gr] = freq_timing(dev, gr, s_bf, s_fp, card)
+        del s_bf, s_fp
+        torch.cuda.empty_cache()
+    res["istft"] = freq_istft_row(dev, card)
+    res["training"] = freq_training(dev, card)
+    torch.cuda.empty_cache()
+    res["launches"] = {k: sum(r["launches"][k] for r in res["serving"].values()) for k in COUNTERS}
+    res["max_abs_err"] = {k: max(r["max_abs_err"][k] for r in res["serving"].values())
+                          for k in ("conv1d_s1", "rvq_encode")}
+    log(f"[freq] phase wall {time.perf_counter() - t0:.1f} s; main-path launches over both models' requests "
+        f"{res['launches']}")
+    return res
+
+
 def _cuda_ms(fn, iters: int) -> float:
     fn()
     torch.cuda.synchronize()
@@ -2267,6 +2687,15 @@ PROFILE_FAMILIES = {
     "resblock_tgn_finalize": ("resblock_tgn_finalize",),
     "rvq_encode": ("rvq_encode",),
     "conv1d_s1": ("conv1d_s1",),
+    "cufft": ("fft",),  # the STFT / ISTFT's kernels
+}
+# operators whose device time (every kernel they launch) is summed by name
+PROFILE_OPS = {
+    "cuDNN convolutions (forward and transposed)": ("aten::cudnn_convolution", "aten::cudnn_convolution_transpose"),
+    "group norm": ("aten::native_group_norm",),
+    "reflect pad": ("aten::reflection_pad1d", "aten::reflection_pad2d"),
+    "dtype and layout copies": ("aten::copy_",),
+    "cuDNN LSTM": ("aten::_cudnn_rnn",),
 }
 
 
@@ -2287,10 +2716,17 @@ def _profiled(run, what: str, tag: str) -> None:
     averages = prof.key_averages()
     table = averages.table(sort_by="self_device_time_total", row_limit=30)
     for family, names in PROFILE_FAMILIES.items():  # one kernel's template instances, summed
-        rows = [e for e in averages if any(n in e.key for n in names)]
+        rows = [e for e in device_events if any(n in e.name for n in names)]
         if rows:
-            log(f"[profile] {what}: {family}: {sum(e.self_device_time_total for e in rows) / 1e3:.2f} ms "
-                f"in {sum(e.count for e in rows)} launches")
+            ms = sum(e.self_device_time_total for e in rows) / 1e3
+            log(f"[profile] {what}: {family}: {ms:.2f} ms in {len(rows)} launches, "
+                f"{ms / max(busy, 1e-9):.3f} of the device kernel time")
+    for label, ops in PROFILE_OPS.items():
+        rows = [e for e in averages if e.key in ops]
+        if rows:
+            ms = sum(e.self_device_time_total for e in rows) / 1e3
+            log(f"[profile] {what}: {label}: {ms:.2f} ms in {sum(e.count for e in rows)} calls, "
+                f"{ms / max(busy, 1e-9):.3f} of the device kernel time")
     (OUT_DIR / f"profile_{tag}.txt").write_text(table)
     log(f"[profile] {what}: wall {wall * 1e3:.1f} ms, {len(device_events)} device kernels, {busy:.1f} ms of device "
         f"kernel time, idle share "
@@ -2327,6 +2763,14 @@ def profile(dev) -> None:
         torch.cuda.empty_cache()
     _set_seanet_flags(False)
     tts_profile(dev)
+    s_freq = build_freq(dev, 8, "bfloat16")
+    speech = torch.from_numpy(_speech(75, FREQ_TIME_B, FREQ_SECONDS)).to(dev)
+    _freq_flags(FREQ_MAIN)
+    for _ in range(2):
+        s_freq.dispatch(speech, bit_width=None)
+    _profiled(lambda: s_freq.dispatch(speech, bit_width=None), f"FreqCodec gr8 bf16 {FREQ_MAIN} B={FREQ_TIME_B}",
+              "freqcodec_gr8_bf16")
+    _freq_flags("none")
 
 
 def tts_profile(dev) -> None:
@@ -2377,6 +2821,7 @@ def main() -> int:
     train_rows = training_timing(dev, card)
     trainer = trainer_phase(dev, card, train_rows)
     tts = tts_phase(dev, card)
+    freq = freq_phase(dev, card)
     if "funcodec_tpu" in sys.modules or ("jax" in sys.modules and not _JAX_PRELOADED):
         raise RuntimeError("the port imported JAX or the JAX package")
 
@@ -2387,7 +2832,7 @@ def main() -> int:
         copy_ceiling_bytes_per_s=ceiling, cli=cli_stats, training=dict(
             configs=train_results, launches=train_counts, fused_gradients=fused_grads, backward=backward_rows,
             backward_max_relative_error=backward_errs, forward_max_abs_error=train_fwd_errs,
-            card_vs_cpu=card_cpu, timing=train_rows), trainer=trainer, tts=tts), indent=1))
+            card_vs_cpu=card_cpu, timing=train_rows), trainer=trainer, tts=tts, freqcodec=freq), indent=1))
     conv_main = _summed([r for r in conv_rows if r["main_path"]])
     conv_main["library_ms"] = sum(r["library_ms"] for r in conv_rows if r["main_path"])
     conv_main["legacy_ms"] = sum(r["legacy_ms"] for r in conv_rows if r["main_path"])
@@ -2426,12 +2871,17 @@ def main() -> int:
             replaces=REPLACES[name], launches=probe_launches[name], max_abs_err=0.0, ms=row["ms"],
             plain_ms=probe_plain[torch.bfloat16], bound_ms=row["bound_ms"], bound_by="bytes",
             library_ms=row["library_ms"]))
-    for k in kernels:  # the training phase's fused steps, the trainer phase's two-epoch run, a TTS request
+    # the training phase's fused steps, the trainer phase's two-epoch run, a TTS request, the
+    # FreqCodec main-path requests (gr8 and gr1)
+    for k in kernels:
         k["training_launches"] = train_counts.get(k["name"], 0)
         k["trainer_launches"] = trainer["launches"].get(k["name"], 0)
         k["tts_launches"] = tts["kernels"]["launches"].get(k["name"], 0)
         if k["name"] in tts["kernels"]["max_abs_err"]:  # the request's own calls against the plain version
             k["tts_max_abs_err"] = tts["kernels"]["max_abs_err"][k["name"]]
+        k["freqcodec_launches"] = freq["launches"].get(k["name"], 0)
+        if k["name"] in freq["max_abs_err"]:
+            k["freqcodec_max_abs_err"] = freq["max_abs_err"][k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,8 @@ beside the JAX params and returns a state_dict under the reference FunCodec
 names, which the port's modules carry; ``discriminator_state_dict_from_jax``
 does the same for the discriminator's parameters, and ``train_state_from_jax``
 carries a whole GAN train state (both modules, the Adam moments and counts,
-the gate carry and the step). Weight-normed convs carry
+the gate carry and the step). 1D and 2D convs (FreqCodec's SEANet2d)
+carry their kernels into torch's layouts; weight-normed convs carry
 ``v``/``g`` across as ``weight_v``/``weight_g``, and all four RVQ buffers
 come along. ``encoder_state_dict_from_jax`` and ``laura_state_dict_from_jax``
 do the same for the transformer/conformer stacks and a whole LauraGenModel,
@@ -33,24 +34,37 @@ def _t(a) -> torch.Tensor:
 
 
 def torch_conv_weight(kernel: np.ndarray, spec: ConvSpec) -> np.ndarray:
-    """JAX gather-form kernel -> torch conv weight.
+    """JAX gather-form kernel -> torch conv weight (K... is K or Kf, Kt).
 
-    forward:    (K, Cin/g, Cout) -> (Cout, Cin/g, K)
-    transposed: (K, Cin/g, Cout) -> (Cin, Cout/g, K)  (stored unflipped)
+    forward:    (K..., Cin/g, Cout) -> (Cout, Cin/g, K...)
+    transposed: (K..., Cin/g, Cout) -> (Cin, Cout/g, K...)  (stored unflipped;
+                the groups reshuffled: the inverse of funcodec_tpu's
+                compat/torch_import._conv_kernel_from_torch)
     """
     kernel = np.asarray(kernel)
+    n = kernel.ndim - 2  # spatial axes
+    spatial = tuple(range(n))
     if not spec.transposed:
-        return np.transpose(kernel, (2, 1, 0))
-    k, i_per_g, o = kernel.shape
+        return np.transpose(kernel, (n + 1, n) + spatial)
+    i_per_g, o = kernel.shape[n:]
     g = spec.groups
-    wg = kernel.reshape(k, i_per_g, g, o // g)
-    return np.transpose(wg, (2, 1, 3, 0)).reshape(g * i_per_g, o // g, k)
+    wg = kernel.reshape(*kernel.shape[:n], i_per_g, g, o // g)
+    return np.transpose(wg, (n + 1, n, n + 2) + spatial).reshape(g * i_per_g, o // g, *kernel.shape[:n])
 
 
-def _weight_g(g) -> torch.Tensor:
+def _weight_g(g, rank: int) -> torch.Tensor:
     """A weight-norm g (per dim-0 slice of the torch weight, in any of the
-    JAX layouts: keepdims or 1-D) as torch's (n, 1, ..., 1) of rank 3."""
-    return _t(np.asarray(g).reshape(-1, 1, 1))
+    JAX layouts: keepdims or 1-D) as torch's (n, 1, ..., 1) of the weight's rank."""
+    return _t(np.asarray(g).reshape(-1, *([1] * (rank - 1))))
+
+
+def _fused_jax_kernel(v: np.ndarray, g: np.ndarray) -> np.ndarray:
+    """g * v / ||v||, the norm over the axes where g's keepdims shape is 1
+    (funcodec_tpu ops/conv.fused_kernel), in fp32."""
+    v, g = np.asarray(v, np.float32), np.asarray(g, np.float32)
+    axes = tuple(i for i in range(v.ndim) if g.shape[i] == 1) if g.ndim == v.ndim else tuple(range(v.ndim - 1))
+    norm = np.sqrt(np.sum(v.astype(np.float64) ** 2, axis=axes, keepdims=True))
+    return (v * (g / np.maximum(norm, 1e-12))).astype(np.float32)
 
 
 def _conv(sd: Dict[str, torch.Tensor], base: str, spec: ConvSpec, p: Mapping[str, Any]) -> None:
@@ -58,8 +72,16 @@ def _conv(sd: Dict[str, torch.Tensor], base: str, spec: ConvSpec, p: Mapping[str
     if "kernel" in p:
         sd[f"{base}.{inner}.{inner}.weight"] = _t(torch_conv_weight(p["kernel"], spec))
     else:
-        sd[f"{base}.{inner}.{inner}.weight_v"] = _t(torch_conv_weight(p["v"], spec))
-        sd[f"{base}.{inner}.{inner}.weight_g"] = _weight_g(p["g"])
+        v = torch_conv_weight(p["v"], spec)
+        g = np.asarray(p["g"])
+        if g.size != v.shape[0]:
+            # a grouped transposed conv: the JAX norm runs per Cin/g slice
+            # across the groups, torch's per input channel; carry the fused
+            # weight as v, with its torch norm as g (the same weight)
+            v = torch_conv_weight(_fused_jax_kernel(p["v"], g), spec)
+            g = np.sqrt(np.square(v.astype(np.float64)).sum(axis=tuple(range(1, v.ndim))))
+        sd[f"{base}.{inner}.{inner}.weight_v"] = _t(v)
+        sd[f"{base}.{inner}.{inner}.weight_g"] = _weight_g(g, v.ndim)
     if "bias" in p:
         sd[f"{base}.{inner}.{inner}.bias"] = _t(p["bias"])
     if "norm_scale" in p:
@@ -89,7 +111,7 @@ def _layers(sd: Dict[str, torch.Tensor], prefix: str, layers: Sequence[Layer], p
             from funcodec_tpu_torch.models.seanet import seq_tfm_cfg
 
             encoder_state_dict_from_jax(sd, base, seq_tfm_cfg(spec), p)
-        elif kind == "act":
+        elif kind in ("act", "squeeze", "unsqueeze"):
             continue
         else:
             raise NotImplementedError(f"layer kind {kind!r} is not ported yet")

@@ -56,9 +56,13 @@
 //     two blocks an SM where 32 runs one, and measured faster). A chunk's
 //     raw window (CC rows of 256 + halo steps, channel-major as x lies)
 //     arrives by 16-byte cp.async (8-byte where T % 8 != 0 but T % 4 == 0,
-//     as at T = 500) into one of two buffers while the chunk before it is
-//     made and multiplied; pad values are a fix-up of the first
-//     and last tile of a sample only, of the positions outside [0, T) only.
+//     as at T = 500; 4-byte where T is only even) into one of two buffers
+//     while the chunk before it is made and multiplied; pad values are a
+//     fix-up of the first and last tile of a sample only, of the positions
+//     outside [0, T) only. Odd T (FreqCodec's 501 frames) leaves every other
+//     row 2-byte aligned, below cp.async's least size: each 8-step piece is
+//     built from aligned 32-bit loads (a funnel shift where it starts on an
+//     odd element) and stored as one vector, in the same place of the stage.
 //   - One ldmatrix.trans -> act -> stmatrix pass makes the chunk time-major,
 //     so a tap is a row offset (always 16-byte aligned) and the activation
 //     runs once per element of a work item: no im2col tile exists.

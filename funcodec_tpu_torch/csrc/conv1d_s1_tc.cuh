@@ -40,22 +40,76 @@ __device__ __forceinline__ void load_pieces(bf16* dst, const bf16* __restrict__ 
   }
 }
 
-// The window chunk (time p0 .. p0 + win of C rows at xb) into dst: vec-element
-// asynchronous copies (vec 8 or 4) of the pieces inside [0, T); T % vec == 0
-// and p0 % 8 == 0, so a piece lies wholly inside or outside. vec 1: scalar
-// loads with the pad values.
-__device__ __forceinline__ void load_window_v(bf16* dst, const bf16* __restrict__ xb, int C, int win, int p0, int T_,
-                                              int vec, int left, int right, int pad_mode) {
-  if (vec == 8) {
-    load_pieces<8>(dst, xb, C, win, p0, T_);
-  } else if (vec == 4) {
-    load_pieces<4>(dst, xb, C, win, p0, T_);
+// Odd T: the rows of x start 2-byte aligned on every other channel, below
+// cp.async's least size. A window piece (8 steps, 16 bytes in shared
+// memory) is built in registers from the aligned 32-bit words that cover it
+// (4, or 5 with a funnel shift of each pair where it starts on an odd
+// element) and stored as one vector; the pieces that cross 0 or T take
+// scalar loads of their steps inside [0, T) (make_pads fills the pad rows).
+// PIECES_IN_FLIGHT pieces a thread are loaded before any is stored. One
+// scalar load an element, one at a time, left each stage waiting on
+// memory: the FreqCodec heads took twice their T = 500 time at T = 501.
+constexpr int PIECES_IN_FLIGHT = 2;
+
+__device__ __forceinline__ uint4 odd_piece(const bf16* __restrict__ row, int p, int T_) {
+  uint32_t o[4];
+  if (p >= 0 && p + 8 <= T_) {  // p + 8 < T: the fifth word never passes the tensor's end
+    const uintptr_t a = reinterpret_cast<uintptr_t>(row + p);
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(a & ~static_cast<uintptr_t>(3));
+    uint32_t v[5];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[k] = __ldg(w + k);
+    if (a & 2) {
+      v[4] = __ldg(w + 4);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) o[k] = __funnelshift_r(v[k], v[k + 1], 16);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) o[k] = v[k];
+    }
   } else {
-    for (int i = threadIdx.x; i < C * win; i += THREADS) {
-      const int c = i / win, j = i - c * win;
-      dst[c * win + j] = pad_value(xb + (size_t)c * T_, p0 + j, T_, left, right, pad_mode);
+    const unsigned short* r = reinterpret_cast<const unsigned short*>(row);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int q = p + 2 * k;
+      const uint32_t lo = q >= 0 && q < T_ ? r[q] : 0u, hi = q + 1 >= 0 && q + 1 < T_ ? r[q + 1] : 0u;
+      o[k] = lo | (hi << 16);
     }
   }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+__device__ __forceinline__ void load_odd(bf16* dst, const bf16* __restrict__ xb, int C, int win, int p0, int T_) {
+  const int WC = win / 8, n = C * WC;
+  for (int i0 = threadIdx.x; i0 < n; i0 += PIECES_IN_FLIGHT * THREADS) {
+    uint4 v[PIECES_IN_FLIGHT];
+#pragma unroll
+    for (int u = 0; u < PIECES_IN_FLIGHT; ++u) {
+      const int i = i0 + u * THREADS, c = i / WC, m = i - c * WC;
+      if (i < n) v[u] = odd_piece(xb + (size_t)c * T_, p0 + 8 * m, T_);
+    }
+#pragma unroll
+    for (int u = 0; u < PIECES_IN_FLIGHT; ++u) {
+      const int i = i0 + u * THREADS, c = i / WC, m = i - c * WC;
+      if (i < n) *reinterpret_cast<uint4*>(dst + c * win + 8 * m) = v[u];
+    }
+  }
+}
+
+// The window chunk (time p0 .. p0 + win of C rows at xb) into dst: vec-element
+// asynchronous copies (vec 8, 4 or 2) of the pieces inside [0, T); T % vec ==
+// 0 and p0 % 8 == 0, so a piece lies wholly inside or outside. vec 1 (odd T):
+// load_odd, synchronous word loads.
+__device__ __forceinline__ void load_window_v(bf16* dst, const bf16* __restrict__ xb, int C, int win, int p0, int T_,
+                                              int vec) {
+  if (vec == 8)
+    load_pieces<8>(dst, xb, C, win, p0, T_);
+  else if (vec == 4)
+    load_pieces<4>(dst, xb, C, win, p0, T_);
+  else if (vec == 2)
+    load_pieces<2>(dst, xb, C, win, p0, T_);
+  else
+    load_odd(dst, xb, C, win, p0, T_);
 }
 
 template <int ACT>
@@ -156,7 +210,9 @@ __device__ __forceinline__ void write_tile(bf16* ot, int ldo, int row0, const fl
 template <int V>
 __device__ __forceinline__ void store_pieces(const bf16* ot, int ldo, bf16* __restrict__ yb, int C, int t0, int nt,
                                              int T_) {
-  using Vec = typename std::conditional<V == 8, uint4, typename std::conditional<V == 4, uint2, bf16>::type>::type;
+  using Vec = typename std::conditional<
+      V == 8, uint4,
+      typename std::conditional<V == 4, uint2, typename std::conditional<V == 2, uint32_t, bf16>::type>::type>::type;
   for (int i = threadIdx.x; i < C * (TC_TILE / V); i += THREADS) {
     const int c = i / (TC_TILE / V), t = (i % (TC_TILE / V)) * V;
     if (t < nt) *reinterpret_cast<Vec*>(yb + (size_t)c * T_ + t0 + t) = *reinterpret_cast<const Vec*>(ot + c * ldo + t);
@@ -171,6 +227,8 @@ __device__ __forceinline__ void store_tile_v(const bf16* ot, int ldo, bf16* __re
     store_pieces<8>(ot, ldo, yb, C, t0, nt, T_);
   else if (vec == 4)
     store_pieces<4>(ot, ldo, yb, C, t0, nt, T_);
+  else if (vec == 2)
+    store_pieces<2>(ot, ldo, yb, C, t0, nt, T_);
   else
     store_pieces<1>(ot, ldo, yb, C, t0, nt, T_);
 }
@@ -188,7 +246,8 @@ conv1d_s1_tc(const bf16* __restrict__ x,     // (B, Cin, T)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int n_o = Cout / NO, n_ch = L.n_ch;
   const int right = (K - 1) * dil - left;
-  const int vec = T_ % 8 == 0 ? 8 : (T_ % 4 == 0 ? 4 : 1);  // the vector width the rows of x and y allow
+  // the vector width the rows of x and y allow
+  const int vec = T_ % 8 == 0 ? 8 : (T_ % 4 == 0 ? 4 : (T_ % 2 == 0 ? 2 : 1));
   const int my_items = (n_items - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;  // the grid has at most one block an item
   const int total = my_items * n_ch;                                          // stages: (item, chunk)
 
@@ -227,7 +286,7 @@ conv1d_s1_tc(const bf16* __restrict__ x,     // (B, Cin, T)
   auto load = [&](int f) {
     if (f >= total) return;
     const Stage st = stage_of(f);
-    load_window_v(raw_of(f), x_chunk(st), CC, L.win, st.tile * TC_TILE - L.halo_l, T_, vec, left, right, pad_mode);
+    load_window_v(raw_of(f), x_chunk(st), CC, L.win, st.tile * TC_TILE - L.halo_l, T_, vec);
     if (!RESIDENT) copy_weights(wst_of(f, st.ch), st.o, st.ch);
   };
 

@@ -7,7 +7,8 @@ the JAX package.
 The GAN training forwards (``forward_generator``, ``forward_discriminator``
 and the loss assemblies the shared-forward step reuses) take the
 discriminator as a module or as a function of the waveform, and a
-``torch.Generator`` for the quantizer's draws. They return the RVQ state
+``torch.Generator`` for the quantizer's draws (and PhaseAug's, with
+FreqCodec's phase-invariant training). They return the RVQ state
 the step advanced to without writing the buffers; train/step.py commits it.
 Recon, mel and loss reductions are fp32; the discriminator runs in the
 reconstruction's type.
@@ -24,7 +25,7 @@ import torch.nn.functional as F
 
 from funcodec_tpu_torch.models.quantizer import Quantizer
 from funcodec_tpu_torch.models.seanet import SEANetDecoder, SEANetEncoder
-from funcodec_tpu_torch.ops.stft import audio_to_mel
+from funcodec_tpu_torch.ops.stft import audio_to_mel, phase_aug
 from funcodec_tpu_torch.quant.rvq import RVQTensors
 
 Discriminator = Union[nn.Module, Callable[[torch.Tensor], List[Tuple[torch.Tensor, List[torch.Tensor]]]]]
@@ -289,11 +290,13 @@ class Encodec(nn.Module):
         with torch.no_grad():
             real_outs = disc(orig.to(disc_in_dtype))
         adv_losses, feat_losses = [], []
+        fm_start = getattr(cfg, "feat_match_layer_start", -1)
         for (_, real_fmap), (fake_logits, fake_fmap) in zip(real_outs, fake_outs):
             adv_losses.append(F.relu(1.0 - fake_logits.float()).mean())
-            for rf, ff in zip(real_fmap, fake_fmap):
-                # the difference in the disc's type, its mean in fp32
-                feat_losses.append((rf - ff).abs().float().mean())
+            for li, (rf, ff) in enumerate(zip(real_fmap, fake_fmap)):
+                if li >= fm_start:  # FreqCodec's feat_match_layer_start (default -1: every layer)
+                    # the difference in the disc's type, its mean in fp32
+                    feat_losses.append((rf - ff).abs().float().mean())
         adversarial_loss = torch.stack(adv_losses).mean()
         feat_match_loss = torch.stack(feat_losses).mean()
         gen_loss = (
@@ -327,17 +330,27 @@ class Encodec(nn.Module):
         with torch.no_grad():
             recon, aux = self._reconstruct(speech, generator, rvq_state, training=training)
         loss, out = self._discriminator_losses(discriminator, speech.to(recon.dtype), recon, gen_loss_carry,
-                                               training=training)
+                                               training=training, generator=generator)
         out["rvq_state"] = aux["rvq_state"]
         return loss, out
 
     def _discriminator_losses(self, discriminator: Discriminator, orig: torch.Tensor, fake: torch.Tensor,
-                              gen_loss_carry: torch.Tensor, training: bool = True):
+                              gen_loss_carry: torch.Tensor, training: bool = True,
+                              generator: Optional[torch.Generator] = None):
         """Hinge loss on real and (detached) fake, in fp32; in training it is
         gated to 0 while the discriminator already wins (disc_loss <=
-        gen_loss_carry)."""
-        if getattr(self.cfg, "phase_invariant_training", False):
-            raise NotImplementedError("phase-invariant training is not ported yet (ROADMAP.md slice C)")
+        gen_loss_carry).
+
+        With ``phase_invariant_training`` (FreqCodec) the discriminator is
+        also penalized for telling a phase-rotated copy of the real signal
+        (ops/stft.phase_aug with n_fft 512, hop 160, its rotation drawn from
+        `generator`) from the real signal: per
+        discriminator the L1 of the logits plus pit_feat_loss_weight times
+        the mean L1 of the feature maps from feat_match_layer_start on;
+        their mean, gated like the hinge loss, enters the loss times
+        pit_disc_loss_weight and the stats as ``pit_disc_loss``."""
+        cfg = self.cfg
+        pit = getattr(cfg, "phase_invariant_training", False)
         fake = fake.detach()
         real_outs = discriminator(orig)
         fake_outs = discriminator(fake)
@@ -345,8 +358,25 @@ class Encodec(nn.Module):
             F.relu(1.0 - r.float()).mean() + F.relu(1.0 + f.float()).mean()
             for (r, _), (f, _) in zip(real_outs, fake_outs)
         ]).mean()
-        loss = disc_loss * (disc_loss > gen_loss_carry).to(disc_loss.dtype) if training else disc_loss
-        stats = dict(discriminator_total_loss=loss.detach(), discriminator_loss=disc_loss.detach())
+        mask = (disc_loss > gen_loss_carry).to(disc_loss.dtype) if training else None
+        loss = disc_loss * mask if training else disc_loss
+        stats = dict(discriminator_total_loss=loss, discriminator_loss=disc_loss)
+        if pit:
+            with torch.no_grad():
+                real_aug = phase_aug(orig, generator)
+            aug_outs = discriminator(real_aug)
+            pit_losses = []
+            for (r_logits, r_fmap), (a_logits, a_fmap) in zip(real_outs, aug_outs):
+                fls = [(r.float() - a.float()).abs().mean()
+                       for i, (r, a) in enumerate(zip(r_fmap, a_fmap)) if i >= cfg.feat_match_layer_start]
+                pit_losses.append((r_logits - a_logits).abs().mean()
+                                  + torch.stack(fls).mean() * cfg.pit_feat_loss_weight)
+            pit_disc_loss = torch.stack(pit_losses).mean()
+            if training:
+                pit_disc_loss = pit_disc_loss * mask
+            loss = loss + pit_disc_loss * cfg.pit_disc_loss_weight
+            stats.update(discriminator_total_loss=loss, pit_disc_loss=pit_disc_loss)
+        stats = {k: v.detach() for k, v in stats.items()}
         return loss, dict(stats=stats, real=orig, fake=fake)
 
 

@@ -39,7 +39,7 @@ from funcodec_tpu_torch.ops.conv import ConvSpec, SConv1d, make_conv
 from funcodec_tpu_torch.ops.resblock_kernel import fused_resblock_tgn
 from funcodec_tpu_torch.ops.rnn import SLSTM
 
-Layer = Tuple[str, Any]  # kind in {conv, act, snake, lstm, tfm, resblock}
+Layer = Tuple[str, Any]  # kind in {conv, act, snake, lstm, tfm, resblock, squeeze, unsqueeze}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -258,12 +258,32 @@ class LayerStack(nn.Sequential):
 
 
 class Snake(nn.Module):
+    """alpha at the reference's (1, C, 1), broadcast over every axis after
+    the channels (time, or freq and time)."""
+
     def __init__(self, channels: int, *, device):
         super().__init__()
         self.alpha = nn.Parameter(torch.ones(1, channels, 1, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return act_ops.snake(x, self.alpha.to(x.dtype))
+        alpha = self.alpha.reshape(1, -1, *([1] * (x.dim() - 2)))
+        return act_ops.snake(x, alpha.to(x.dtype))
+
+
+class FreqSqueeze(nn.Module):
+    """(B, C, 1, T) -> (B, C, T): the fully downsampled freq axis dropped
+    before the 2D encoder's sequence model (the reference's ReshapeModule)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        assert x.shape[2] == 1, x.shape
+        return x.squeeze(2)
+
+
+class FreqUnsqueeze(nn.Module):
+    """(B, C, T) -> (B, C, 1, T), the 2D decoder's way back to freq x time."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.unsqueeze(2)
 
 
 class SEANetResnetBlock(nn.Module):
@@ -316,6 +336,10 @@ def make_layer(kind: str, spec, *, device, generator: torch.Generator) -> nn.Mod
         return SEANetResnetBlock(spec, device=device, generator=generator)
     if kind == "tfm":
         return SeqTransformer(spec, device=device, generator=generator)
+    if kind == "squeeze":
+        return FreqSqueeze()
+    if kind == "unsqueeze":
+        return FreqUnsqueeze()
     raise ValueError(kind)
 
 

@@ -1,19 +1,24 @@
-"""Streamable 1D convolutions for SEANet stacks (port of funcodec_tpu/ops/conv.py).
+"""Streamable 1D and 2D convolutions for SEANet stacks (port of funcodec_tpu/ops/conv.py).
 
-Plain functions on tensors (``apply_sconv1d``, ``apply_sconv_transpose1d``)
-plus the ``nn.Module``s that own the weights under the reference FunCodec
-state_dict names: ``SConv1d.conv.conv.weight``, ``SConv1d.conv.norm.weight``,
-``SConvTranspose1d.convtr.convtr.weight``, ...
+Plain functions on tensors (``apply_sconv1d``, ``apply_sconv_transpose1d``,
+``apply_sconv2d``, ``apply_sconv_transpose2d``) plus the ``nn.Module``s
+that own the weights under the reference FunCodec state_dict names:
+``SConv1d.conv.conv.weight``, ``SConv1d.conv.norm.weight``,
+``SConvTranspose1d.convtr.convtr.weight``, and the same under ``SConv2d``
+and ``SConvTranspose2d``.
 
-Layout is torch's (B, C, T). Weights are torch's own: (Cout, Cin/g, K) for
-a forward conv, (Cin, Cout/g, K) for a transposed one, so a released
-checkpoint loads with plain ``load_state_dict``.
+Layout is torch's (B, C, T) for 1D and (B, C, F, T) for 2D (freq, time).
+Weights are torch's own: (Cout, Cin/g, K...) for a forward conv,
+(Cin, Cout/g, K...) for a transposed one, so a released checkpoint loads
+with plain ``load_state_dict``.
 
-Only the 1D subset with norms ``none``, ``weight_norm`` and
-``time_group_norm`` is ported; ``layer_norm`` and the 2D streamable convs
-come with slice C of ROADMAP.md. A weight-normed layer holds the reference
+Norms: ``none``, ``weight_norm``, ``time_group_norm`` (GroupNorm(1, C) over
+C and every spatial axis) and ``layer_norm`` (a LayerNorm over the channels
+at each position). A weight-normed layer holds the reference
 ``weight_g``/``weight_v`` and computes its weight with ``weight_norm_fuse``,
-the one fusion the discriminator's 2D convs share.
+the one fusion the discriminator's 2D convs share. The 2D convs run on
+cuDNN (``F.conv2d`` / ``F.conv_transpose2d``): their JAX counterparts are
+XLA convs, outside any Pallas kernel.
 
 ``FUSED_STRIDE1`` routes each stride-1 conv with K > 1 (and, through
 ``apply_sconv1d_act``, an ELU right before it) to the fused pad + conv
@@ -27,7 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -38,12 +43,13 @@ from funcodec_tpu_torch.ops.pad import (
     conv_padding_total,
     extra_padding_for_conv1d,
     pad1d_time,
+    pad2d_freq_time,
     split_padding,
     unpad1d_time,
+    unpad2d_freq_time,
 )
 
 CONV_NORMS = ("none", "weight_norm", "time_group_norm", "layer_norm")
-PORTED_NORMS = ("none", "weight_norm", "time_group_norm")
 
 # The fused stride-1 conv kernel (csrc/conv1d_s1.cu): one read of x and one
 # write of y per layer, the pad and a preceding ELU done on load.
@@ -54,15 +60,23 @@ FUSED_STRIDE1 = False
 FUSED_RESBLOCK = False
 
 
+def as_pair(x) -> Tuple[int, int]:
+    """A (freq, time) pair from a pair or one int for both."""
+    if isinstance(x, (tuple, list)):
+        return (int(x[0]), int(x[1]))
+    return (int(x), int(x))
+
+
 @dataclasses.dataclass(frozen=True)
 class ConvSpec:
-    """Static configuration of one streamable 1D conv layer."""
+    """Static configuration of one streamable conv layer: 1D with int
+    kernel_size / stride / dilation, 2D with (freq, time) pairs."""
 
     in_channels: int
     out_channels: int
-    kernel_size: int
-    stride: int = 1
-    dilation: int = 1
+    kernel_size: Union[int, Tuple[int, int]]
+    stride: Union[int, Tuple[int, int]] = 1
+    dilation: Union[int, Tuple[int, int]] = 1
     groups: int = 1
     bias: bool = True
     causal: bool = False
@@ -71,16 +85,15 @@ class ConvSpec:
     # transposed-conv only:
     transposed: bool = False
     trim_right_ratio: float = 1.0
+    # SConvTranspose2d only: ((freq_l, freq_r), (time_l, time_r)) output padding kept
+    out_padding: Tuple[Tuple[int, int], Tuple[int, int]] = ((0, 0), (0, 0))
 
     def __post_init__(self):
         assert self.norm in CONV_NORMS, self.norm
 
-
-def check_norm_ported(norm: str) -> None:
-    if norm not in PORTED_NORMS:
-        raise NotImplementedError(
-            f"conv norm {norm!r} is not ported yet (ROADMAP.md slice C, item 16)"
-        )
+    @property
+    def ndim(self) -> int:
+        return 2 if isinstance(self.kernel_size, (tuple, list)) else 1
 
 
 def weight_norm_fuse(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -99,14 +112,18 @@ def apply_post_norm(
     norm_scale: Optional[torch.Tensor],
     norm_bias: Optional[torch.Tensor],
 ) -> torch.Tensor:
-    """time_group_norm is GroupNorm(1, C) over channels and time per sample,
-    with its statistics in fp32 and the result cast back to y's dtype."""
-    check_norm_ported(spec.norm)
+    """time_group_norm is GroupNorm(1, C) over the channels and every
+    spatial axis per sample; layer_norm a LayerNorm over the channels (dim 1)
+    at each position. Both take their statistics in fp32 and cast the
+    result back to y's dtype."""
     if spec.norm == "time_group_norm":
         yn = F.group_norm(
             y.float(), 1, norm_scale.float(), norm_bias.float(), eps=1e-5
         )
         return yn.to(y.dtype)
+    if spec.norm == "layer_norm":
+        yn = F.layer_norm(y.float().movedim(1, -1), (y.shape[1],), norm_scale.float(), norm_bias.float(), eps=1e-5)
+        return yn.movedim(-1, 1).to(y.dtype)
     return y
 
 
@@ -189,6 +206,79 @@ def apply_sconv_transpose1d(
     return unpad1d_time(y, (padding_left, padding_right))
 
 
+def apply_sconv2d(
+    spec: ConvSpec,
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    norm_scale: Optional[torch.Tensor] = None,
+    norm_bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """SConv2d on (B, C, F, T). The freq axis is always padded non-causally
+    (the odd sample on the left). The time axis takes the extra padding
+    that fills the last window on the right when causal, but on the LEFT
+    when not (unlike SConv1d), as the reference does."""
+    assert not spec.transposed
+    (kf, kt), (sf, st), (df, dt) = as_pair(spec.kernel_size), as_pair(spec.stride), as_pair(spec.dilation)
+    pt_f = conv_padding_total(kf, sf, df)
+    pt_t = conv_padding_total(kt, st, dt)
+    extra_t = extra_padding_for_conv1d(x.shape[-1], kt, st, pt_t)
+    freq_after = pt_f // 2
+    if spec.causal:
+        time_before, time_after = pt_t, extra_t
+    else:
+        time_after = pt_t // 2
+        time_before = pt_t - time_after + extra_t
+    x = pad2d_freq_time(x, (time_before, time_after), (pt_f - freq_after, freq_after), mode=spec.pad_mode)
+    y = F.conv2d(
+        x,
+        weight.to(x.dtype),
+        None if bias is None else bias.to(x.dtype),
+        stride=(sf, st),
+        dilation=(df, dt),
+        groups=spec.groups,
+    )
+    return apply_post_norm(spec, y, norm_scale, norm_bias)
+
+
+def apply_sconv_transpose2d(
+    spec: ConvSpec,
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    norm_scale: Optional[torch.Tensor] = None,
+    norm_bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """SConvTranspose2d on (B, C, F, T): output (F-1)*sf + kf by (T-1)*st + kt,
+    then the fixed paddings kf - sf and kt - st are trimmed (freq
+    non-causally, time per causal / trim_right_ratio), less the
+    ``out_padding`` kept on each side."""
+    assert spec.transposed
+    (kf, kt), (sf, st) = as_pair(spec.kernel_size), as_pair(spec.stride)
+    pt_f, pt_t = kf - sf, kt - st
+    y = F.conv_transpose2d(
+        x,
+        weight.to(x.dtype),
+        None if bias is None else bias.to(x.dtype),
+        stride=(sf, st),
+        groups=spec.groups,
+    )
+    y = apply_post_norm(spec, y, norm_scale, norm_bias)
+    (f_out_l, f_out_r), (t_out_l, t_out_r) = spec.out_padding
+    pad_f_right = pt_f // 2
+    pad_f_left = pt_f - pad_f_right
+    if spec.causal:
+        pad_t_right = math.ceil(pt_t * spec.trim_right_ratio)
+    else:
+        pad_t_right = pt_t // 2
+    pad_t_left = pt_t - pad_t_right
+    return unpad2d_freq_time(
+        y,
+        (max(pad_t_left - t_out_l, 0), max(pad_t_right - t_out_r, 0)),
+        (max(pad_f_left - f_out_l, 0), max(pad_f_right - f_out_r, 0)),
+    )
+
+
 def _uniform_(t: torch.Tensor, bound: float, generator: torch.Generator) -> None:
     with torch.no_grad():
         t.uniform_(-bound, bound, generator=generator)
@@ -210,21 +300,26 @@ def layer_weight(layer: nn.Module) -> torch.Tensor:
     return layer.weight
 
 
+_CONV_CLASSES = {(1, False): nn.Conv1d, (1, True): nn.ConvTranspose1d,
+                 (2, False): nn.Conv2d, (2, True): nn.ConvTranspose2d}
+
+
 class _NormConv(nn.Module):
-    """A conv and its post-norm, named like the reference NormConv1d
-    (``.conv``, ``.norm``) or NormConvTranspose1d (``.convtr``, ``.norm``).
+    """A conv and its post-norm, named like the reference NormConv1d/2d
+    (``.conv``, ``.norm``) or NormConvTranspose1d/2d (``.convtr``, ``.norm``).
 
     Init is torch's Conv default (kaiming_uniform(a=sqrt(5)): U(+-1/sqrt(fan_in))
     for weight and bias), drawn from the explicit `generator`. With
     ``weight_norm`` the inner layer holds ``weight_v`` (that draw) and
-    ``weight_g`` (its norm, shaped (dim 0, 1, 1)) in place of ``weight``.
+    ``weight_g`` (its norm, shaped (dim 0, 1, ...)) in place of ``weight``.
+    time_group_norm keeps an ``nn.GroupNorm(1, C)``, layer_norm an
+    ``nn.LayerNorm(C)``, each at ``.norm``.
     """
 
     def __init__(self, spec: ConvSpec, *, device, generator: torch.Generator):
         super().__init__()
-        check_norm_ported(spec.norm)
         self.transposed = spec.transposed
-        cls = nn.ConvTranspose1d if spec.transposed else nn.Conv1d
+        cls = _CONV_CLASSES[(spec.ndim, spec.transposed)]
         layer = cls(
             spec.in_channels,
             spec.out_channels,
@@ -235,8 +330,8 @@ class _NormConv(nn.Module):
             bias=spec.bias,
             device=device,
         )
-        # torch's fan_in: weight.size(1) * K for both conv kinds
-        bound = 1.0 / math.sqrt(layer.weight.shape[1] * spec.kernel_size)
+        # torch's fan_in: weight.size(1) * prod(K) for both conv kinds
+        bound = 1.0 / math.sqrt(layer.weight[0].numel())
         _uniform_(layer.weight, bound, generator)
         if layer.bias is not None:
             _uniform_(layer.bias, bound, generator)
@@ -245,6 +340,8 @@ class _NormConv(nn.Module):
         setattr(self, "convtr" if spec.transposed else "conv", layer)
         if spec.norm == "time_group_norm":
             self.norm = nn.GroupNorm(1, spec.out_channels, eps=1e-5, device=device)
+        elif spec.norm == "layer_norm":
+            self.norm = nn.LayerNorm(spec.out_channels, eps=1e-5, device=device)
         else:
             self.norm = nn.Identity()
 
@@ -256,7 +353,7 @@ class _NormConv(nn.Module):
         return layer_weight(self.layer)
 
     def norm_params(self) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
-        if isinstance(self.norm, nn.GroupNorm):
+        if isinstance(self.norm, (nn.GroupNorm, nn.LayerNorm)):
             return self.norm.weight, self.norm.bias
         return None, None
 
@@ -266,7 +363,7 @@ class SConv1d(nn.Module):
 
     def __init__(self, spec: ConvSpec, *, device, generator: torch.Generator):
         super().__init__()
-        assert not spec.transposed
+        assert not spec.transposed and spec.ndim == 1
         self.spec = spec
         self.conv = _NormConv(spec, device=device, generator=generator)
 
@@ -299,6 +396,38 @@ class SConvTranspose1d(nn.Module):
         )
 
 
+class SConv2d(nn.Module):
+    """Streamable conv2d on (B, C, F, T); weights at ``.conv.conv`` / ``.conv.norm``.
+    Not an SConv1d: the fused 1D kernels never take it."""
+
+    def __init__(self, spec: ConvSpec, *, device, generator: torch.Generator):
+        super().__init__()
+        assert not spec.transposed and spec.ndim == 2
+        self.spec = spec
+        self.conv = _NormConv(spec, device=device, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = self.conv
+        return apply_sconv2d(self.spec, x, c.weight(), c.layer.bias, *c.norm_params())
+
+
+class SConvTranspose2d(nn.Module):
+    """Streamable transposed conv2d; weights at ``.convtr.convtr`` / ``.convtr.norm``."""
+
+    def __init__(self, spec: ConvSpec, *, device, generator: torch.Generator):
+        super().__init__()
+        assert spec.transposed and spec.ndim == 2
+        self.spec = spec
+        self.convtr = _NormConv(spec, device=device, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = self.convtr
+        return apply_sconv_transpose2d(self.spec, x, c.weight(), c.layer.bias, *c.norm_params())
+
+
+_SCONV_CLASSES = {(1, False): SConv1d, (1, True): SConvTranspose1d,
+                  (2, False): SConv2d, (2, True): SConvTranspose2d}
+
+
 def make_conv(spec: ConvSpec, *, device, generator: torch.Generator) -> nn.Module:
-    cls = SConvTranspose1d if spec.transposed else SConv1d
-    return cls(spec, device=device, generator=generator)
+    return _SCONV_CLASSES[(spec.ndim, spec.transposed)](spec, device=device, generator=generator)

@@ -1,8 +1,9 @@
 """Streamable-convolution padding arithmetic (port of funcodec_tpu/ops/pad.py).
 
 The integer helpers are identical to the JAX ones. The tensor helpers work
-on torch's (B, C, T) layout: time is the LAST axis here, where the JAX
-package keeps it on axis 1 of (B, T, C).
+on torch's (B, C, T) and (B, C, F, T) layouts: time is the LAST axis here,
+where the JAX package keeps it on axis 1 of (B, T, C) and axis 2 of
+(B, F, T, C).
 """
 
 from __future__ import annotations
@@ -75,3 +76,41 @@ def unpad1d_time(x: torch.Tensor, paddings: Tuple[int, int]) -> torch.Tensor:
     assert padding_left >= 0 and padding_right >= 0, paddings
     assert (padding_left + padding_right) <= x.shape[-1]
     return x[..., padding_left : x.shape[-1] - padding_right]
+
+
+def pad2d_freq_time(
+    x: torch.Tensor,
+    padding_time: Tuple[int, int],
+    padding_freq: Tuple[int, int],
+    mode: str = "zero",
+) -> torch.Tensor:
+    """Pad a (B, C, F, T) tensor on freq (dim 2) and time (dim 3).
+
+    ``reflect`` applies the small-input fixup of pad1d_time on both axes:
+    an axis no longer than its largest pad is zero-extended on the right
+    first, and the extension dropped after the reflection. Every other mode
+    zero-pads, as the JAX version does.
+    """
+    assert x.dim() == 4, x.shape
+    assert min(padding_time) >= 0 and min(padding_freq) >= 0, (padding_time, padding_freq)
+    pads = (padding_time[0], padding_time[1], padding_freq[0], padding_freq[1])
+    if mode != "reflect":
+        return F.pad(x, pads)
+    f_len, t_len = x.shape[2], x.shape[3]
+    extra_t = max(padding_time) - t_len + 1 if t_len <= max(padding_time) else 0
+    extra_f = max(padding_freq) - f_len + 1 if f_len <= max(padding_freq) else 0
+    if extra_t or extra_f:
+        x = F.pad(x, (0, extra_t, 0, extra_f))
+    padded = F.pad(x, pads, mode="reflect")
+    return padded[:, :, : padded.shape[2] - extra_f, : padded.shape[3] - extra_t]
+
+
+def unpad2d_freq_time(
+    x: torch.Tensor,
+    padding_time: Tuple[int, int],
+    padding_freq: Tuple[int, int],
+) -> torch.Tensor:
+    """Remove (left, right) padding from the freq (dim 2) and time (dim 3) axes."""
+    (tl, tr), (fl, fr) = padding_time, padding_freq
+    assert min(padding_time) >= 0 and min(padding_freq) >= 0
+    return x[:, :, fl : x.shape[2] - fr, tl : x.shape[3] - tr]

@@ -1,13 +1,14 @@
-"""STFT and mel filterbanks (port of funcodec_tpu/ops/stft.py: hann_window,
-frame_signal, stft, mel_filterbank, audio_to_mel).
+"""STFT, ISTFT, PhaseAug and mel filterbanks (port of funcodec_tpu/ops/stft.py:
+hann_window, frame_signal, stft, istft, mel_filterbank, audio_to_mel,
+phase_aug).
 
-``stft`` is ``torch.stft`` (cuFFT on the card) with torchaudio's window
-normalization; the JAX package's windowed-DFT matmuls were a TPU workaround
-for XLA's FFT. The spectra are computed in fp32 whatever the input's type.
-``mel_filterbank`` is a numpy copy of the JAX package's librosa-slaney
-reimplementation (the port imports nothing of that package).
-
-istft and phase_aug (FreqCodec) come with ROADMAP.md slice C.
+``stft`` and ``istft`` are ``torch.stft`` / ``torch.istft`` (cuFFT on the
+card) with torchaudio's window normalization; the JAX package's
+windowed-DFT matmuls were a TPU workaround for XLA's FFT. The spectra and
+the resynthesis are computed in fp32 whatever the input's type, and
+autograd differentiates through both. ``mel_filterbank`` is a numpy copy
+of the JAX package's librosa-slaney reimplementation (the port imports
+nothing of that package).
 """
 
 from __future__ import annotations
@@ -119,3 +120,74 @@ def audio_to_mel(
     if return_power_spec:
         return log_mel, torch.log10(torch.clamp(power, min=1e-5))
     return log_mel
+
+
+def istft(
+    spec: torch.Tensor,
+    n_fft: int,
+    hop_length: int,
+    win_length: Optional[int] = None,
+    center: bool = True,
+    length: Optional[int] = None,
+) -> torch.Tensor:
+    """Inverse STFT of complex (..., n_fft//2+1, n_frames) -> (..., T), fp32.
+
+    torch.istft over the periodic hann window: the windowed overlap-add of
+    each frame's inverse real DFT divided by the summed squared window, the
+    n_fft//2 samples of the center padding trimmed from each end, then cut
+    to `length` (the JAX version's semantics; torch.istft raises where the
+    envelope falls below 1e-11, which the JAX version clamps, and which no
+    hann window with hop <= win_length / 2 reaches inside the trimmed span).
+    """
+    win_length = win_length or n_fft
+    window = hann_window(win_length, device=spec.device)
+    lead = spec.shape[:-2]
+    flat = spec.to(torch.complex64).reshape(-1, *spec.shape[-2:])
+    out = torch.istft(flat, n_fft, hop_length, win_length, window, center=center, normalized=False,
+                      onesided=True, return_complex=False)
+    if length is not None:
+        out = out[..., :length]
+    return out.reshape(*lead, out.shape[-1])
+
+
+def phase_aug(
+    x: torch.Tensor,  # (B, T)
+    generator: Optional[torch.Generator] = None,
+    n_fft: int = 512,
+    hop_length: int = 160,
+    var: float = 6.0,
+    delta_max: float = 2.0,
+    cutoff: float = 0.05,
+    kernel_size: int = 128,
+    phi: Optional[torch.Tensor] = None,  # (B, n_fft//2+1) explicit rotation
+) -> torch.Tensor:
+    """PhaseAug (arXiv:2211.04610): rotate each frequency bin k of x's STFT
+    by phi(k) = mu(k) + delta * pi * k / (K - 1) and resynthesize, so |STFT|
+    is kept on the analysis grid. mu is N(0, var) noise low-passed along
+    frequency (a hann-windowed sinc of `kernel_size` taps, edge-padded,
+    'valid' convolution), delta ~ U(-delta_max, delta_max), both drawn from
+    `generator` unless `phi` is given. DC and Nyquist stay real. Returns x's
+    shape and dtype; the transform runs in fp32.
+
+    The draws come from a torch.Generator, not jax.random, so the two
+    packages agree only through an explicit `phi`.
+    """
+    B, T = x.shape
+    K = n_fft // 2 + 1
+    if phi is None:
+        dev = x.device
+        mu = math.sqrt(var) * torch.randn(B, K, generator=generator, device=dev)
+        n = torch.arange(kernel_size, dtype=torch.float32, device=dev) - (kernel_size - 1) / 2.0
+        kern = 2 * cutoff * torch.sinc(2 * cutoff * n) * hann_window(kernel_size, device=dev)
+        kern = kern / kern.sum()
+        pad = (kernel_size - 1) // 2
+        mu_p = F.pad(mu[:, None], (pad, kernel_size - 1 - pad), mode="replicate")
+        mu = F.conv1d(mu_p, kern.flip(0)[None, None])[:, 0]  # np.convolve flips the kernel
+        delta = torch.rand(B, 1, generator=generator, device=dev) * (2 * delta_max) - delta_max
+        phi = mu + delta * math.pi * (torch.arange(K, dtype=torch.float32, device=dev)[None, :] / (K - 1))
+    phi = phi.float().clone()
+    phi[:, 0] = 0.0
+    phi[:, -1] = 0.0
+    spec = stft(x, n_fft, hop_length)
+    rot = torch.polar(torch.ones_like(phi), phi)[:, :, None]
+    return istft(spec * rot, n_fft, hop_length, length=T).to(x.dtype)

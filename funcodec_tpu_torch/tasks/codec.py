@@ -2,8 +2,9 @@
 
 The same config dict or yaml that builds the JAX model builds this one, so
 one file drives both packages and a released checkpoint's config.yaml
-round-trips. Only the ``encodec`` model with the 1D SEANet encoder/decoder
-and the ``costume_quantizer`` is ported, with the MS-STFT discriminator.
+round-trips. Ported: the ``encodec`` and ``freq_codec`` models, the 1D and
+2D SEANet encoders/decoders (``encodec_seanet_{encoder,decoder}[_2d]``)
+and the ``costume_quantizer``, with the MS-STFT discriminator.
 """
 
 from __future__ import annotations
@@ -15,8 +16,10 @@ import torch
 
 from funcodec_tpu_torch.models.discriminators import MultipleDiscriminator
 from funcodec_tpu_torch.models.encodec import Encodec, EncodecConfig
+from funcodec_tpu_torch.models.freqcodec import FreqCodec, FreqCodecConfig
 from funcodec_tpu_torch.models.quantizer import Quantizer, QuantizerConfig
 from funcodec_tpu_torch.models.seanet import SEANetConfig, SEANetDecoder, SEANetEncoder
+from funcodec_tpu_torch.models.seanet2d import SEANetConfig2d, SEANetDecoder2d, SEANetEncoder2d
 
 
 def _freeze(v):
@@ -51,8 +54,8 @@ def build_seanet_config(conf: Dict[str, Any], defaults: Dict[str, Any]) -> SEANe
     return SEANetConfig(**merged)
 
 
-def _require(name: str, value: str, supported: str, where: str) -> None:
-    if value != supported:
+def _require(name: str, value: str, supported, where: str) -> None:
+    if value not in supported:
         raise NotImplementedError(f"{name} {value!r} is not ported yet ({where})")
 
 
@@ -100,31 +103,49 @@ def build_codec_model(
     model_conf = dict(config.get("model_conf", {}))
     odim = model_conf.get("odim", 128)
 
-    _require("encoder", config.get("encoder", "encodec_seanet_encoder"),
-             "encodec_seanet_encoder", "ROADMAP.md slice C")
-    _require("decoder", config.get("decoder", "encodec_seanet_decoder"),
-             "encodec_seanet_decoder", "ROADMAP.md slice C")
+    encoder_name = config.get("encoder", "encodec_seanet_encoder")
+    decoder_name = config.get("decoder", "encodec_seanet_decoder")
+    model_name = config.get("model", "encodec")
+    _require("encoder", encoder_name, ("encodec_seanet_encoder", "encodec_seanet_encoder_2d"), "ROADMAP.md slice C")
+    _require("decoder", decoder_name, ("encodec_seanet_decoder", "encodec_seanet_decoder_2d"), "ROADMAP.md slice C")
     _require("quantizer", config.get("quantizer", "costume_quantizer"),
-             "costume_quantizer", "ROADMAP.md slice C")
-    _require("model", config.get("model", "encodec"), "encodec", "ROADMAP.md slice C")
+             ("costume_quantizer",), "ROADMAP.md slice C")
+    _require("model", model_name, ("encodec", "freq_codec"), "ROADMAP.md slice C, item 17")
 
-    enc_cfg = build_seanet_config(
-        config.get("encoder_conf", {}), dict(input_size=input_size, dimension=odim)
-    )
-    dec_conf = dict(config.get("decoder_conf", {}))
-    out_channels = dec_conf.pop("channels", input_size)
-    dec_cfg = build_seanet_config(dec_conf, dict(input_size=out_channels, dimension=odim))
+    enc_conf = config.get("encoder_conf", {})
+    if encoder_name == "encodec_seanet_encoder_2d":
+        encoder = SEANetEncoder2d(SEANetConfig2d.from_conf(enc_conf, input_size=input_size, dimension=odim),
+                                  device=device, generator=generator)
+    else:
+        enc_cfg = build_seanet_config(enc_conf, dict(input_size=input_size, dimension=odim))
+        encoder = SEANetEncoder(enc_cfg, device=device, generator=generator)
 
     q_kw = _filter_fields(QuantizerConfig, config.get("quantizer_conf", {}))
     q_kw.setdefault("input_size", odim)
-
-    ec_kw = _filter_fields(EncodecConfig, model_conf)
-    ec_kw["input_size"] = input_size
-
-    encoder = SEANetEncoder(enc_cfg, device=device, generator=generator)
     quantizer = Quantizer(QuantizerConfig(**q_kw), device=device, generator=generator)
-    decoder = SEANetDecoder(dec_cfg, device=device, generator=generator)
-    model = Encodec(EncodecConfig(**ec_kw), encoder, quantizer, decoder)
+
+    dec_conf = dict(config.get("decoder_conf", {}))
+    out_channels = dec_conf.pop("channels", input_size)
+    if decoder_name == "encodec_seanet_decoder_2d":
+        decoder = SEANetDecoder2d(SEANetConfig2d.from_conf(dec_conf, input_size=out_channels, dimension=odim),
+                                  device=device, generator=generator)
+    else:
+        dec_cfg = build_seanet_config(dec_conf, dict(input_size=out_channels, dimension=odim))
+        decoder = SEANetDecoder(dec_cfg, device=device, generator=generator)
+
+    if model_name == "freq_codec":
+        fc_kw = _filter_fields(FreqCodecConfig, model_conf)
+        fc_kw["input_size"] = input_size
+        domain_conf = model_conf.get("domain_conf", {}) or {}
+        if "n_fft" in domain_conf:
+            fc_kw["domain_n_fft"] = domain_conf["n_fft"]
+        if "hop_length" in domain_conf:
+            fc_kw["domain_hop_length"] = domain_conf["hop_length"]
+        model = FreqCodec(FreqCodecConfig(**fc_kw), encoder, quantizer, decoder)
+    else:
+        ec_kw = _filter_fields(EncodecConfig, model_conf)
+        ec_kw["input_size"] = input_size
+        model = Encodec(EncodecConfig(**ec_kw), encoder, quantizer, decoder)
     discriminator = build_discriminator(config.get("discriminator_conf"), device=device, generator=generator)
     return model, discriminator
 

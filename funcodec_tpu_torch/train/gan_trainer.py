@@ -303,7 +303,8 @@ class GANCodecTrainer:
                 # the eval reconstruction is deterministic: one encode ->
                 # RVQ -> decode serves both turns' stats
                 _, dout = model._discriminator_losses(
-                    disc, speech.to(fake.dtype), fake, zero, training=False
+                    disc, speech.to(fake.dtype), fake, zero, training=False,
+                    generator=step_generator(self.device, seed, vi),
                 )
                 sub.register(
                     fetch_stats({**gout["stats"], **dout["stats"]}),

@@ -311,10 +311,13 @@ def generator_grads(model: nn.Module, discriminator: nn.Module, speech: torch.Te
     return out, _grads(loss, params)
 
 
-def _zero_disc_stats(device) -> Dict[str, torch.Tensor]:
+def _zero_disc_stats(device, pit: bool = False) -> Dict[str, torch.Tensor]:
     z = torch.zeros((), device=device)
-    return dict(discriminator_total_loss=z, discriminator_loss=z, discriminator_grad_norm=z,
-                discriminator_nonfinite_skip=z)
+    stats = dict(discriminator_total_loss=z, discriminator_loss=z, discriminator_grad_norm=z,
+                 discriminator_nonfinite_skip=z)
+    if pit:
+        stats["pit_disc_loss"] = z
+    return stats
 
 
 def _zero_gen_stats(device) -> Dict[str, torch.Tensor]:
@@ -349,6 +352,8 @@ def make_gan_train_step(
     first discriminator (funcodec_tpu train/step.py shared_train_step).
     `generator` is the torch.Generator of the quantizer's draws.
     """
+
+    pit = bool(getattr(model.cfg, "phase_invariant_training", False))
 
     def masters(module: nn.Module) -> Tensors:
         return list(module.parameters())
@@ -401,7 +406,7 @@ def make_gan_train_step(
         if state.step % disc_train_interval == 0:
             disc_turn(state, speech, generator, stats)
         else:
-            stats.update(_zero_disc_stats(speech.device))
+            stats.update(_zero_disc_stats(speech.device, pit))
         if state.step % gen_train_interval == 0:
             apply_generator(state, *generator_grads(model, discriminator, speech, generator, compute_dtype), True,
                             stats)
@@ -419,7 +424,7 @@ def make_gan_train_step(
         if state.step % disc_train_interval == 0:
             loss, d_out = model._discriminator_losses(
                 _disc_fn(discriminator, cast_params(discriminator)), cast_floating(speech.float(), compute_dtype),
-                cast_floating(g_out["fake"].detach(), compute_dtype), state.gen_loss_carry)
+                cast_floating(g_out["fake"].detach(), compute_dtype), state.gen_loss_carry, generator=generator)
             d_params = masters(discriminator)
             grads = _grads(loss, d_params)
             state.opt_state_d, norm, finite = apply_updates_if_finite(optimizer_d, grads, state.opt_state_d,
@@ -430,7 +435,7 @@ def make_gan_train_step(
             stats["discriminator_grad_norm"] = norm
             stats["discriminator_nonfinite_skip"] = _skip(finite, norm.device)
         else:
-            stats.update(_zero_disc_stats(speech.device))
+            stats.update(_zero_disc_stats(speech.device, pit))
         apply_generator(state, g_out, g_grads, state.step % gen_train_interval == 0, stats)
         add_codebook_health(stats)
         state.step += 1

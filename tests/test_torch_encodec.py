@@ -273,15 +273,30 @@ def test_flagship_yaml_param_count_matches_jax():
 @pytest.mark.parametrize(
     "section,key,value",
     [("encoder_conf", "seq_model", "transformer"), ("encoder_conf", "norm", "weight_norm"),
-     (None, "model", "freq_codec"), (None, "encoder", "encodec_seanet_encoder_2d")],
+     (None, "model", "freq_codec"), (None, "encoder", "encodec_seanet_encoder_2d"),
+     (None, "model", "codec_semantic_aug")],
 )
 def test_unported_options_raise(section, key, value):
     """Options of later slices raise. weight_norm raised until the training
     slice ported it: that case now builds weight-normed encoder convs; the
     transformer seq_model raised until LauraTTS serving ported the
-    transformer: that case now builds the bottleneck transformer."""
+    transformer: that case now builds the bottleneck transformer; the
+    freq_codec model and the 2D encoder raised until FreqCodec was ported:
+    those cases now build a FreqCodec and a 2D encoder (given the (freq,
+    time) ratio pairs a 2D encoder takes). codec_semantic_aug still raises."""
     config = _config()
     (config[section] if section else config)[key] = value
+    if value == "freq_codec":
+        from funcodec_tpu_torch.models.freqcodec import FreqCodec
+
+        tm, _ = tbuild(config, device="cpu")
+        assert isinstance(tm, FreqCodec) and tm.cfg.codec_domain == ("mag_phase", "mag_phase")
+        return
+    if value == "encodec_seanet_encoder_2d":
+        config["encoder_conf"]["ratios"] = [[4, 1], [2, 2]]
+        tm, _ = tbuild(config, device="cpu")
+        assert tm.state_dict()["encoder.model.0.conv.conv.weight"].dim() == 4
+        return
     if value == "weight_norm":
         tm, _ = tbuild(config, device="cpu")
         assert "encoder.model.0.conv.conv.weight_g" in tm.state_dict()

@@ -171,6 +171,11 @@ CONV_CASES = [
     # the streamed-weight heads at B = 2, causal
     (2, 512, 128, 103, 7, 1, True, "replicate", "elu", torch.bfloat16),
     (2, 128, 512, 300, 7, 1, False, "constant", "gelu", torch.bfloat16),
+    # FreqCodec's heads at T = 501 (odd: scalar loads, 8 in flight), and T % 4 == 2 (4-byte copies)
+    (2, 512, 128, 501, 7, 1, False, "reflect", "elu", torch.bfloat16),
+    (2, 128, 512, 501, 7, 1, False, "reflect", None, torch.bfloat16),
+    (2, 64, 32, 1002, 3, 1, False, "reflect", "elu", torch.bfloat16),
+    (2, 128, 512, 502, 7, 1, True, "replicate", None, torch.bfloat16),
 ]
 
 

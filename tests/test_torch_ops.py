@@ -196,12 +196,18 @@ def test_snake_and_unknown_activation():
 
 @pytest.mark.parametrize("norm", ["weight_norm", "layer_norm"])
 def test_unported_norms_raise(norm):
-    """layer_norm (ROADMAP.md slice C) raises; weight_norm, which raised until
-    the training slice ported it, builds with the reference weight_g/weight_v."""
+    """Both norms raised until their slices ported them: weight_norm (the
+    training slice) builds with the reference weight_g/weight_v, layer_norm
+    (FreqCodec) with the reference ConvLayerNorm's norm.weight/norm.bias
+    and normalizes over the channels at each step; a norm outside the
+    registry still fails."""
     spec = tconv.ConvSpec(2, 2, 3, norm=norm)
+    m = tconv.SConv1d(spec, device="cpu", generator=torch.Generator())
     if norm == "weight_norm":
-        m = tconv.SConv1d(spec, device="cpu", generator=torch.Generator())
         assert set(m.state_dict()) == {"conv.conv.weight_g", "conv.conv.weight_v", "conv.conv.bias"}
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tconv.SConv1d(spec, device="cpu", generator=torch.Generator())
+    else:
+        assert set(m.state_dict()) == {"conv.conv.weight", "conv.conv.bias", "conv.norm.weight", "conv.norm.bias"}
+        y = m(torch.randn(3, 2, 9))
+        torch.testing.assert_close(y.mean(dim=1), torch.zeros(3, 9), atol=1e-5, rtol=0)
+    with pytest.raises(AssertionError):
+        tconv.ConvSpec(2, 2, 3, norm="batch_norm")
