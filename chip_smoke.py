@@ -4,8 +4,9 @@
     python3 chip_smoke.py --profile   # checks, build, then a torch.profiler table of
                                       # one B = 64 x 10 s request per serving path,
                                       # of one bf16 shared training step (B = 16), of
-                                      # one 16-slot LauraTTS session segment and of
-                                      # one FreqCodec gr8 bf16 request (B = 64)
+                                      # one 16-slot LauraTTS session segment, of
+                                      # one FreqCodec gr8 bf16 request (B = 64) and
+                                      # of one bf16 Laura training step
                                       # (tables also in build/chip_smoke/)
 
 Drives the port's main paths on the flagship (EnCodec 16 kHz nq32ds320,
@@ -15,7 +16,8 @@ train step (``train.step.make_gan_train_step``) with its discriminator, and
 the training loop behind ``cli/codec_train``; then LauraTTS serving on the
 shipped LauraTTS topology through ``cli/text2audio_inference``; then
 FreqCodec, the second codec family, served and trained at its released
-gr8 and gr1 topologies.
+gr8 and gr1 topologies; then the LibriTTS Laura recipe (tokens, LM
+training through ``cli/text2audio_train``, synthesis).
 In phases that each raise on failure:
 
 1. checks: a CUDA card is present; TF32 is turned off for fp32 matmuls and
@@ -139,12 +141,35 @@ In phases that each raise on failure:
    training at B = 16 x 2.56 s (exact launches), then ms a step.
    ``--profile`` adds one gr8 bf16 main-path request (the share of cuDNN's
    2D convs and of cuFFT).
+12. laura: the LibriTTS Laura recipe (egs/LibriTTS/text2speech_laura/run.sh)
+   end to end under build/chip_smoke/laura/, on a seeded corpus of 128 train
+   and 16 valid noise utterances of 2-8 s with a text line of seeded
+   phonemes each (12 a second, from the recipe's arpabet_tokens.txt).
+   Stage 1: cli/codec_inference --run_mod encode --batch_size 8 --bit_width
+   16000 --indices_save_type ark on the flagship (seeded, a .pth), bf16 with
+   the three flags, launches exact (the encode mode's RVQ is the exact fp32
+   scan: no rvq_encode), the valid split's SEANet kernel calls held against
+   their plain versions. Stage 2: cli/text2audio_train on the shipped LauraTTS
+   yaml at full width (88,395,778 parameters), fp32, 2 epochs at batch_bins
+   10240, the codebook grafted from the codec's .pth: the checkpoint files,
+   links and finite reporter.json, no codec kernel launch, the codebook
+   unchanged, every module moved; resumed to epoch 3 (the loaded state equal
+   to checkpoint.pth bit for bit, epochs 1-2 unchanged); held_out_token_nll
+   on the valid set; one fp32 forward and backward on the card against the
+   CPU (sampling ratio 0): the loss, stats and module gradient norms. The
+   bare step at batch_bins 10240 in fp32 and in bf16 over fp32 masters: ms,
+   training codec frames/s, peak memory, device kernels a step; the loop's
+   steady epoch against it, the checkpoint write, the validation wall.
+   Stage 3: cli/text2audio_inference --model_file exp/latest.pth on 4 lines,
+   one with a zero-shot prompt from the corpus, the three flags on: launches
+   exact, each codec kernel call held against its plain version.
+   ``--profile`` adds one bf16 training step at about batch_bins 10240.
 
 The line before the last is the card's name and power limit (nvidia-smi),
 the one before it a JSON object of the kernels (with each one's launches in
 the fused training configuration, in the trainer phase's two-epoch run, in
-the TTS phase's zero-shot request and in the FreqCodec main-path requests,
-and the backwards' times); the last
+the TTS phase's zero-shot request, in the FreqCodec main-path requests and
+in the Laura recipe's stages 1 and 3, and the backwards' times); the last
 line is
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
 """
@@ -2200,6 +2225,438 @@ def tts_phase(dev, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Laura training phase: the LibriTTS Laura recipe end to end
+# ---------------------------------------------------------------------------
+
+LAURA_DIR = OUT_DIR / "laura"
+LAURA_TOKENS = REPO / "egs/LibriTTS/text2speech_laura/conf/arpabet_tokens.txt"  # the recipe's 78-entry list
+LAURA_PARAMS = 88_395_778  # TTS_YAML with LAURA_TOKENS (84,201,474 trainable: all but the frozen codebook)
+LAURA_UTTS = {"train": 128, "valid": 16}
+LAURA_SECONDS = (2.0, 8.0)  # utterances of uniformly drawn length
+LAURA_PHONES_PER_S = 12
+LAURA_EPOCHS = 2
+LAURA_ENCODE_B = 8  # run.sh stage 1: --batch_size 8 --bit_width 16000
+# one batch of stage 1 (--run_mod encode): the encoder's kernels; the encode mode's RVQ search is the exact
+# fp32 scan in both packages, so no rvq_encode
+LAURA_ENCODE = {"conv1d_s1": 2, "resblock_tgn": 12, "resblock_tgn_finalize": 8, "rvq_encode": 0}
+LAURA_SYN_LINES = 4  # stage 3: text lines, the second with a zero-shot prompt from the valid corpus
+LAURA_CPU_UTTS = 2  # the card-against-CPU step's batch
+# card against CPU, fp32 with TF32 off, one forward and backward from the same weights and batch: the loss
+# and its stats differ by summation order (relative to each stat's scale, floor 1); an accuracy by at most
+# one position; each module's gradient norm relative
+LAURA_STAT_REL, LAURA_GRAD_REL = 1e-4, 1e-3
+LAURA_MODULES = ("text_encoder", "text_enc_out_layer", "token_embedding", "lm_embedding", "codec_lm",
+                 "codec_encoder", "codec_encoder_out_layer")
+
+
+def _laura_corpus(split: str, seed: int, phones) -> dict:
+    """Seeded noise utterances (wav.scp) and a text line of seeded phonemes for each: {key: samples}."""
+    rs = np.random.RandomState(seed)
+    seconds = rs.uniform(*LAURA_SECONDS, LAURA_UTTS[split])
+    lengths = _write_corpus(LAURA_DIR / split, seconds, SR, seed=seed + 1)
+    with open(LAURA_DIR / split / "text", "w") as f:
+        for (key, n), sec in zip(lengths.items(), seconds):
+            f.write(f"{key} " + " ".join(phones[i] for i in rs.randint(0, len(phones), round(LAURA_PHONES_PER_S * sec)))
+                    + "\n")
+    return lengths
+
+
+def laura_tokens(dev, lengths: dict) -> dict:
+    """Recipe stage 1: cli/codec_inference --run_mod encode on each split (bf16, the three flags), launches
+    exact; the valid split's SEANet kernel calls held against their plain versions; the ark's tokens."""
+    frames = {k: -(-n // 320) for k, n in lengths.items()}
+    out = dict(launches={}, wall_s={})
+    for split in ("train", "valid"):
+        n_batches = -(-LAURA_UTTS[split] // LAURA_ENCODE_B)
+        set_flags(MAIN_PATH)
+        with _recorded_seanet_calls() as calls:
+            _sync(dev)
+            reset_counts()
+            t0 = time.perf_counter()
+            cli.main(["--config_file", str(LAURA_DIR / "codec.yaml"), "--model_file", str(LAURA_DIR / "codec.pth"),
+                      "--output_dir", str(LAURA_DIR / f"tokens_{split}"), "--data_path_and_name_and_type",
+                      f"{LAURA_DIR / split / 'wav.scp'},speech,sound", "--run_mod", "encode", "--batch_size",
+                      str(LAURA_ENCODE_B), "--bit_width", "16000", "--indices_save_type", "ark", "--dtype",
+                      "bfloat16", "--device", str(dev)])
+            out["wall_s"][split] = time.perf_counter() - t0
+            counts = read_counts()
+        expect = {k: n_batches * v for k, v in LAURA_ENCODE.items()}
+        if counts != expect:
+            raise RuntimeError(f"laura stage 1 {split}: launches {counts}, expected {expect} ({n_batches} batches)")
+        out["launches"][split] = counts
+        if split == "valid":
+            out["max_abs_err"] = _held_calls(calls, "laura stage 1")
+            out["held_calls"] = len(calls)
+        del calls
+        ark = ArkScpReader(LAURA_DIR / f"tokens_{split}" / "indices.scp")
+        for key in (k for k in frames if k.startswith(split)):
+            tok = ark[key]
+            if tok.shape != (frames[key], 32) or tok.min() < 0 or tok.max() >= 1024 or (tok != np.round(tok)).any():
+                raise RuntimeError(f"laura stage 1 {split}: {key} tokens {tok.shape}, expected ({frames[key]}, 32)")
+    log(f"[laura] stage 1, cli/codec_inference --run_mod encode --batch_size {LAURA_ENCODE_B} --bit_width 16000 "
+        f"--indices_save_type ark, bf16 with the three flags: {LAURA_UTTS['train']} + {LAURA_UTTS['valid']} "
+        f"utterances in {out['wall_s']['train']:.2f} + {out['wall_s']['valid']:.2f} s; launches {out['launches']} "
+        f"exact ({LAURA_ENCODE} a batch: the encode mode's RVQ is the exact fp32 scan); the valid split's "
+        f"{out['held_calls']} SEANet kernel calls each within its limit of the plain version (max|err| "
+        f"{out['max_abs_err']})")
+    return out
+
+
+def _laura_args(dev, exp: Path, *extra) -> list:
+    return ["--config", str(TTS_YAML), "--output_dir", str(exp), "--train_text", str(LAURA_DIR / "train" / "text"),
+            "--train_codec", str(LAURA_DIR / "tokens_train" / "indices.scp"), "--valid_text",
+            str(LAURA_DIR / "valid" / "text"), "--valid_codec", str(LAURA_DIR / "tokens_valid" / "indices.scp"),
+            "--token_list", str(LAURA_TOKENS), "--token_type", "word", "--codec_init_param",
+            str(LAURA_DIR / "codec.pth"), "--codec_config", str(LAURA_DIR / "codec.yaml"), "--device", str(dev),
+            *extra]
+
+
+def _laura_model(dev, config, tokens):
+    """The model cli/text2audio_train builds (seed 0), the codec's codebooks grafted."""
+    from funcodec_tpu_torch.cli.text2audio_train import graft_codebooks
+    from funcodec_tpu_torch.tasks.text2audio import build_laura_model
+
+    model = build_laura_model(config, token_list=tokens, device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(0))
+    return graft_codebooks(model, str(LAURA_DIR / "codec.pth"))
+
+
+def _laura_batches(config, tokens, split: str):
+    """(dataset, length_batches at batch_bins, lengths) of a split, as cli/text2audio_train builds them."""
+    from funcodec_tpu_torch.data.dataset import CodecDataset
+    from funcodec_tpu_torch.data.sampler import length_batches
+    from funcodec_tpu_torch.data.text import Text2AudioPreprocessor
+
+    pre = Text2AudioPreprocessor(train=False, audio_max_duration=config["audio_max_duration"],
+                                 codec_token_rate=config["codec_token_rate"], token_list=tokens, token_type="word")
+    ds = CodecDataset([(str(LAURA_DIR / split / "text"), "text", "text"),
+                       (str(LAURA_DIR / f"tokens_{split}" / "indices.scp"), "codec", "kaldi_ark")], preprocess=pre)
+    lens = {u: len(ds[u][1]["codec"]) + len(ds[u][1]["text"]) for u in ds.uttids}
+    return ds, length_batches(ds.uttids, lens, config["batch_bins"]), lens
+
+
+def _collated(ds, keys):
+    from funcodec_tpu_torch.data.dataset import collate_fn
+
+    return collate_fn([ds[u] for u in keys], int_pad_value=-1)[1]
+
+
+def _module_moved(model, before: dict) -> dict:
+    """{top-level module: whether any of its parameters differs from `before` (a CPU state_dict)}."""
+    moved = {m: False for m in LAURA_MODULES}
+    for name, p in model.named_parameters():
+        top = name.split(".")[0]
+        if top in moved and not torch.equal(p.detach().cpu(), before[name]):
+            moved[top] = True
+    return moved
+
+
+def _check_laura_run(exp: Path, epochs: int, what: str) -> dict:
+    """The checkpoint contract's files and links and a finite reporter.json; returns its stats."""
+    missing = [n for n in ("checkpoint.pth", f"{epochs}epoch.pth", "reporter.json") if not (exp / n).exists()]
+    best = exp / "valid.loss.best.pth"
+    if missing or not (exp / "latest.pth").is_symlink() or not (best.is_symlink() and best.exists()):
+        raise RuntimeError(f"laura {what}: missing {missing} or links in {sorted(os.listdir(exp))}")
+    if os.readlink(exp / "latest.pth") != f"{epochs}epoch.pth":
+        raise RuntimeError(f"laura {what}: latest.pth points at {os.readlink(exp / 'latest.pth')}")
+    stats = json.loads((exp / "reporter.json").read_text())["stats"]
+    bad = [(e, ph, k) for e, phases in stats.items() for ph, kv in phases.items() for k, v in kv.items()
+           if not math.isfinite(v)]
+    if bad or set(stats) != {str(e) for e in range(1, epochs + 1)}:
+        raise RuntimeError(f"laura {what}: epochs {sorted(stats)}, stats not finite: {bad[:5]}")
+    return stats
+
+
+def laura_train(dev, config, tokens, embed: torch.Tensor, card: str) -> dict:
+    """Recipe stage 2: cli/text2audio_train on the shipped yaml at full width, fp32, 2 epochs: the
+    parameter count, the artifacts, finite stats, no codec kernel launch, the codebook equal to the codec's,
+    every module moved; then resumed to epoch 3 (the loaded state equal to checkpoint.pth bit for bit,
+    epochs 1-2 unchanged)."""
+    from funcodec_tpu_torch.cli import text2audio_train
+    from funcodec_tpu_torch.train.checkpoint import train_state_dict
+    from funcodec_tpu_torch.train.laura_trainer import LauraTrainer
+
+    exp = LAURA_DIR / "exp"
+    before = {k: v.cpu() for k, v in _laura_model(dev, config, tokens).state_dict().items()}
+    set_flags(MAIN_PATH)
+    _sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer, state = text2audio_train.main(_laura_args(dev, exp, "--max_epoch", str(LAURA_EPOCHS)))
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    n_params = sum(p.numel() for p in state.model.parameters())
+    n_train = sum(p.numel() for p in state.model.parameters() if p.requires_grad)
+    if n_params != LAURA_PARAMS:
+        raise RuntimeError(f"laura stage 2: {n_params} parameters, expected {LAURA_PARAMS}")
+    if any(counts.values()):
+        raise RuntimeError(f"laura stage 2: the codec kernels launched during LM training: {counts}")
+    stats = _check_laura_run(exp, LAURA_EPOCHS, "stage 2")
+    if not torch.equal(state.model.quantizer_codebook.embed, embed):
+        raise RuntimeError("laura stage 2: the frozen codebook is not the codec's quantizer.rq.model.embed")
+    moved = _module_moved(state.model, before)
+    if not all(moved.values()):
+        raise RuntimeError(f"laura stage 2: modules that did not move: {[m for m, v in moved.items() if not v]}")
+    walls = trainer.epoch_walls
+    steady = walls[LAURA_EPOCHS]
+    steps = state.step
+    log(f"[laura] stage 2, cli/text2audio_train on {TTS_YAML.name} at full width ({n_params:,} parameters, "
+        f"{n_train:,} trainable; fp32, batch_bins {config['batch_bins']}): {LAURA_EPOCHS} epochs, {steps} steps in "
+        f"{wall:.2f} s (model build and data included); every stat finite (epoch {LAURA_EPOCHS} train loss "
+        f"{stats[str(LAURA_EPOCHS)]['train']['loss']:.4f}, valid loss "
+        f"{stats[str(LAURA_EPOCHS)]['valid']['loss']:.4f}); "
+        f"no codec kernel launch {counts}; the codebook equals the codec's; every module moved {sorted(moved)}")
+    loop = dict(frames=steady["train_frames"], seconds=steady["train_s"], steps=steady["train_steps"],
+                frames_per_s=steady["train_frames"] / steady["train_s"], checkpoint_s=steady["checkpoint_s"],
+                checkpoint_mib=steady["checkpoint_bytes"] / 2**20, valid_s=steady["valid_s"])
+    log(f"[laura] the loop's epoch {LAURA_EPOCHS}: {loop['steps']} steps, {loop['frames']} codec frames in "
+        f"{loop['seconds']:.3f} s = {loop['frames_per_s']:.1f} training frames/s; checkpoint.pth "
+        f"{loop['checkpoint_mib']:.1f} MiB written in {loop['checkpoint_s']:.3f} s; validation "
+        f"{loop['valid_s']:.3f} s ({card})")
+
+    # resume to a third epoch: the loaded state is checkpoint.pth bit for bit
+    saved = torch.load(exp / "checkpoint.pth", map_location="cpu", weights_only=True)
+    _same_tree(train_state_dict(state), saved)
+    fresh = LauraTrainer(_laura_model(dev, config, tokens), trainer.opt)
+    loaded, start = fresh.resume(fresh.init_state())
+    _same_tree(train_state_dict(loaded), saved)
+    if start != LAURA_EPOCHS + 1 or loaded.step != steps:
+        raise RuntimeError(f"laura resume: start epoch {start}, step {loaded.step}")
+    del trainer, state, fresh, loaded, saved
+    torch.cuda.empty_cache()
+    reset_counts()
+    trainer, state = text2audio_train.main(_laura_args(dev, exp, "--max_epoch", str(LAURA_EPOCHS + 1)))
+    resumed = _check_laura_run(exp, LAURA_EPOCHS + 1, "resume")
+    per_epoch = steps // LAURA_EPOCHS
+    if state.step != steps + per_epoch or any(resumed[e] != stats[e] for e in stats) or any(read_counts().values()):
+        raise RuntimeError(f"laura resume: step {state.step}, or the stats of epochs 1-{LAURA_EPOCHS} changed, "
+                           f"or a codec kernel launched {read_counts()}")
+    if not torch.equal(state.model.quantizer_codebook.embed, embed):
+        raise RuntimeError("laura resume: the frozen codebook changed")
+    log(f"[laura] resume: the loaded state equals checkpoint.pth bit for bit; step {state.step}, epochs "
+        f"1-{LAURA_EPOCHS} unchanged in reporter.json, epoch {LAURA_EPOCHS + 1} trained and validated")
+    return dict(wall_s=wall, steps=steps, parameters=n_params, trainable=n_train, stats=stats, loop=loop,
+                launches=counts, model=state.model, trainer=trainer)
+
+
+def _laura_grads(model, batch, gen):
+    """(loss, stats, {module: gradient norm}) of one forward and backward, fp32."""
+    loss, stats = model(batch["text"], batch["text_lengths"], batch["codec"], batch["codec_lengths"], gen)
+    names, params = zip(*[(n, p) for n, p in model.named_parameters() if p.requires_grad])
+    grads = torch.autograd.grad(loss, params)
+    sq = {}
+    for n, g in zip(names, grads):
+        top = n.split(".")[0]
+        sq[top] = sq.get(top, 0.0) + float(g.double().square().sum())
+    stats = {k: float(v.detach()) for k, v in stats.items()}
+    return float(loss.detach()), stats, {k: math.sqrt(v) for k, v in sq.items()}
+
+
+def laura_card_cpu(dev, config, tokens, model, ds, lens) -> dict:
+    """One fp32 forward and backward of the trained weights on the card and on the CPU, at the two shortest
+    valid utterances, sampling ratio 0 (no draws; the shipped yaml has no SpecAug)."""
+    import dataclasses
+
+    from funcodec_tpu_torch.tasks.text2audio import build_laura_model
+    from funcodec_tpu_torch.train.laura_trainer import LauraTrainer, LauraTrainerOptions
+
+    cpu = build_laura_model(config, token_list=tokens, device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    keys = sorted(lens, key=lambda u: lens[u])[:LAURA_CPU_UTTS]
+    host = _collated(ds, keys)
+    out = []
+    for m in (model, cpu):
+        m.cfg = dataclasses.replace(m.cfg, codec_sampling_ratio=0.0)
+        batch = LauraTrainer(m, LauraTrainerOptions()).to_device(host)
+        out.append(_laura_grads(m, batch, torch.Generator(device=m.device)))
+    model.cfg = dataclasses.replace(model.cfg, codec_sampling_ratio=config["model_conf"]["codec_sampling_ratio"])
+    (l_card, s_card, g_card), (l_cpu, s_cpu, g_cpu) = out
+    positions = LAURA_CPU_UTTS * (batch["codec"].shape[1] + 1)  # an accuracy's mean runs over the padded groups
+    stat_err = max(abs(s_card[k] - s_cpu[k]) / max(abs(s_cpu[k]), 1.0) for k in s_cpu if not k.startswith("out_acc"))
+    acc_err = max(abs(s_card[k] - s_cpu[k]) for k in s_cpu if k.startswith("out_acc"))
+    grad_err = max(abs(g_card[k] - g_cpu[k]) / g_cpu[k] for k in g_cpu)
+    log(f"[laura] fp32 card vs CPU, one forward and backward at {LAURA_CPU_UTTS} utterances (ratio 0): loss "
+        f"{l_card:.6f} / {l_cpu:.6f}; worst stat {stat_err:.3e} of its scale (limit {LAURA_STAT_REL:.0e}), accuracy "
+        f"{acc_err:.3e} (limit one position, {1 / positions:.3e}); worst module gradient norm {grad_err:.3e} "
+        f"relative (limit {LAURA_GRAD_REL:.0e}) over {sorted(g_cpu)}")
+    if stat_err > LAURA_STAT_REL or acc_err > 1.0 / positions + 1e-7 or grad_err > LAURA_GRAD_REL:
+        raise RuntimeError("laura: the card's fp32 step disagrees with the CPU's")
+    return dict(loss_card=l_card, loss_cpu=l_cpu, stat_rel=stat_err, acc_abs=acc_err, grad_norm_rel=grad_err,
+                grad_norms_card=g_card, grad_norms_cpu=g_cpu)
+
+
+def _kernel_launches(fn) -> int:
+    """Device kernels one fn() launches, counted by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    _sync(CARD)
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        _sync(CARD)
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def laura_step_timing(dev, config, tokens, ds, batches, lens, card: str) -> dict:
+    """The bare step at batch_bins (the split's batch with the most padded bins), fp32 and bf16 over fp32
+    masters: ms (best of 3 after a warm-up), training codec frames/s, peak memory, launches a step."""
+    from funcodec_tpu_torch.train.laura_trainer import LauraTrainer, LauraTrainerOptions
+
+    keys = max(batches, key=lambda b: len(b) * max(lens[u] for u in b))
+    host = _collated(ds, keys)
+    frames = int(host["codec_lengths"].sum())
+    rows = {}
+    for dtype in ("float32", "bfloat16"):
+        model = _laura_model(dev, config, tokens)
+        trainer = LauraTrainer(model, LauraTrainerOptions(train_dtype=dtype))
+        state = trainer.init_state()
+        batch = trainer.to_device(host)
+        gen = torch.Generator(device=dev)
+
+        def step():
+            nonlocal state
+            state, _ = trainer.train_step(state, batch, gen.manual_seed(state.step))
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        seconds = _timed(step, dev)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches = _kernel_launches(step)
+        shape = (tuple(batch["text"].shape), tuple(batch["codec"].shape))
+        rows[dtype] = dict(ms=seconds * 1e3, frames=frames, frames_per_s=frames / seconds, peak_gib=peak,
+                           launches=launches, batch=len(keys), shapes=shape)
+        log(f"[laura] bare step {dtype}{' over fp32 masters' if dtype == 'bfloat16' else ''}, batch_bins "
+            f"{config['batch_bins']}: {len(keys)} utterances (text {shape[0]}, codec {shape[1]}, {frames} frames): "
+            f"{seconds * 1e3:.2f} ms = {frames / seconds:.1f} training frames/s, peak {peak:.2f} GiB, "
+            f"{launches} device kernels a step ({card})")
+        del model, trainer, state, batch
+        torch.cuda.empty_cache()
+    return rows
+
+
+def laura_synthesis(dev, exp: Path, tokens, phones, valid_lengths) -> dict:
+    """Recipe stage 3: cli/text2audio_inference with --model_file exp/latest.pth on 4 text lines, the second
+    with a zero-shot prompt from the valid corpus, the three flags on: launches exact, each codec kernel call
+    held against its plain version, every wav the decode's length."""
+    import yaml
+
+    from funcodec_tpu_torch.cli import text2audio_inference as tcli
+
+    syn = LAURA_DIR / "syn"
+    syn.mkdir(parents=True, exist_ok=True)
+    config = yaml.safe_load(TTS_YAML.read_text())
+    config["audio_max_duration"] = TTS_CLI_SECONDS  # the decode's cap: barely trained weights emit no eos
+    (syn / "laura.yaml").write_text(yaml.safe_dump(config))
+    rs = np.random.RandomState(60)
+    lines = [f"syn{i} " + " ".join(phones[j] for j in rs.randint(0, len(phones), int(rs.randint(20, 61))))
+             for i in range(LAURA_SYN_LINES)]
+    (syn / "text").write_text("\n".join(lines) + "\n")
+    prompt_key = sorted(valid_lengths)[0]
+    (syn / "prompt.scp").write_text(f"syn1 {LAURA_DIR / 'valid' / f'{prompt_key}.wav'}\n")
+    cap = TTS_CLI_SECONDS * config["codec_token_rate"]
+    set_flags(MAIN_PATH)
+    with _recorded_seanet_calls() as calls, _recorded_rvq_calls() as rvq_calls:
+        _sync(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        tcli.main(["--output_dir", str(syn / "out"), "--config_file", str(syn / "laura.yaml"), "--model_file",
+                   str(exp / "latest.pth"), "--codec_config_file", str(LAURA_DIR / "codec.yaml"),
+                   "--codec_model_file", str(LAURA_DIR / "codec.pth"), "--text_scp", str(syn / "text"),
+                   "--token_list", str(LAURA_TOKENS), "--token_type", "word", "--prompt_wav_scp",
+                   str(syn / "prompt.scp"), "--device", str(dev)])
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    # every line: the AR tokens' decode and the dense embeddings' decode_emb; the prompt: one encode
+    expect = {k: 2 * LAURA_SYN_LINES * DECODE_PER_BATCH[k] + EXPECT[MAIN_PATH][k] - DECODE_PER_BATCH[k]
+              for k in EXPECT[MAIN_PATH]}
+    if counts != expect:
+        raise RuntimeError(f"laura stage 3: launches {counts}, expected {expect}")
+    held = _held_calls(calls, "laura stage 3")
+    held["rvq_encode"] = _held_rvq(rvq_calls, "laura stage 3 prompt")
+    n_seanet, n_rvq = len(calls), len(rvq_calls)
+    del calls, rvq_calls
+    prompt_groups = -(-valid_lengths[prompt_key] // 320)
+    for i in range(LAURA_SYN_LINES):
+        for tag in ("gen", "gen_only_lm"):
+            sr, wav = read_wav(syn / "out" / f"syn{i}_{tag}.wav", normalize=False)
+            if sr != SR or wav.shape[0] % 320 or not 0 < wav.shape[0] <= cap * 320 or not np.isfinite(wav).all():
+                raise RuntimeError(f"laura stage 3: syn{i}_{tag}.wav has {wav.shape[0]} samples at {sr} Hz")
+    if not (syn / "out" / "tts_eval.json").exists():
+        raise RuntimeError("laura stage 3: no tts_eval.json")
+    log(f"[laura] stage 3, cli/text2audio_inference --model_file exp/latest.pth: {LAURA_SYN_LINES} lines (one with "
+        f"a {prompt_groups}-group zero-shot prompt from the valid corpus), top-k 25, <= {cap} groups, in {wall:.2f} s; "
+        f"launches {counts} exact; its {n_seanet} SEANet and {n_rvq} rvq_encode calls each within its limit of the "
+        f"plain version (max|err| {held}); 8 wavs and tts_eval.json")
+    return dict(wall_s=wall, launches=counts, max_abs_err=held, held_calls=n_seanet + n_rvq)
+
+
+def laura_phase(dev, card: str) -> dict:
+    """The LibriTTS Laura recipe on the card: tokens, training, synthesis; the bare step's numbers."""
+    import yaml
+
+    from funcodec_tpu_torch.utils.tts_quality import held_out_token_nll
+
+    t_phase = t_lap = time.perf_counter()
+    walls = {}
+
+    def lap(name: str) -> None:
+        nonlocal t_lap
+        now = time.perf_counter()
+        walls[name], t_lap = now - t_lap, now
+
+    shutil.rmtree(LAURA_DIR, ignore_errors=True)
+    LAURA_DIR.mkdir(parents=True)
+    tokens = [t.strip() for t in LAURA_TOKENS.read_text().splitlines() if t.strip()]
+    phones = [t for t in tokens if t not in ("<blank>", "<unk>")]
+    lengths = _laura_corpus("train", 61, phones)
+    valid_lengths = _laura_corpus("valid", 62, phones)
+    codec_config = _flagship_config()
+    codec = Speech2Token(codec_config, None, dtype="float32", device=dev)
+    (LAURA_DIR / "codec.yaml").write_text(yaml.safe_dump(codec_config))
+    torch.save(codec.model.state_dict(), LAURA_DIR / "codec.pth")
+    embed = codec.model.quantizer.state.embed.detach().clone()
+    del codec
+    lap("corpus")
+    stage1 = laura_tokens(dev, {**lengths, **valid_lengths})
+    lap("stage1")
+    config = yaml.safe_load(TTS_YAML.read_text())
+    stage2 = laura_train(dev, config, tokens, embed, card)
+    model, trainer = stage2.pop("model"), stage2.pop("trainer")
+    v_ds, v_batches, v_lens = _laura_batches(config, tokens, "valid")
+    nll = held_out_token_nll(model, [trainer.to_device(_collated(v_ds, b)) for b in v_batches])
+    updates = stage2["steps"] + stage2["steps"] // LAURA_EPOCHS  # the resumed epoch's too
+    log(f"[laura] held_out_token_nll on the valid set: {nll['token_nll']:.4f} nats a token (ppl "
+        f"{nll['token_ppl']:.1f}, {nll['n_tokens']} tokens; random weights after {updates} updates at the warmup's "
+        f"rate: ln 1025 = {math.log(1025):.4f})")
+    lap("stage2")
+    card_cpu = laura_card_cpu(dev, config, tokens, model, v_ds, v_lens)
+    del model, trainer
+    torch.cuda.empty_cache()
+    lap("card_cpu")
+    t_ds, t_batches, t_lens = _laura_batches(config, tokens, "train")
+    step = laura_step_timing(dev, config, tokens, t_ds, t_batches, t_lens, card)
+    lap("step")
+    stage3 = laura_synthesis(dev, LAURA_DIR / "exp", tokens, phones, valid_lengths)
+    conv_ops.FUSED_STRIDE1 = conv_ops.FUSED_RESBLOCK = rvq.FUSED_RVQ = False
+    lap("stage3")
+    loop = stage2["loop"]
+    ratio = loop["frames_per_s"] / step["float32"]["frames_per_s"]
+    log(f"[laura] the loop's steady epoch {loop['frames_per_s']:.1f} frames/s = {ratio:.3f} of the bare fp32 step's "
+        f"{step['float32']['frames_per_s']:.1f} (its batches are smaller than the timed one's)")
+    launches = {k: stage1["launches"]["train"][k] + stage1["launches"]["valid"][k] + stage3["launches"][k]
+                for k in EXPECT[MAIN_PATH]}
+    max_err = {k: max(stage1["max_abs_err"].get(k, 0.0), stage3["max_abs_err"].get(k, 0.0))
+               for k in stage3["max_abs_err"]}
+    out = dict(stage1=stage1, stage2=stage2, held_out_token_nll=nll, card_vs_cpu=card_cpu, step=step,
+               loop_to_step=ratio, stage3=stage3, launches=launches, max_abs_err=max_err,
+               phase_s=time.perf_counter() - t_phase, part_s=walls)
+    log(f"[laura] phase {out['phase_s']:.1f} s: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
+        + f"; main-path launches (stages 1 and 3) {launches} ({card})")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # timing phase
 # ---------------------------------------------------------------------------
 
@@ -2264,10 +2721,10 @@ def _held_rvq(calls, what: str) -> float:
             k_idx, k_quant = rvq_kernel.rvq_encode_fused(x, embed, n_q)
             r_idx, r_quant = rvq_kernel.rvq_encode_reference(x, embed, n_q)
             q0, all_, rows, err = _compare(k_idx, k_quant, r_idx, r_quant)
-            log(f"[freq] {what} rvq_encode call {i} x {tuple(x.shape)}: agree q0={q0:.6f} all={all_:.6f} "
+            log(f"[kernel] {what} rvq_encode call {i} x {tuple(x.shape)}: agree q0={q0:.6f} all={all_:.6f} "
                 f"rows={rows:.6f} max|dquant| {err:.3e}")
             if q0 < MIN_AGREE_Q0 or all_ < MIN_AGREE_ALL or err > MAX_QUANT_ERR or not torch.isfinite(k_quant).all():
-                raise RuntimeError(f"freq {what}: rvq_encode disagrees with its plain version")
+                raise RuntimeError(f"{what}: rvq_encode disagrees with its plain version")
             worst = max(worst, err)
     return worst
 
@@ -2322,7 +2779,7 @@ def freq_serving(dev, gr: int, s_bf, s_fp) -> dict:
             if any(x.shape[-1] != FREQ_FRAMES for _, _, x, _, _ in seanet_calls):
                 raise RuntimeError(f"freq gr{gr}: a conv1d_s1 call off T = {FREQ_FRAMES}")
             held = _held_calls(seanet_calls, f"freq gr{gr}")
-            held["rvq_encode"] = _held_rvq(rvq_calls, f"gr{gr}")
+            held["rvq_encode"] = _held_rvq(rvq_calls, f"freq gr{gr}")
             again = s_bf(requests[0], bit_width=None)
             token_diff = int((again[0][0] != outs[0][0][0]).sum())
             rerun, yard = _rel(again[2], outs[0][2]), _rel(outs[0][2], recon_fp)
@@ -2771,6 +3228,35 @@ def profile(dev) -> None:
     _profiled(lambda: s_freq.dispatch(speech, bit_width=None), f"FreqCodec gr8 bf16 {FREQ_MAIN} B={FREQ_TIME_B}",
               "freqcodec_gr8_bf16")
     _freq_flags("none")
+    laura_profile(dev)
+
+
+def laura_profile(dev) -> None:
+    """torch.profiler over one bf16 Laura training step at full width and about batch_bins 10240 (20
+    utterances of 96 phonemes and 400 codec frames, seeded), after two warm-up steps."""
+    import yaml
+
+    from funcodec_tpu_torch.tasks.text2audio import build_laura_model
+    from funcodec_tpu_torch.train.laura_trainer import LauraTrainer, LauraTrainerOptions
+
+    config = yaml.safe_load(TTS_YAML.read_text())
+    tokens = [t.strip() for t in LAURA_TOKENS.read_text().splitlines() if t.strip()]
+    model = build_laura_model(config, token_list=tokens, device=dev)
+    trainer = LauraTrainer(model, LauraTrainerOptions(train_dtype="bfloat16"))
+    state = trainer.init_state()
+    rs = np.random.RandomState(63)
+    B, Lt, Lc = 20, 96, 400
+    batch = trainer.to_device(dict(text=rs.randint(2, len(tokens), (B, Lt)), text_lengths=np.full(B, Lt),
+                                   codec=rs.randint(0, 1024, (B, Lc, 32)), codec_lengths=np.full(B, Lc)))
+    gen = torch.Generator(device=dev)
+
+    def step():
+        nonlocal state
+        state, _ = trainer.train_step(state, batch, gen.manual_seed(state.step))
+
+    for _ in range(2):
+        step()
+    _profiled(step, f"Laura bf16 training step, B={B} x (text {Lt}, codec {Lc})", "laura_train_bf16")
 
 
 def tts_profile(dev) -> None:
@@ -2822,6 +3308,7 @@ def main() -> int:
     trainer = trainer_phase(dev, card, train_rows)
     tts = tts_phase(dev, card)
     freq = freq_phase(dev, card)
+    laura = laura_phase(dev, card)
     if "funcodec_tpu" in sys.modules or ("jax" in sys.modules and not _JAX_PRELOADED):
         raise RuntimeError("the port imported JAX or the JAX package")
 
@@ -2832,7 +3319,8 @@ def main() -> int:
         copy_ceiling_bytes_per_s=ceiling, cli=cli_stats, training=dict(
             configs=train_results, launches=train_counts, fused_gradients=fused_grads, backward=backward_rows,
             backward_max_relative_error=backward_errs, forward_max_abs_error=train_fwd_errs,
-            card_vs_cpu=card_cpu, timing=train_rows), trainer=trainer, tts=tts, freqcodec=freq), indent=1))
+            card_vs_cpu=card_cpu, timing=train_rows), trainer=trainer, tts=tts, freqcodec=freq, laura=laura),
+        indent=1))
     conv_main = _summed([r for r in conv_rows if r["main_path"]])
     conv_main["library_ms"] = sum(r["library_ms"] for r in conv_rows if r["main_path"])
     conv_main["legacy_ms"] = sum(r["legacy_ms"] for r in conv_rows if r["main_path"])
@@ -2872,7 +3360,7 @@ def main() -> int:
             plain_ms=probe_plain[torch.bfloat16], bound_ms=row["bound_ms"], bound_by="bytes",
             library_ms=row["library_ms"]))
     # the training phase's fused steps, the trainer phase's two-epoch run, a TTS request, the
-    # FreqCodec main-path requests (gr8 and gr1)
+    # FreqCodec main-path requests (gr8 and gr1), the Laura recipe's stages 1 and 3
     for k in kernels:
         k["training_launches"] = train_counts.get(k["name"], 0)
         k["trainer_launches"] = trainer["launches"].get(k["name"], 0)
@@ -2882,6 +3370,9 @@ def main() -> int:
         k["freqcodec_launches"] = freq["launches"].get(k["name"], 0)
         if k["name"] in freq["max_abs_err"]:
             k["freqcodec_max_abs_err"] = freq["max_abs_err"][k["name"]]
+        k["laura_launches"] = laura["launches"].get(k["name"], 0)
+        if k["name"] in laura["max_abs_err"]:
+            k["laura_max_abs_err"] = laura["max_abs_err"][k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

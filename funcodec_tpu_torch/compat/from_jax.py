@@ -316,3 +316,28 @@ def train_state_from_jax(model, discriminator, jax_state, optimizer_g=None, opti
         opt_state_d=_optimizer_state_from_jax(opt_d, jax_state.opt_state_d, disc_list),
         gen_loss_carry=torch.tensor(float(np.asarray(jax_state.gen_loss_carry)), device=device),
     )
+
+
+def laura_train_state_from_jax(model, jax_state, optimizer=None):
+    """A funcodec_tpu Laura TrainState (JAX arrays or numpy) as the port's
+    LauraTrainState.
+
+    Loads the parameters (the frozen codebook included) into `model`, the
+    port's LauraGenModel, and returns the state over it with Adam's moments
+    and counts and the step. The optimizer state takes the structure of
+    `optimizer` (default: ``make_optimizer()``, Adam); the codebook's
+    moments are dropped, since the port's optimizer does not hold it."""
+    from funcodec_tpu_torch.train.laura_trainer import LauraTrainState, trainable
+    from funcodec_tpu_torch.train.step import make_optimizer
+
+    device = model.device
+    model.load_state_dict(laura_state_dict_from_jax(model, jax_state.params))
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+
+    def to_list(tree):
+        sd = laura_state_dict_from_jax(model, tree)
+        return [sd[n].to(device) for n in names]
+
+    template = (optimizer or make_optimizer()).init(trainable(model))
+    return LauraTrainState(step=int(np.asarray(jax_state.step)), model=model,
+                           opt_state=_optimizer_state_from_jax(template, jax_state.opt_state, to_list))

@@ -2,14 +2,17 @@
 (the port's copy of funcodec_tpu/data/text.py).
 
 Behavioral reference: funcodec/text/ (build_tokenizer, CharTokenizer,
-WordTokenizer, TokenIDConverter, phoneme_tokenizer.G2p_en :209). The
-training-side Text2AudioPreprocessor comes with Laura training.
+WordTokenizer, TokenIDConverter, phoneme_tokenizer.G2p_en :209) and
+Text2AudioPreprocessor (datasets/preprocessor.py:947-1034).
 """
 
 from __future__ import annotations
 
+import os
 from pathlib import Path
-from typing import Iterable, List, Optional, Union
+from typing import Dict, Iterable, List, Optional, Union
+
+import numpy as np
 
 
 class TextCleaner:
@@ -159,3 +162,63 @@ class TokenIDConverter:
 
     def ids2tokens(self, ids: Iterable[int]) -> List[str]:
         return [self.token_list[i] for i in ids]
+
+
+class Text2AudioPreprocessor:
+    """Random codec crop + text tokenization (preprocessor.py:947-1034).
+
+    A codec matrix longer than audio_max_duration * codec_token_rate frames
+    is cropped at a start drawn from `rng` (an ``np.random.RandomState``;
+    unseeded by default, as in the JAX package); a string text becomes
+    token ids through the tokenizer of `token_type` and `token_list`."""
+
+    def __init__(
+        self,
+        train: bool,
+        audio_max_duration: int = 30,
+        codec_token_rate: int = 25,
+        text_name: str = "text",
+        codec_name: str = "codec",
+        token_list=None,
+        token_type: Optional[str] = None,
+        g2p_type: Optional[str] = None,
+        rng: Optional[np.random.RandomState] = None,
+        **tokenizer_kwargs,
+    ):
+        self.train = train
+        self.audio_max_duration = audio_max_duration
+        self.codec_token_rate = codec_token_rate
+        self.text_name = text_name
+        self.codec_name = codec_name
+        self.rng = rng or np.random.RandomState()
+        self.token_list: List[str] = []
+        if token_list is not None:
+            if isinstance(token_list, list):
+                self.token_list = token_list
+            elif os.path.exists(str(token_list)):
+                with open(token_list, encoding="utf-8") as f:
+                    self.token_list = [line.strip() for line in f]
+        self.tokenizer = None
+        self.converter = None
+        if token_type is not None and self.token_list:
+            self.tokenizer = build_tokenizer(token_type, g2p_type=g2p_type, **tokenizer_kwargs)
+            self.converter = TokenIDConverter(self.token_list)
+
+    @property
+    def vocab_size(self) -> int:
+        return len(self.token_list)
+
+    def __call__(self, uid: str, data: Dict) -> Dict:
+        if self.codec_name in data:
+            codec = np.asarray(data[self.codec_name]).astype(np.int64)
+            max_len = int(self.audio_max_duration * self.codec_token_rate)
+            if codec.shape[0] > max_len:
+                st = int(self.rng.randint(0, codec.shape[0] - max_len + 1))
+                codec = codec[st: st + max_len]
+            data[self.codec_name] = codec
+        if self.text_name in data and self.tokenizer is not None:
+            text = data[self.text_name]
+            if isinstance(text, str):
+                data[self.text_name] = np.array(self.converter.tokens2ids(self.tokenizer.text2tokens(text)),
+                                                dtype=np.int64)
+        return data

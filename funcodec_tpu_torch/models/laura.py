@@ -19,15 +19,19 @@ vocabulary index), not on its batch, slot, co-tenants or device, so the
 batched, serving and batch-1 decodes of a request with one seed sample the
 same tokens. The draws differ from jax.random's.
 
-Training (`nll`, `forward`, the scheduled sampler, SpecAug) comes with the
-Laura training slice.
+Training: ``forward`` is the training loss (the LM's label-smoothed NLL of
+the first groups plus the codec encoder's regression loss). Its draws (the
+SpecAug spans of ops/augment.py, the scheduled sampler's uniforms) come from
+an explicit ``torch.Generator``; ``prob_sampler`` also takes the uniforms
+and ``_aug_segment`` the spans, so a caller can replay jax.random's.
+Straight-through estimators are written ``x + (y - x).detach()``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, List, Optional, Sequence, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -46,9 +50,10 @@ from funcodec_tpu_torch.models.transformer import (
     table,
     _is_meta,
 )
+from funcodec_tpu_torch.ops.augment import spec_aug, utterance_mvn
 
 Sampling = Union[bool, int, float]
-TRAINING_SLICE = "Laura training comes in a later slice of the port (ROADMAP.md queue 1, slice D)"
+TIME_WARP = ("apply_time_warp", "time_warp_window", "time_warp_mode")  # SpecAug keys spec_aug does not take
 
 
 # ---------------------------------------------------------------------------
@@ -319,17 +324,44 @@ class LauraGenModel(nn.Module):
             h = self.text_enc_out_layer(text)
         return h, text_lengths
 
-    def build_llm_io(self, text, text_lengths, codec=None, codec_lengths=None):
-        """[sos, text, task] (+ codec embeddings) LM inputs and their lengths."""
+    def _aug_segment(self, seg, lengths, conf: dict, generator: Optional[torch.Generator], spans=None):
+        """SpecAug one LM segment on its valid rows, with identity gradients
+        (the reference masks under no_grad: values change, the autograd
+        graph does not). Spans are drawn over the padded buffer; `spans`
+        ((freq_widths, freq_starts), (time_widths, time_starts)) replays
+        given ones."""
+        kwargs = {k: tuple(v) if isinstance(v, list) else v for k, v in conf.items() if k not in TIME_WARP}
+        freq, time = spans if spans is not None else (None, None)
+        auged = spec_aug(seg, generator, freq_spans=freq, time_spans=time, **kwargs)
+        valid = make_pad_mask_bool(lengths, seg.shape[1])[..., None]
+        auged = torch.where(valid, auged, seg)
+        return seg + (auged - seg).detach()
+
+    def build_llm_io(self, text, text_lengths, codec=None, codec_lengths=None,
+                     aug: Optional[torch.Generator] = None):
+        """[sos, text, task] (+ codec embeddings) LM inputs and their
+        lengths. `aug` (training only) turns on the input / output SpecAug
+        and the input MVN the model was built with, drawing from it."""
         cfg = self.cfg
         B, Lt = text.shape[0], text.shape[1]
+        if aug is not None:
+            if self.input_aug_conf is not None:
+                text = self._aug_segment(text, text_lengths, self.input_aug_conf, aug)
+            if self.input_normalize:
+                valid = make_pad_mask_bool(text_lengths, Lt)[..., None]
+                normed = torch.where(valid, utterance_mvn(text, text_lengths), text)
+                text = text + (normed - text).detach()
         emb = self.lm_embedding.weight
         sos = emb[cfg.sos_eos].expand(B, 1, cfg.codebook_dim)
         task = emb[cfg.task_id].expand(B, 1, cfg.codebook_dim)
         ones = torch.ones(B, dtype=torch.int64, device=text.device)
         segments, seg_lens, total = [sos, text, task], [ones, text_lengths.long(), ones], 2 + Lt
         if codec is not None:
-            segments.append(self.calc_dense_vector(codec, codec_lengths))
+            codec_emb = self.calc_dense_vector(codec, codec_lengths)
+            if aug is not None and self.output_aug_conf is not None:
+                # the reference's aug length: input_lengths - speech_len - 2 = Lc - 1
+                codec_emb = self._aug_segment(codec_emb, codec_lengths - 1, self.output_aug_conf, aug)
+            segments.append(codec_emb)
             seg_lens.append(codec_lengths.long())
             total += codec.shape[1]
         llm_lengths = text_lengths + 2
@@ -360,20 +392,105 @@ class LauraGenModel(nn.Module):
             inputs = self._apply_split_pe(inputs, speech_lengths)
         return self.codec_lm.decoder(self.codec_lm.encoder(inputs, mask))
 
-    def nll(self, *args, **kwargs):
-        raise NotImplementedError(f"LauraGenModel.nll: {TRAINING_SLICE}")
+    def nll(self, text, text_lengths, codec, codec_lengths, aug: Optional[torch.Generator] = None):
+        """The first groups' LM loss terms: (nll (B, Lc + 1, nq), logits
+        (B, Lc + 1, nq, V), target, y_lengths). `text` is the encoded text."""
+        cfg = self.cfg
+        B, Lc = codec.shape[0], codec.shape[1]
+        inputs, input_lengths = self.build_llm_io(text, text_lengths, codec, codec_lengths, aug=aug)
+        y = self._lm_forward(inputs, input_lengths, text_lengths + 1)
+        V = cfg.codebook_size + 1
+        # logits at positions text_len + 1 .. text_len + 1 + codec_len
+        logits = gather_window(y, text_lengths + 1, Lc + 1).reshape(B, Lc + 1, cfg.predict_nq, V)
+        # targets: the codec tokens, then <eos> = codebook_size
+        eos_row = torch.full((B, 1, cfg.predict_nq), cfg.codebook_size, dtype=torch.int64, device=codec.device)
+        padded_codec = torch.cat([codec.long(), eos_row], dim=1)
+        pos = torch.arange(Lc + 1, device=codec.device)[None, :, None]
+        target = torch.where(pos == codec_lengths[:, None, None], cfg.codebook_size + cfg.sos_eos, padded_codec)
+        target = torch.where(pos <= codec_lengths[:, None, None], target, 0)
+        # label-smoothed CE in its KL form (losses/label_smoothing_loss.py), fp32
+        logp = F.log_softmax(logits.float(), dim=-1)
+        smoothing = cfg.lsm_weight
+        confidence, off_value = 1.0 - smoothing, smoothing / (V - 1)
+        true_logp = logp.gather(-1, target[..., None])[..., 0]
+        nll = -(confidence * true_logp + off_value * (logp.sum(dim=-1) - true_logp))
+        if smoothing > 0:
+            # KL(targets || p) adds the constant negative entropy of the targets
+            nll = nll + (confidence * math.log(confidence + 1e-20) + (V - 1) * off_value * math.log(off_value + 1e-20))
+        y_lengths = codec_lengths + 1
+        nll = torch.where(make_pad_mask_bool(y_lengths, Lc + 1)[..., None], nll, 0.0)
+        return nll, logits, target, y_lengths
 
-    def forward(self, *args, **kwargs):
-        raise NotImplementedError(f"LauraGenModel.forward (the training loss): {TRAINING_SLICE}")
+    def prob_sampler(self, logits, codec, codec_lengths, generator: Optional[torch.Generator],
+                     uniform: Optional[torch.Tensor] = None):
+        """Scheduled sampling with a straight-through one-hot; logits (B, Lc,
+        nq, bins). A predicted group replaces the ground truth where it is
+        correct or where its uniform (drawn from `generator`, or given,
+        (B, Lc, nq)) exceeds codec_sampling_ratio."""
+        cfg = self.cfg
+        Lc = logits.shape[1]
+        valid = make_pad_mask_bool(codec_lengths, Lc)[:, :, None, None]
+        # an fp32 softmax island, cast back: the argmax runs on the cast
+        # probabilities (bf16 ties go to the first maximum, as in JAX)
+        soft = torch.softmax(logits.float(), dim=-1).to(logits.dtype)
+        pred_token = soft.argmax(dim=-1)
+        hard = F.one_hot(pred_token, cfg.codebook_size).to(soft.dtype)
+        pred_prob = soft + (hard - soft).detach()
+        if cfg.codec_sampling_ratio == 0.0:
+            return pred_prob * valid
+        gt = F.one_hot(codec.long().clamp(0, cfg.codebook_size - 1), cfg.codebook_size).to(soft.dtype)
+        if cfg.codec_sampling_ratio == 1.0:
+            return gt * valid
+        correct = pred_token == codec
+        if uniform is None:
+            uniform = torch.rand(correct.shape, generator=generator, device=logits.device)
+        use_pred = correct | (~correct & (uniform > cfg.codec_sampling_ratio))
+        return torch.where(use_pred[..., None], pred_prob, gt) * valid
 
-    def prob_sampler(self, *args, **kwargs):
-        raise NotImplementedError(f"LauraGenModel.prob_sampler: {TRAINING_SLICE}")
+    def calc_reg_loss(self, prediction, target, lengths):
+        """Masked 0.5 * L1 + 0.5 * (0.5 * L2): (loss, l1, l2).
 
-    def calc_reg_loss(self, *args, **kwargs):
-        raise NotImplementedError(f"LauraGenModel.calc_reg_loss: {TRAINING_SLICE}")
+        The reference's quirk is kept: make_pad_mask(length, target) masks
+        the FEATURE axis (d < codec_len), not time, so with codec_len >=
+        codebook_dim the mask is all ones and zero-padded time rows count in
+        the denominator."""
+        d = target.shape[-1]
+        mask = (torch.arange(d, device=target.device)[None, None, :] < lengths[:, None, None]).float()
+        mask = mask.expand(target.shape)
+        denom = mask.sum().clamp_min(1.0)
+        diff = prediction - target
+        l1 = (diff.abs() * mask).sum() / denom
+        l2 = 0.5 * (diff ** 2 * mask).sum() / denom
+        return l1 * 0.5 + l2 * 0.5, l1, l2
 
-    def _aug_segment(self, *args, **kwargs):
-        raise NotImplementedError(f"LauraGenModel._aug_segment (SpecAug): {TRAINING_SLICE}")
+    def forward(self, text, text_lengths, codec, codec_lengths,
+                generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The training loss and its stats; codec (B, Lc, >= predict_nq).
+        Draws come from `generator` in order: the SpecAug spans when the
+        model augments, then the sampler's uniforms."""
+        cfg = self.cfg
+        nq = cfg.predict_nq
+        codec = codec.long()
+        text, text_lengths = self.encode_text(text, text_lengths)
+        augments = bool(self.input_aug_conf or self.output_aug_conf or self.input_normalize)
+        nll, logits, target, target_lengths = self.nll(
+            text, text_lengths, codec[:, :, :nq], codec_lengths, aug=generator if augments else None)
+        out_mask = make_pad_mask_bool(target_lengths, nll.shape[1])[..., None]
+        denom = out_mask.sum() * nq if cfg.length_normalized_loss else nll.shape[0] * nq
+        nll_loss = (nll * out_mask).sum() / torch.as_tensor(denom, device=nll.device).clamp_min(1)
+
+        prob = self.prob_sampler(logits[:, :-1, :, : cfg.codebook_size], codec[:, :, :nq], codec_lengths, generator)
+        codec_emb, _ = self.cal_codec_emb(text, text_lengths, prob, codec_lengths)
+        target_emb = self.calc_dense_vector(codec, codec_lengths)
+        reg_loss, l1, l2 = self.calc_reg_loss(codec_emb, target_emb, codec_lengths)
+        loss = reg_loss + nll_loss
+        stats = dict(loss=loss, nll_loss=nll_loss, reg_loss=reg_loss, reg_l1_loss=l1, reg_l2_loss=l2)
+        # per-group accuracy; the reference's quirk is kept: padded positions
+        # carry zero logits and target 0, and pads count as correct
+        pred = torch.where(out_mask[..., None], logits, 0.0).argmax(dim=-1)
+        for i in range(nq):
+            stats[f"out_acc_{i + 1}"] = (pred[:, :, i] == target[:, :, i]).float().mean()
+        return loss, stats
 
     # -- AR decode with a KV cache ----------------------------------------------
 

@@ -16,7 +16,9 @@ files and names; the JAX package writes flax msgpack ``.ckpt`` files instead.
   optimizer states (nested dicts, lists and tuples of tensors and ints; a
   ``torch.Generator`` in them, as ``add_noise`` holds, is stored as its
   ``get_state()``) and the discriminator gate's carry. Only tensors and
-  builtins, so it loads with ``torch.load(weights_only=True)``.
+  builtins, so it loads with ``torch.load(weights_only=True)``. A Laura
+  train state (train/laura_trainer.py) holds the step, the model's
+  state_dict (the frozen codebook included) and its one optimizer state.
 
 Every file is written to a temporary name and moved into place with
 ``os.replace``, so a crash never leaves a half-written checkpoint.
@@ -31,6 +33,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from funcodec_tpu_torch.compat.from_jax import load_torch_state_dict
+from funcodec_tpu_torch.train.step import GANTrainState
 
 _GENERATOR = "torch_generator_state"
 
@@ -93,7 +96,10 @@ def load_checkpoint_params(path: str, model: Optional[torch.nn.Module] = None) -
 
 
 def train_state_dict(state) -> Dict[str, Any]:
-    """A GANTrainState as checkpoint.pth holds it (everything on the CPU)."""
+    """A GANTrainState or a LauraTrainState as checkpoint.pth holds it
+    (everything on the CPU)."""
+    if not isinstance(state, GANTrainState):
+        return {"step": int(state.step), "model": _cpu_state_dict(state.model), "opt_state": _to_host(state.opt_state)}
     return {
         "step": int(state.step),
         "model": _cpu_state_dict(state.model),
@@ -109,16 +115,19 @@ def save_train_state(path: str, state) -> None:
 
 
 def load_train_state(path: str, template):
-    """Restore checkpoint.pth into `template`, a GANTrainState of the same
-    model, discriminator and optimizers: the modules in place, the optimizer
-    states and the carry on their device. Returns the template."""
+    """Restore checkpoint.pth into `template`, a train state of the same
+    kind, model(s) and optimizer(s): the modules in place, the optimizer
+    states (and a GAN state's carry) on their device. Returns the template."""
     saved = torch.load(path, map_location="cpu", weights_only=True)
     template.model.load_state_dict(saved["model"])
+    template.step = int(saved["step"])
+    if not isinstance(template, GANTrainState):
+        template.opt_state = _restore(template.opt_state, saved["opt_state"])
+        return template
     template.discriminator.load_state_dict(saved["discriminator"])
     template.opt_state_g = _restore(template.opt_state_g, saved["opt_state_g"])
     template.opt_state_d = _restore(template.opt_state_d, saved["opt_state_d"])
     template.gen_loss_carry = _restore(template.gen_loss_carry, saved["gen_loss_carry"])
-    template.step = int(saved["step"])
     return template
 
 

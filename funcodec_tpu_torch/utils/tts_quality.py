@@ -111,8 +111,28 @@ def tts_metrics(
 
 
 def held_out_token_nll(model, batches) -> Dict[str, float]:
-    """Teacher-forced codec-token NLL under a LauraGenModel: needs the LM's
-    `nll`, which comes with Laura training."""
-    raise NotImplementedError(
-        "held_out_token_nll needs LauraGenModel.nll, which comes with the Laura training slice of the port "
-        "(ROADMAP.md queue 1, slice D)")
+    """Teacher-forced per-token NLL of codec tokens under a LauraGenModel.
+
+    batches: an iterable of dicts with text, text_lengths, codec and
+    codec_lengths (numpy or tensors). The CE is pure (no label smoothing),
+    so the number is a log-likelihood: perplexity = exp(nll). The sums stay
+    on the model's device; one readback a batch."""
+    import torch
+    import torch.nn.functional as F
+
+    nq = model.cfg.predict_nq
+    total_nll, total_tokens = 0.0, 0
+    with torch.inference_mode():
+        for b in batches:
+            text, tl, codec, cl = (model._tensor(b[k]) for k in ("text", "text_lengths", "codec", "codec_lengths"))
+            h, tl = model.encode_text(text, tl)
+            _, logits, target, y_lengths = model.nll(h, tl, codec.long()[:, :, :nq], cl)
+            logp = F.log_softmax(logits.float(), dim=-1)
+            ce = -logp.gather(-1, target[..., None])[..., 0]
+            valid = torch.arange(ce.shape[1], device=ce.device)[None, :, None] < y_lengths[:, None, None]
+            s, n = torch.stack([torch.where(valid, ce, 0.0).sum().double(),
+                                (valid.sum() * ce.shape[-1]).double()]).tolist()
+            total_nll += s
+            total_tokens += int(n)
+    nll = total_nll / max(total_tokens, 1)
+    return {"token_nll": nll, "token_ppl": float(np.exp(nll)), "n_tokens": total_tokens}

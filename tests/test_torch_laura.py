@@ -245,13 +245,6 @@ def test_full_width_parameter_count():
     assert sum(p.numel() for p in no_tokens.parameters()) == 88_275_970
 
 
-def test_training_methods_raise():
-    _, _, tm = laura_pair(tiny_config("uni"), seed=1)
-    for name in ("nll", "forward", "prob_sampler", "calc_reg_loss", "_aug_segment"):
-        with pytest.raises(NotImplementedError, match="Laura training"):
-            getattr(tm, name)()
-
-
 def test_port_state_dict_loads_in_jax_importer(pair_uni):
     """The JAX CLI's import_laura reads the port's state_dict back to the params."""
     from funcodec_tpu.compat.torch_import import import_laura

@@ -61,5 +61,3 @@ def test_tts_metrics_match():
             assert ours[k] == pytest.approx(ref[k], abs=1e-6, nan_ok=True), k
     assert tq.speaker_similarity(a, b) == pytest.approx(jq.speaker_similarity(a, b), abs=1e-6)
     assert tq.mel_cepstral_distance(a, b) == pytest.approx(jq.mel_cepstral_distance(a, b), abs=1e-6)
-    with pytest.raises(NotImplementedError, match="Laura training"):
-        tq.held_out_token_nll(None, [])
