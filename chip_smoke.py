@@ -165,11 +165,31 @@ In phases that each raise on failure:
    exact, each codec kernel call held against its plain version.
    ``--profile`` adds one bf16 training step at about batch_bins 10240.
 
+13. dp: data parallelism (parallel/dist.py). The flagship's bf16 shared
+   steps with both SEANet flags (B = 16 x 2.56 s, the recipe's quantizer)
+   at world 1 through an NCCL group, in a process of its own with torch's
+   deterministic algorithms: 3 steps bit for bit the no-group path's,
+   launches exact; then, with the default algorithms, steady ms a step
+   with and without the group and the gradient all_reduce's ms. World 2
+   through gloo on the one card (two spawned processes on cuda:0: NCCL
+   refuses two ranks on one device), fp32 with TF32 off, global B = 16,
+   SGD and initialized codebooks: the ranks' parameters and codebooks bit
+   for bit equal and within rtol 2e-4 / atol 2e-5 of world 1's (JAX's
+   data-parallel tolerance; world 1 takes the ranks' codes, each of its
+   own that differs a near-tie), each rank's kernel calls against their
+   plain versions, ms a step; the Laura trainer at full width, 2 steps at
+   world 2 against world 1 (the ranks holding unequal token counts).
+   Speech2Token with two replicas on the card: fp32-exact tokens equal to
+   one replica's, bf16 main-path launches exact per replica, the first
+   request's kernel calls against their plain versions, codes differing
+   only at near-ties, each replica its own packed weights.
+
 The line before the last is the card's name and power limit (nvidia-smi),
 the one before it a JSON object of the kernels (with each one's launches in
 the fused training configuration, in the trainer phase's two-epoch run, in
-the TTS phase's zero-shot request, in the FreqCodec main-path requests and
-in the Laura recipe's stages 1 and 3, and the backwards' times); the last
+the TTS phase's zero-shot request, in the FreqCodec main-path requests, in
+the Laura recipe's stages 1 and 3 and in the data-parallel phase, and the
+backwards' times); the last
 line is
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
 """
@@ -1007,16 +1027,18 @@ NO_DRAWS = dict(kmeans_init=False, quantize_dropout=False, expiry_mode="referenc
 STEADY = dict(kmeans_init=False)  # initialized codebooks; the recipe's dropout and expiry
 
 
-def build_trainer(dev, shared: bool, dtype, seed: int = 0, **quantizer):
+def build_trainer(dev, shared: bool, dtype, seed: int = 0, group=None, optim: str = "adam", **quantizer):
     """The flagship generator and discriminator from the yaml (quantizer_conf
-    overridden by `quantizer`), their Adam optimizers from optim_conf and
-    optim2_conf, a train state and its step."""
+    overridden by `quantizer`), their optimizers (Adam, or `optim`) at
+    optim_conf's and optim2_conf's rates, a train state and its step (over a
+    data `group`, or one process)."""
     config = load_config(str(FLAGSHIP_YAML))
     config["quantizer_conf"].update(quantizer)
     model, disc = build_codec_model(config, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
-    opts = [make_optimizer(lr=c["lr"], betas=tuple(c["betas"])) for c in (config["optim_conf"], config["optim2_conf"])]
+    opts = [make_optimizer(lr=c["lr"], betas=tuple(c["betas"]), name=optim)
+            for c in (config["optim_conf"], config["optim2_conf"])]
     state = create_gan_train_state(model, disc, *opts)
-    return state, make_gan_train_step(model, disc, *opts, shared_forward=shared, compute_dtype=dtype)
+    return state, make_gan_train_step(model, disc, *opts, shared_forward=shared, compute_dtype=dtype, group=group)
 
 
 def _train_speech(dev, batch: int, seed: int = 40) -> torch.Tensor:
@@ -1945,7 +1967,7 @@ def _recorded_seanet_calls():
 
     def recording(kernel, fn):
         def wrapper(x, *args, **kwargs):
-            calls.append((kernel, fn, x.clone(), args, kwargs))
+            calls.append((kernel, fn, x.detach().clone(), args, kwargs))
             return fn(x, *args, **kwargs)
 
         return wrapper
@@ -3283,6 +3305,476 @@ def tts_profile(dev) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# data-parallel phase
+# ---------------------------------------------------------------------------
+
+DP_DIR = OUT_DIR / "dp"
+DP_STEPS = 3  # checked steps of each GAN run
+DP_TIMED = 3  # steps timed after them
+DP_W1_TIMED = 6  # steady steps timed at world 1, with and without the group
+DP_LAURA_STEPS = 2
+DP_LAURA_B, DP_LAURA_TEXT, DP_LAURA_CODEC = 8, 64, 200
+DP_RTOL, DP_ATOL = 2e-4, 2e-5  # tests/test_dp_exactness.py's tolerance
+# world 2 against world 1 trains with SGD, as tests/test_dp_exactness.py does: Adam turns
+# the sign of a near-zero gradient's rounding noise into a step of its whole rate. Its
+# quantizer is STEADY (initialized codebooks; the recipe's dropout and expiry draws): at
+# 1024 codes over B x 128 frames, k-means init forks on near-ties that the latents'
+# rounding (B = 8 against 16) flips; its global draws are held exactly by
+# tests/test_torch_dp.py on the CPU, and world 1 through NCCL runs it bit for bit
+DP_OPTIM = "sgd"
+DP_SERVE_REQUESTS = 2
+DP_RANKS_TIMEOUT_S = 600
+
+
+class ScanCodes:
+    """Inside `with`, the codes of every nearest-codeword search of RVQ
+    training (quant/rvq.py calls nearest_codebook_indices by name: the EMA
+    scan's layers, k-means' Lloyd iterations) go to `codes`, (N,) int32 on
+    the host. With `forced` (such a list, over the global rows), the i-th
+    search returns forced[i] in place of its own, and `flips` and `gap`
+    count its own codes that differ and the largest distance gap at one of
+    them in fp64, |d(x, e_forced) - d(x, e_own)| over the scale of the
+    fp32 distances, (|x| + max(|e_forced|, |e_own|))^2 (a deep layer's
+    residual is far shorter than its codewords)."""
+
+    def __init__(self, forced=None):
+        self.forced, self.codes, self.flips, self.gap = forced, [], 0, 0.0
+        self._inner = None
+
+    def _search(self, x, embed):
+        own = self._inner(x, embed)
+        if self.forced is None:
+            self.codes.append(own.cpu())
+            return own
+        f = self.forced[len(self.codes)].to(own.device)
+        self.codes.append(f)
+        differ = (own != f).nonzero().flatten()
+        if differ.numel():
+            xs = x[differ].double()
+            e_f, e_o = embed[f[differ].long()].double(), embed[own[differ].long()].double()
+            d_f, d_o = ((xs - e_f) ** 2).sum(-1), ((xs - e_o) ** 2).sum(-1)
+            scale = (xs.norm(dim=-1) + torch.maximum(e_f.norm(dim=-1), e_o.norm(dim=-1))) ** 2
+            self.flips += differ.numel()
+            self.gap = max(self.gap, float(((d_f - d_o).abs() / scale.clamp_min(1e-30)).max()))
+        return f
+
+    def __enter__(self):
+        self._inner, rvq.nearest_codebook_indices = rvq.nearest_codebook_indices, self._search
+        return self
+
+    def __exit__(self, *exc):
+        rvq.nearest_codebook_indices = self._inner
+
+
+def dp_gan(dev, dtype, speech, group=None, timed: int = 0, record: bool = False, optim: str = "adam",
+           scan=None, **quantizer):
+    """DP_STEPS shared steps of the flagship with both SEANet flags (the
+    recipe's quantizer unless `quantizer` overrides it, the yaml's Adam
+    unless `optim`) on `speech` (this rank's rows), step i drawing from
+    step_generator(dev, 0, i), each step's launches TRAIN_EXPECT, inside
+    the context `scan` (a ScanCodes); then `timed` more steps, timed.
+    Returns (the state's tensors on the host after the checked steps (as
+    _gan_tensors), their stats, ms a timed step or None, the first step's
+    SEANet kernel calls when `record`)."""
+    expect = TRAIN_EXPECT
+    _set_seanet_flags(True)
+    state, step = build_trainer(dev, True, dtype, group=group, optim=optim, **quantizer)
+    stats, calls = [], []
+    with scan or contextlib.nullcontext():
+        for i in range(DP_STEPS):
+            before = read_counts()
+            with (_recorded_seanet_calls() if record and i == 0 else contextlib.nullcontext([])) as rec:
+                state, s = step(state, {"speech": speech}, step_generator(dev, 0, i))
+            calls += rec
+            launched = {k: v - before[k] for k, v in read_counts().items()}
+            if launched != expect:
+                raise RuntimeError(f"dp step {i} ({group.backend if group else 'no group'}): launches {launched}, "
+                                   f"expected {expect}")
+            stats.append(_floats(s))
+    checked = _gan_tensors(state)
+    ms = None
+    if timed:
+        _sync(dev)
+        t0 = time.perf_counter()
+        for i in range(DP_STEPS, DP_STEPS + timed):
+            state, _ = step(state, {"speech": speech}, step_generator(dev, 0, i))
+        _sync(dev)
+        ms = (time.perf_counter() - t0) / timed * 1e3
+    _set_seanet_flags(False)
+    return checked, stats, ms, calls
+
+
+def _gan_tensors(state) -> dict:
+    """The generator's (codebooks included) and the discriminator's state, on the host."""
+    return {**{f"model.{k}": v.detach().cpu().clone() for k, v in state.model.state_dict().items()},
+            **{f"disc.{k}": v.detach().cpu().clone() for k, v in state.discriminator.state_dict().items()}}
+
+
+def _same_on_ranks(tensors, group) -> bool:
+    """Whether every rank holds rank 0's tensors bit for bit: their bytes in
+    one buffer, rank 0's broadcast and compared."""
+    mine = torch.cat([t.detach().contiguous().reshape(-1).view(torch.uint8) for t in tensors])
+    theirs = mine.clone()
+    torch.distributed.broadcast(theirs, 0)
+    return bool(torch.equal(mine, theirs))
+
+
+def _dp_close(got: dict, want: dict, what: str) -> dict:
+    """Each tensor of `got` within DP_RTOL / DP_ATOL of `want`'s: element by
+    element, but each codeword of the codebook sums and codebooks (``embed``,
+    ``embed_avg``) as one vector, ||g - w|| <= DP_ATOL sqrt(D) + DP_RTOL ||w||:
+    a codeword of norm 70-590 carries its latents' rounding (about 1e-6 of
+    its norm between B = 8 and B = 16 on the card) into entries that cancel
+    to 1e-4 of it. Returns {"parameters", "codebooks"}: the largest share of
+    the tolerance."""
+    worst = {"parameters": 0.0, "codebooks": 0.0}
+    for k, w in want.items():
+        g, w = got[k].double(), w.double()
+        if not w.numel():
+            continue
+        if k.endswith(("rq.model.embed", "rq.model.embed_avg")):
+            r = float(((g - w).norm(dim=-1) / (DP_ATOL * w.shape[-1] ** 0.5 + DP_RTOL * w.norm(dim=-1))).max())
+        else:
+            r = float(((g - w).abs() / (DP_ATOL + DP_RTOL * w.abs())).max())
+        if not r <= 1.0:
+            raise RuntimeError(f"{what} {k}: {r:.3f} of the tolerance (rtol {DP_RTOL}, atol {DP_ATOL})")
+        part = "codebooks" if ".rq.model." in k else "parameters"
+        worst[part] = max(worst[part], r)
+    return worst
+
+
+def _dp_stats_close(got, want, what: str) -> float:
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        for k in w:
+            r = abs(g[k] - w[k]) / (DP_ATOL + DP_RTOL * abs(w[k]))
+            if not r <= 1.0:
+                raise RuntimeError(f"{what} step {i} {k}: {g[k]} against {w[k]}")
+            worst = max(worst, r)
+    return worst
+
+
+def _dp_laura_batch(n_tokens: int) -> dict:
+    """DP_LAURA_B seeded rows (token-id text, 32-group codec) of ragged
+    lengths, so that the ranks' halves hold unequal token counts."""
+    rs = np.random.RandomState(66)
+    return dict(text=rs.randint(2, n_tokens, (DP_LAURA_B, DP_LAURA_TEXT)),
+                text_lengths=rs.randint(DP_LAURA_TEXT // 2, DP_LAURA_TEXT + 1, DP_LAURA_B),
+                codec=rs.randint(0, 1024, (DP_LAURA_B, DP_LAURA_CODEC, 32)),
+                codec_lengths=rs.randint(DP_LAURA_CODEC // 2, DP_LAURA_CODEC + 1, DP_LAURA_B))
+
+
+def dp_laura(dev, group=None):
+    """DP_LAURA_STEPS fp32 Laura trainer steps at full width (the shipped
+    yaml, the recipe's token list, seeded weights; SGD at lr 1e-2 with clip
+    5, as tests/test_dp_exactness.py's Laura run) on _dp_laura_batch,
+    bucketed whole and cut to this rank's rows. Returns (state, stats, this
+    rank's codec tokens)."""
+    import yaml
+
+    from funcodec_tpu_torch.tasks.text2audio import build_laura_model
+    from funcodec_tpu_torch.train.laura_trainer import LauraTrainer, LauraTrainerOptions
+
+    tokens = [t.strip() for t in LAURA_TOKENS.read_text().splitlines() if t.strip()]
+    model = build_laura_model(yaml.safe_load(TTS_YAML.read_text()), token_list=tokens, device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(0))
+    options = LauraTrainerOptions(optim=DP_OPTIM, optim_conf={"lr": 1e-2}, scheduler=None, grad_clip=5.0)
+    trainer = LauraTrainer(model, options, group=group)
+    state = trainer.init_state()
+    host = _dp_laura_batch(len(tokens))
+    stats = []
+    for i in range(DP_LAURA_STEPS):
+        batch = trainer.to_device(host)
+        state, s = trainer.train_step(state, batch, step_generator(dev, 0, i))
+        stats.append(_floats(s))
+    return state, stats, int(batch["codec_lengths"].sum())
+
+
+def _dp_rank(rank: int, world: int, init_method: str, device: str, out_dir: str) -> None:
+    """One rank of the phase's gloo group, all on one card (NCCL refuses two
+    ranks on one device; gloo moves CUDA tensors through the host). fp32
+    with TF32 off: the flagship's GAN steps (SGD, initialized codebooks)
+    on its half of the batch with its codebook searches' codes recorded,
+    its kernel calls held against their plain versions, then the Laura
+    steps; rank 0 saves the states, every rank its codes and numbers."""
+    from funcodec_tpu_torch.parallel import dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    group = dist.init_process_group(dev, init_method=init_method, world_size=world, rank=rank, backend="gloo",
+                                    timeout_s=DP_RANKS_TIMEOUT_S)
+    try:
+        speech = dist.local_rows(_train_speech(dev, TRAIN_B), group)
+        reset_counts()
+        scan = ScanCodes()
+        gan, stats, ms, calls = dp_gan(dev, None, speech, group=group, timed=DP_TIMED, record=True, optim=DP_OPTIM,
+                                       scan=scan, **STEADY)
+        counts = read_counts()
+        held = _held_calls(calls, f"dp rank {rank}")
+        same_gan = _same_on_ranks(list(gan.values()), group)
+        if rank == 0:
+            torch.save(gan, Path(out_dir) / "gan_rank0.pt")
+        torch.save(scan.codes, Path(out_dir) / f"codes_rank{rank}.pt")
+        del calls, gan
+        torch.cuda.empty_cache()
+        lstate, lstats, ltokens = dp_laura(dev, group)
+        laura = {k: v.detach().cpu().clone() for k, v in lstate.model.state_dict().items()}
+        same_laura = _same_on_ranks(list(laura.values()), group)
+        if rank == 0:
+            torch.save(laura, Path(out_dir) / "laura_rank0.pt")
+        result = dict(rank=rank, rows=int(speech.shape[0]), stats=stats, ms=ms, launches=counts, held=held,
+                      same_gan=same_gan, laura_stats=lstats, same_laura=same_laura, laura_tokens=ltokens,
+                      jax_imported="jax" in sys.modules or "funcodec_tpu" in sys.modules)
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(result))
+    finally:
+        dist.destroy_process_group(group)
+
+
+def _dp_world1(rank: int, world: int, init_method: str, device: str, out_dir: str) -> None:
+    """World 1 through NCCL against no group, in a process of its own with
+    torch's deterministic algorithms (cuBLAS' fixed workspace comes from the
+    parent's environment; warn_only: reflection_pad1d's backward has no
+    deterministic version, and its atomics add at most two terms an
+    element, which commute): otherwise the bf16 step's backward is not
+    bit-reproducible from run to run, with or without a group. The bf16
+    shared steps with both SEANet flags and the recipe's quantizer,
+    launches exact, first without a group, then with; saves what it
+    found."""
+    from funcodec_tpu_torch.parallel import dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    dev = torch.device(device)
+    speech = _train_speech(dev, TRAIN_B, seed=47)
+    ref_tensors, ref_stats, _, _ = dp_gan(dev, torch.bfloat16, speech)
+    group = dist.init_process_group(dev, init_method=init_method, world_size=world, rank=rank)
+    try:
+        reset_counts()
+        got, stats, _, _ = dp_gan(dev, torch.bfloat16, speech, group=group)
+        _sync(dev)
+        counts = read_counts()
+        differ = [k for k in ref_tensors if not torch.equal(ref_tensors[k], got[k])]
+        result = dict(backend=group.backend, launches=counts, n_tensors=len(ref_tensors), differ=differ,
+                      stats_equal=stats == ref_stats, cublas_workspace=os.environ.get("CUBLAS_WORKSPACE_CONFIG"),
+                      generator_values=sum(v.numel() for k, v in ref_tensors.items() if k.startswith("model.")),
+                      jax_imported="jax" in sys.modules or "funcodec_tpu" in sys.modules)
+        (Path(out_dir) / "world1.json").write_text(json.dumps(result))
+    finally:
+        dist.destroy_process_group(group)
+
+
+def _replica_packs(s2t) -> list:
+    """Per replica: the data_ptr of its first fused conv's packed weight, of
+    its first resblock pack and of its prepared codebooks (None where absent)."""
+    out = []
+    for m in s2t.replicas:
+        conv = next((p._conv1d_s1_pack[1]["w"].data_ptr() for p in m.parameters() if hasattr(p, "_conv1d_s1_pack")),
+                    None)
+        rb = next((mod._resblock_pack[1]["w1"].data_ptr() for mod in m.modules() if hasattr(mod, "_resblock_pack")),
+                  None)
+        hit = rvq_kernel._PREPARED.get(id(m.quantizer.state.embed))
+        out.append((conv, rb, None if hit is None else hit[2]["arranged"].data_ptr()))
+    return out
+
+
+def _merged_rvq_calls(calls):
+    """The replicas' recorded RVQ calls of one request as one call (rows joined)."""
+    return [(torch.cat([c[0] for c in calls]), torch.cat([c[1] for c in calls], dim=1), calls[0][2])]
+
+
+def dp_serving(dev, config) -> dict:
+    """Speech2Token with two replicas on one card against one replica on
+    B = 8 x 10 s requests: fp32-exact tokens equal; bf16 on the main path
+    with FUSED_RVQ, exact launches (each replica a request's, on its 4
+    rows), the first request's kernel calls held against their plain
+    versions, codes that differ only at near-ties (_code_flips, VALID_REL),
+    and each replica's own packed weights and prepared codebooks."""
+    requests = [_speech(80 + i, 8, 10.0) for i in range(DP_SERVE_REQUESTS)]
+    res = {}
+    conv_ops.FUSED_STRIDE1 = conv_ops.FUSED_RESBLOCK = rvq.FUSED_RVQ = False
+    one, two = (Speech2Token(config, None, dtype="float32", device=dev),
+                Speech2Token(config, None, dtype="float32", data_parallel=2, devices=[dev, dev]))
+    for i, x in enumerate(requests):
+        a, b = one(x, bit_width=None), two(x, bit_width=None)
+        if not np.array_equal(a[0][0], b[0][0]) or a[2].shape != b[2].shape:
+            raise RuntimeError(f"dp serving fp32 request {i}: two replicas' tokens differ from one replica's")
+    res["fp32_recon_max_abs_diff"] = float(np.abs(a[2] - b[2]).max())
+    del one, two
+    one, two = (Speech2Token(config, None, dtype="bfloat16", device=dev),
+                Speech2Token(config, None, dtype="bfloat16", data_parallel=2, devices=[dev, dev]))
+    set_flags(MAIN_PATH)
+    one(requests[0], bit_width=None)  # packs built
+    flips = n_codes = 0
+    gap = 0.0
+    counts = dict.fromkeys(COUNTERS, 0)  # the two replicas' requests
+    for i, x in enumerate(requests):
+        with _rvq_calls() as c1:
+            a = one(x, bit_width=None)
+        _sync(dev)
+        reset_counts()
+        with _rvq_calls() as c2, (_recorded_seanet_calls() if i == 0 else contextlib.nullcontext([])) as sc, \
+                (_recorded_rvq_calls() if i == 0 else contextlib.nullcontext([])) as rc:
+            b = two(x, bit_width=None)
+        launched = read_counts()
+        if i == 0:
+            held = _held_calls(sc, "dp replica")
+            held["rvq_encode"] = _held_rvq(rc, "dp replica")
+            del sc, rc
+        counts = {k: counts[k] + launched[k] for k in counts}
+        want = {k: 2 * v for k, v in EXPECT[MAIN_PATH].items()}
+        if launched != want or len(c2) != 2:
+            raise RuntimeError(f"dp serving bf16 request {i}: launches {launched} over {len(c2)} replica calls, "
+                               f"expected {want} over 2")
+        _check_output(f"dp serving request {i}", b[0], b[2], 32)
+        n_f, n, g = _code_flips(c1, _merged_rvq_calls(c2))
+        flips, n_codes, gap = flips + n_f, n_codes + n, max(gap, g)
+    packs = _replica_packs(two)
+    conv_ops.FUSED_STRIDE1 = conv_ops.FUSED_RESBLOCK = rvq.FUSED_RVQ = False
+    if any(p is None for pk in packs for p in pk) or any(x == y for x, y in zip(*packs)):
+        raise RuntimeError(f"dp serving: the replicas' packed weights / prepared codebooks {packs} are missing or "
+                           "shared")
+    if gap > VALID_REL:
+        raise RuntimeError(f"dp serving: {flips} of {n_codes} bf16 codes differ between one and two replicas, "
+                           f"the largest distance gap {gap:.3e} is past {VALID_REL:.0e}")
+    log(f"[dp] Speech2Token(data_parallel=2, devices=[{dev}, {dev}]) on {DP_SERVE_REQUESTS} requests of B=8 x 10 s: "
+        f"fp32-exact tokens equal to one replica's (recon max|diff| {res['fp32_recon_max_abs_diff']:.3e}); bf16 main "
+        f"path with FUSED_RVQ: launches {counts} (each replica a request's on its 4 rows), {flips} of {n_codes} codes "
+        f"differ from one replica's (largest distance gap {gap:.3e}, limit {VALID_REL:.0e}); the first request's "
+        f"kernel calls against their plain versions: max|err| {held}; each replica its own packed weights and "
+        f"prepared codebooks")
+    res.update(launches=counts, code_flips=flips, codes=n_codes, flip_gap=gap, max_abs_err=held)
+    return res
+
+
+def _allreduce_ms(params, group, iters: int = 20) -> float:
+    """ms of one all_reduce_mean of gradients shaped like `params`."""
+    from funcodec_tpu_torch.parallel.dist import all_reduce_mean
+
+    grads = [torch.randn_like(p) for p in params]
+    return _cuda_ms(lambda: all_reduce_mean(grads, group), iters)
+
+
+def dp_phase(dev, card: str) -> dict:
+    """Data parallelism (parallel/dist.py) on the one card: the flagship's
+    bf16 fused GAN steps at world 1 through an NCCL group against no group
+    (bit for bit, exact launches; ms a step of each and of the gradient
+    all_reduce); fp32 at world 2 through gloo on the card against world 1
+    (ranks bit for bit, within JAX's DP tolerance), with the Laura trainer
+    at full width; two serving replicas on the card."""
+    from funcodec_tpu_torch.parallel import dist
+
+    t0 = time.perf_counter()
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    DP_DIR.mkdir(parents=True)
+    res = {}
+    speech = _train_speech(dev, TRAIN_B, seed=47)
+
+    # 1. world 1: an NCCL group of one against no group, bit for bit (a deterministic process of its
+    # own), then the steady step's ms with and without the group and the gradient all_reduce's here
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"  # read by the spawned process's cuBLAS
+    try:
+        dist.spawn_ranks(_dp_world1, 1, (dist.file_init_method(DP_DIR), str(dev), str(DP_DIR)),
+                         timeout_s=DP_RANKS_TIMEOUT_S)
+    finally:
+        del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+    w1 = json.loads((DP_DIR / "world1.json").read_text())
+    if w1["differ"] or not w1["stats_equal"] or w1["jax_imported"]:
+        raise RuntimeError(f"dp world 1 ({w1['backend']}): {len(w1['differ'])} of {w1['n_tensors']} tensors differ "
+                           f"from no group's ({w1['differ'][:4]}), stats equal: {w1['stats_equal']}")
+    group = dist.init_process_group(dev, init_method=dist.file_init_method(DP_DIR), world_size=1, rank=0)
+    try:
+        state, _ = build_trainer(dev, True, torch.bfloat16, **STEADY)
+        ar = dict(generator=_allreduce_ms(list(state.model.parameters()), group),
+                  discriminator=_allreduce_ms(list(state.discriminator.parameters()), group))
+        del state
+        torch.cuda.empty_cache()
+        steady = {}
+        for name, g in (("no group", None), (f"{group.backend} world 1", group)):
+            _, _, ms, _ = dp_gan(dev, torch.bfloat16, speech, group=g, timed=DP_W1_TIMED, **STEADY)
+            steady[name] = ms
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group(group)
+    log(f"[dp] world 1 through {w1['backend']}: bf16 shared steps with both SEANet flags at B={TRAIN_B} x "
+        f"{TRAIN_SECONDS} s, the recipe's quantizer, deterministic algorithms: {DP_STEPS} steps bit for bit the "
+        f"no-group path's ({w1['n_tensors']} tensors, stats equal), launches {w1['launches']} ({TRAIN_EXPECT} a "
+        f"step); default algorithms, steady ms a step over {DP_W1_TIMED}: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in steady.items())
+        + f"; all_reduce_mean of the gradients {ar['generator']:.3f} ms (generator) + {ar['discriminator']:.3f} ms "
+          f"(discriminator) ({card})")
+    res["world1"] = dict(w1, ms_per_step=steady, allreduce_ms=ar)
+
+    # 2. world 2 through gloo on the card (spawned ranks), against world 1 fp32
+    ranks_dev = str(dev)
+    t_spawn = time.perf_counter()
+    dist.spawn_ranks(_dp_rank, 2, (dist.file_init_method(DP_DIR), ranks_dev, str(DP_DIR)),
+                     timeout_s=DP_RANKS_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t_spawn
+    ranks = [json.loads((DP_DIR / f"rank{r}.json").read_text()) for r in range(2)]
+    if any(r["jax_imported"] for r in ranks):
+        raise RuntimeError("a dp rank imported JAX")
+    want_launches = {k: (DP_STEPS + DP_TIMED) * v for k, v in TRAIN_EXPECT.items()}
+    for r in ranks:
+        if not (r["same_gan"] and r["same_laura"]) or r["launches"] != want_launches:
+            raise RuntimeError(f"dp rank {r['rank']}: states equal to rank 0's: GAN {r['same_gan']}, Laura "
+                               f"{r['same_laura']}; launches {r['launches']}, expected {want_launches}")
+    reset_counts()
+    # world 1 searches its codebooks itself but takes the ranks' codes (their rows joined), so that
+    # a code flipped at a near-tie (the latents differ in rounding) does not fork the trajectories
+    rank_codes = [torch.load(DP_DIR / f"codes_rank{r}.pt", weights_only=True) for r in range(2)]
+    forced = ScanCodes([torch.cat(c) for c in zip(*rank_codes)])
+    one, one_stats, one_ms, _ = dp_gan(dev, None, _train_speech(dev, TRAIN_B), timed=DP_TIMED, optim=DP_OPTIM,
+                                       scan=forced, **STEADY)
+    if len(forced.codes) != len(forced.forced) or forced.gap > VALID_REL:
+        raise RuntimeError(f"dp GAN: world 1 made {len(forced.codes)} codebook searches against the ranks' "
+                           f"{len(forced.forced)}; {forced.flips} of its own codes differ from the ranks', the "
+                           f"largest distance gap {forced.gap:.3e} (limit {VALID_REL:.0e})")
+    gan_worst = _dp_close(torch.load(DP_DIR / "gan_rank0.pt", weights_only=True), one, "dp GAN")
+    gan_stats_worst = _dp_stats_close(ranks[0]["stats"], one_stats, "dp GAN")
+    del one
+    torch.cuda.empty_cache()
+    lone, lone_stats, _ = dp_laura(dev)
+    laura_worst = _dp_close(torch.load(DP_DIR / "laura_rank0.pt", weights_only=True),
+                            {k: v.detach().cpu() for k, v in lone.model.state_dict().items()}, "dp Laura")
+    laura_stats_worst = _dp_stats_close(ranks[0]["laura_stats"], lone_stats, "dp Laura")
+    if ranks[0]["laura_tokens"] == ranks[1]["laura_tokens"]:
+        raise RuntimeError("dp Laura: the ranks' rows hold equal codec token counts; the denominators go untested")
+    del lone
+    torch.cuda.empty_cache()
+    held = {k: max(r["held"][k] for r in ranks) for k in ranks[0]["held"]}
+    log(f"[dp] world 2 through gloo on one card (two processes on {ranks_dev}; NCCL refuses two ranks on one "
+        f"device), fp32, TF32 off, global B={TRAIN_B}: GAN ranks bit for bit equal, {DP_STEPS} steps within "
+        f"{gan_worst['parameters']:.3f} (parameters), {gan_worst['codebooks']:.3f} (codebooks, each codeword) and "
+        f"{gan_stats_worst:.3f} (stats) of the rtol {DP_RTOL} / atol {DP_ATOL} "
+        f"tolerance of world 1 (SGD at the yaml's rates; world 1 on the ranks' codes of its {len(forced.codes)} "
+        f"codebook searches: {forced.flips} of its own differ, the largest distance gap {forced.gap:.3e}, limit "
+        f"{VALID_REL:.0e}); launches per rank {ranks[0]['launches']}; each rank's first-step kernel calls "
+        f"against their plain versions: max|err| {held}; ms a step (steps {DP_STEPS + 1}-{DP_STEPS + DP_TIMED}): "
+        f"gloo world 2 on one card {ranks[0]['ms']:.1f} (rank 1 {ranks[1]['ms']:.1f}), world 1 no group "
+        f"{one_ms:.1f}. Laura at full width, {DP_LAURA_STEPS} steps at B={DP_LAURA_B} (ranks' codec tokens "
+        f"{[r['laura_tokens'] for r in ranks]}): ranks bit for bit equal, within "
+        f"{laura_worst['parameters']:.3f} (states) and "
+        f"{laura_stats_worst:.3f} (stats) of the tolerance; ranks' wall {spawn_s:.1f} s ({card})")
+    res["world2"] = dict(backend="gloo", device=ranks_dev, ranks=ranks, gan_worst=gan_worst, searches=len(forced.codes),
+                         code_flips=forced.flips, flip_gap=forced.gap,
+                         gan_stats_worst=gan_stats_worst, laura_worst=laura_worst,
+                         laura_stats_worst=laura_stats_worst, world1_fp32_ms=one_ms, held=held, ranks_s=spawn_s)
+
+    # 3. serving replicas on the card
+    res["serving"] = dp_serving(dev, _flagship_config())
+    res["launches"] = {k: w1["launches"][k] + res["serving"]["launches"][k] for k in COUNTERS}
+    res["max_abs_err"] = {k: max(held.get(k, 0.0), res["serving"]["max_abs_err"].get(k, 0.0))
+                          for k in res["serving"]["max_abs_err"]}
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"[dp] phase {res['phase_s']:.1f} s; launches (the NCCL world-1 steps and the replicas' requests) "
+        f"{res['launches']}")
+    return res
+
+
 def main() -> int:
     dev = check_device()
     card = card_line(CARD)
@@ -3309,6 +3801,7 @@ def main() -> int:
     tts = tts_phase(dev, card)
     freq = freq_phase(dev, card)
     laura = laura_phase(dev, card)
+    dp = dp_phase(dev, card)
     if "funcodec_tpu" in sys.modules or ("jax" in sys.modules and not _JAX_PRELOADED):
         raise RuntimeError("the port imported JAX or the JAX package")
 
@@ -3319,7 +3812,8 @@ def main() -> int:
         copy_ceiling_bytes_per_s=ceiling, cli=cli_stats, training=dict(
             configs=train_results, launches=train_counts, fused_gradients=fused_grads, backward=backward_rows,
             backward_max_relative_error=backward_errs, forward_max_abs_error=train_fwd_errs,
-            card_vs_cpu=card_cpu, timing=train_rows), trainer=trainer, tts=tts, freqcodec=freq, laura=laura),
+            card_vs_cpu=card_cpu, timing=train_rows), trainer=trainer, tts=tts, freqcodec=freq, laura=laura,
+        data_parallel=dp),
         indent=1))
     conv_main = _summed([r for r in conv_rows if r["main_path"]])
     conv_main["library_ms"] = sum(r["library_ms"] for r in conv_rows if r["main_path"])
@@ -3360,7 +3854,8 @@ def main() -> int:
             plain_ms=probe_plain[torch.bfloat16], bound_ms=row["bound_ms"], bound_by="bytes",
             library_ms=row["library_ms"]))
     # the training phase's fused steps, the trainer phase's two-epoch run, a TTS request, the
-    # FreqCodec main-path requests (gr8 and gr1), the Laura recipe's stages 1 and 3
+    # FreqCodec main-path requests (gr8 and gr1), the Laura recipe's stages 1 and 3, the
+    # data-parallel phase's NCCL world-1 steps and serving replicas
     for k in kernels:
         k["training_launches"] = train_counts.get(k["name"], 0)
         k["trainer_launches"] = trainer["launches"].get(k["name"], 0)
@@ -3373,6 +3868,9 @@ def main() -> int:
         k["laura_launches"] = laura["launches"].get(k["name"], 0)
         if k["name"] in laura["max_abs_err"]:
             k["laura_max_abs_err"] = laura["max_abs_err"][k["name"]]
+        k["dp_launches"] = dp["launches"].get(k["name"], 0)
+        if k["name"] in dp["max_abs_err"]:  # the gloo ranks' own calls against the plain version
+            k["dp_max_abs_err"] = dp["max_abs_err"][k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,9 @@ byte-compatible with the JAX pipeline's: codecs.txt json lines
 codec embeddings, ``{uttid}.wav`` reconstructions (peak-rescaled PCM16).
 
 One process drives one GPU, named by ``device`` (default "cuda"; pass "cpu"
-to run on the CPU). Utterances are length-sorted into wrap-padded buckets;
+to run on the CPU), or with ``data_parallel`` N one model replica on each of
+N cards (or on an explicit ``devices`` list), each serving a contiguous
+block of every batch's rows. Utterances are length-sorted into wrap-padded buckets;
 CUDA work is queued asynchronously, so the main thread dispatches batch i+1
 before it collects batch i (``collect`` is the only synchronising copy),
 while a reader pool decodes the next batches and a writer thread and wav pool
@@ -20,6 +22,7 @@ write the last ones.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import logging
 import math
@@ -67,8 +70,15 @@ class Speech2Token:
     break the fp32 path's token exactness.
 
     The positional arguments mean what they mean in the JAX package.
-    `data_parallel` is clamped to the visible cards (-1: all of them); more
-    than one card is served by one process per GPU, which is not ported yet.
+    `data_parallel` N serves one batch over N cards from this one process,
+    as the JAX package's "data" mesh does: one replica of the model on each
+    card (the same weights), each given a contiguous block of the batch's
+    rows, every replica dispatched before any is collected, so the cards
+    overlap; no collective. A batch whose size N does not divide is padded
+    by repeating its last row, and collect() strips the pad rows. N is
+    clamped to the visible cards (-1: all of them). `devices` names the
+    replicas' devices explicitly (then N is their count): two or four
+    replicas on one card, or on the CPU, serve the same tokens.
     """
 
     def __init__(
@@ -81,6 +91,7 @@ class Speech2Token:
         data_parallel: int = 1,
         *,
         device: Union[str, torch.device] = "cuda",
+        devices: Optional[Sequence[Union[str, torch.device]]] = None,
     ):
         if dtype not in ("float32", "bfloat16"):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
@@ -88,10 +99,18 @@ class Speech2Token:
             self.config = dict(config_file)
         else:
             self.config = load_config(config_file)
-        self.device = resolve_device(device)
+        if devices is not None:
+            self.devices = [resolve_device(d) for d in devices]
+            if not self.devices:
+                raise ValueError("devices names no device")
+        else:
+            dev = resolve_device(device)
+            n = _clamp_data_parallel(data_parallel, dev)
+            self.devices = [dev] if n == 1 else [torch.device("cuda", i) for i in range(n)]
+        self.device = self.devices[0]
+        self.data_parallel = len(self.devices)
         self.sampling_rate = sampling_rate
         self.bit_width = bit_width
-        self.data_parallel = _clamp_data_parallel(data_parallel, self.device)
         self.dtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
         if self.dtype == torch.float32:
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -117,6 +136,9 @@ class Speech2Token:
             with torch.no_grad():
                 for p in self.model.parameters():
                     p.data = p.data.to(torch.bfloat16)
+        # a copy of its own on every other device (on the same card too: the
+        # kernels' packed weights are cached on each replica's tensors)
+        self.replicas = [self.model] + [copy.deepcopy(self.model).to(d) for d in self.devices[1:]]
 
     @property
     def hop_length(self) -> int:
@@ -127,16 +149,17 @@ class Speech2Token:
         q = self.model.quantizer.cfg
         return (q.sampling_rate // q.encoder_hop_length) * int(math.log2(q.codebook_size))
 
-    def _to_device(self, a, dtype=None) -> torch.Tensor:
-        """A host batch on the device. From numpy the copy goes through pinned
+    @staticmethod
+    def _to_device(a, device: torch.device, dtype=None) -> torch.Tensor:
+        """A host batch on `device`. From numpy the copy goes through pinned
         memory without blocking, so it does not wait for the batches already
         queued on the card."""
         t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
         if dtype is not None and t.device.type == "cpu":
             t = t.to(dtype)
-        if self.device.type == "cuda" and t.device.type == "cpu":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(device=self.device, dtype=dtype or t.dtype)
+        if device.type == "cuda" and t.device.type == "cpu":
+            return t.pin_memory().to(device, non_blocking=True)
+        return t.to(device=device, dtype=dtype or t.dtype)
 
     def dispatch(
         self,
@@ -157,22 +180,46 @@ class Speech2Token:
 
         pcm16_ilens: per-utterance valid sample counts; when given, the
         reconstruction is peak-rescaled and rounded to int16 on the device,
-        so collect() copies 2-byte PCM rather than 4-byte floats."""
+        so collect() copies 2-byte PCM rather than 4-byte floats.
+
+        With several replicas the batch (padded to a multiple of their count
+        by repeating its last row) is split into contiguous blocks, one a
+        replica, each dispatched before any is collected; the out dict then
+        holds the replicas' outs and the pad's row count."""
         if run_mod not in RUN_MODS:
             raise ValueError(run_mod)
         if bit_width is _UNSET:
             bit_width = self.bit_width
-        model = self.model
+        if len(self.replicas) == 1:
+            return self._dispatch(self.model, self.device, speech, need_recon, bit_width, use_scale, run_mod,
+                                  pcm16_ilens)
+        n, rows = len(self.replicas), len(speech)
+        pad = (-rows) % n
+        if pad:
+            if isinstance(speech, torch.Tensor):
+                speech = torch.cat([speech, speech[-1:].expand(pad, *speech.shape[1:])])
+            else:
+                speech = np.concatenate([speech, np.repeat(np.asarray(speech)[-1:], pad, axis=0)])
+            if pcm16_ilens is not None:
+                pcm16_ilens = list(pcm16_ilens) + [pcm16_ilens[-1]] * pad
+        b = len(speech) // n
+        outs = [self._dispatch(m, d, speech[i * b:(i + 1) * b], need_recon, bit_width, use_scale, run_mod,
+                               None if pcm16_ilens is None else pcm16_ilens[i * b:(i + 1) * b])
+                for i, (m, d) in enumerate(zip(self.replicas, self.devices))]
+        return {"_replicas": outs, "_row_pad": pad, "_rows": rows}
+
+    def _dispatch(self, model, device, speech, need_recon, bit_width, use_scale, run_mod, pcm16_ilens):
+        """One replica's share of dispatch()."""
         with torch.inference_mode():
             if run_mod == "decode":
                 nq = None
                 if bit_width is not None:
                     nq = int(max(bit_width // self.bits_per_quant, 1))
-                out = model.inference_decoding(self._to_device(speech, torch.int64)[:, :, :nq])
+                out = model.inference_decoding(self._to_device(speech, device, torch.int64)[:, :, :nq])
             elif run_mod == "decode_emb":
-                out = model.inference_decoding_emb(self._to_device(speech))
+                out = model.inference_decoding_emb(self._to_device(speech, device))
             else:
-                x = self._to_device(speech)
+                x = self._to_device(speech, device)
                 if x.dtype == torch.int16:
                     x = x.float() * (1.0 / 32768.0)
                 x = x.to(self.dtype)
@@ -191,7 +238,11 @@ class Speech2Token:
     def collect(out: Dict[str, Any], need_sub_quants: bool = True):
         """Copy a dispatched batch to the host: (code_indices [int32 (n_q, B, T)],
         code_embeddings (device tensors), recon, sub_quants). recon is int16
-        PCM if the batch was dispatched with pcm16_ilens, else float32 (B, T)."""
+        PCM if the batch was dispatched with pcm16_ilens, else float32 (B, T).
+        The replicas' blocks are joined in row order (the code embeddings on
+        the first replica's device) and the pad rows stripped."""
+        if "_replicas" in out:
+            return _joined([Speech2Token.collect(o, need_sub_quants) for o in out["_replicas"]], out["_rows"])
         codes = out.get("code_indices")
         if codes is not None and codes[0] is not None:
             codes = [c.cpu().numpy().astype(np.int32) for c in codes]
@@ -230,12 +281,30 @@ def _clamp_data_parallel(data_parallel: Optional[int], device: torch.device) -> 
     if dp > n_dev:
         logging.warning("data_parallel=%d > %d visible devices; clamping", dp, n_dev)
         dp = n_dev
-    if dp > 1:
-        raise NotImplementedError(
-            f"data_parallel={dp}: serving over more than one card becomes one process per GPU "
-            "in a later slice of the port (ROADMAP.md queue 1 item 10)"
-        )
     return dp
+
+
+def _joined(parts, n: int):
+    """The replicas' collected (codes, code embeddings, recon, sub_quants),
+    joined along the batch rows and cut to the batch's `n` rows."""
+
+    def rows(arrays, axis: int):
+        return np.concatenate(arrays, axis=axis)[(slice(None),) * axis + (slice(0, n),)]
+
+    def frames(k: int, axis: int):
+        first = parts[0][k]
+        if first is None or first[0] is None:
+            return first
+        return [rows([p[k][f] for p in parts], axis) for f in range(len(first))]
+
+    embs = parts[0][1]
+    if embs:
+        dev = embs[0][0].device
+        embs = [(torch.cat([p[1][f][0].to(dev) for p in parts])[:n],
+                 None if embs[f][1] is None else torch.cat([p[1][f][1].to(dev) for p in parts])[:n])
+                for f in range(len(embs))]
+    recon = None if parts[0][2] is None else rows([p[2] for p in parts], 0)
+    return frames(0, 1), embs, recon, frames(3, 1)
 
 
 def pcm16(recon: torch.Tensor, ilens) -> torch.Tensor:
@@ -570,7 +639,8 @@ def inference_pipeline(
 
 
 def get_parser() -> argparse.ArgumentParser:
-    parser = argparse.ArgumentParser(description="codec inference on one CUDA card (or the CPU)")
+    parser = argparse.ArgumentParser(
+        description="codec inference on one CUDA card, a replica on each of --data_parallel cards, or the CPU")
     parser.add_argument("--output_dir", type=str, required=True)
     parser.add_argument("--config_file", type=str, required=True)
     parser.add_argument("--model_file", type=str, required=True)
@@ -593,8 +663,8 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--num_writer_threads", type=int, default=None,
                         help="wav encode/write workers (default: cpu count, <= 16)")
     parser.add_argument("--data_parallel", type=int, default=1,
-                        help="cards to serve on (-1: all visible); clamped to the visible cards, and "
-                             "more than one is not ported yet")
+                        help="cards to serve on, one model replica each (-1: all visible); clamped to the "
+                             "visible cards")
     parser.add_argument("--stat_flops", action="store_true",
                         help="print the per-layer FLOPs/params tree before running (not ported yet)")
     parser.add_argument("--device", type=str, default="cuda",

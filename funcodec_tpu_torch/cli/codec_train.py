@@ -5,28 +5,52 @@ Behavioral reference: funcodec/bin/codec_train.py:9-48 +
 GANSpeechCodecTask.main_worker (tasks/abs_task.py:1152-1442): build model
 from config, dump the resolved config.yaml (round-trip contract), train.
 
-One process trains on one device, the card unless ``--device cpu`` asks for
-the CPU (a CUDA device without a card raises; there is no fallback):
+Data-parallel training, one process per card (the reference forks one
+process per GPU; the JAX package drives all local chips through a "data"
+mesh). The world size is the largest count of the visible cards, or of
+``--data_parallel`` processes, that divides the batch (``make_mesh``'s
+rule); each rank trains on its block of every batch (train/gan_trainer.py).
+On the card unless ``--device cpu`` asks for the CPU (a CUDA device without
+a card raises; there is no fallback):
 
     python -m funcodec_tpu_torch.cli.codec_train --config conf.yaml \\
         --output_dir exp/ --train_wav_scp train/wav.scp \\
         --valid_wav_scp dev/wav.scp [--train_dtype bfloat16]
 
+Started plainly it spawns one process per rank on this host (NCCL over the
+cards; gloo with ``--device cpu --data_parallel N``). Under ``torchrun`` (its
+environment: RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR) each process joins
+as its rank on cuda:LOCAL_RANK, which is also how several hosts train:
+
+    torchrun --nproc_per_node 8 -m funcodec_tpu_torch.cli.codec_train ...
+
 It writes {epoch}epoch.pth weights, checkpoint.pth (the resumable train
 state), the latest.pth and valid.<key>.best.pth links, reporter.json and
-validation wav dumps; run again with a higher --max_epoch, it resumes.
+validation wav dumps (rank 0 alone); run again with a higher --max_epoch,
+it resumes.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 from pathlib import Path
+from typing import Optional
 
 import torch
 
 from funcodec_tpu_torch.data.dataset import CodecDataset
 from funcodec_tpu_torch.data.preprocessor import CodecPreprocessor
+from funcodec_tpu_torch.parallel.dist import (
+    DataGroup,
+    data_world_size,
+    destroy_process_group,
+    file_init_method,
+    init_process_group,
+    is_writer,
+    spawn_ranks,
+)
 from funcodec_tpu_torch.tasks.codec import build_codec_model, load_config, resolve_device
 from funcodec_tpu_torch.train.gan_trainer import GANCodecTrainer, TrainerOptions
 
@@ -104,7 +128,8 @@ def options_from_config(args, config) -> TrainerOptions:
 
 
 def get_parser() -> argparse.ArgumentParser:
-    parser = argparse.ArgumentParser(description="codec training on one CUDA card (or the CPU)")
+    parser = argparse.ArgumentParser(
+        description="data-parallel codec training, one process per CUDA card (or gloo processes on the CPU)")
     parser.add_argument("--config", type=str, required=True)
     parser.add_argument("--output_dir", type=str, required=True)
     parser.add_argument("--train_wav_scp", type=str, required=True)
@@ -133,38 +158,96 @@ def get_parser() -> argparse.ArgumentParser:
                              "params, bf16 forward/backward (train/step.py)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to train on (default cuda; 'cpu' for the CPU)")
+    parser.add_argument("--data_parallel", type=int, default=-1,
+                        help="the most processes to train in (-1: every visible card; one on the CPU); "
+                             "the world size is the largest count up to it that divides the batch")
     return parser
 
 
-def main(argv=None):
-    """Train as the command line says. Returns (trainer, train state): after
-    training, or as built with --dry_run; None with --print_config."""
+def _resolved(argv):
+    """(args, config): the command line and the config with its overrides."""
     args = get_parser().parse_args(argv)
-
-    logging.basicConfig(
-        level=logging.INFO,
-        format="%(asctime)s (%(module)s:%(lineno)d) %(levelname)s: %(message)s",
-    )
     if args.stat_flops:
         raise NotImplementedError(
             "--stat_flops needs utils/misc.codec_flops_tree, which is not ported yet (ROADMAP.md item 22)"
         )
-
     config = load_config(args.config)
     for field in ("seed", "max_epoch", "num_iters_per_epoch", "batch_size"):
         v = getattr(args, field)
         if v is not None:
             config[field] = v
+    return args, config
 
+
+def _logging(group: Optional[DataGroup]) -> None:
+    rank = "" if group is None else f"[rank {group.rank}/{group.world}] "
+    logging.basicConfig(
+        level=logging.INFO,
+        format=f"%(asctime)s {rank}(%(module)s:%(lineno)d) %(levelname)s: %(message)s",
+    )
+
+
+def world_size(batch_size: int, device: torch.device, data_parallel: int) -> int:
+    """make_mesh's rule: the largest process count up to the visible cards
+    (on the CPU: one) and up to `data_parallel` (-1: no cap) that divides
+    the batch."""
+    visible = torch.cuda.device_count() if device.type == "cuda" else None
+    if data_parallel is None or data_parallel < 0:
+        cap = visible or 1
+    else:
+        cap = max(1, min(data_parallel, visible) if visible is not None else data_parallel)
+    return data_world_size(batch_size, cap)
+
+
+def main(argv=None):
+    """Train as the command line says. One process (world 1): returns
+    (trainer, train state) after training, or as built with --dry_run.
+    Several: under torchrun, this rank's (trainer, state); started plainly,
+    it spawns the ranks, waits for them and returns None. None with
+    --print_config."""
+    args, config = _resolved(argv)
     if args.print_config:
         import sys
 
         import yaml
 
         yaml.safe_dump(config, sys.stdout)
-        return
+        return None
+    if "WORLD_SIZE" in os.environ and "RANK" in os.environ:  # torchrun
+        group = init_process_group(None if args.device == "cuda" else args.device)
+        try:
+            return train(args, config, group)
+        finally:
+            destroy_process_group(group)
+    world = world_size(config.get("batch_size", 16), torch.device(args.device), args.data_parallel)
+    if world == 1:
+        return train(args, config, None)
+    Path(args.output_dir).mkdir(parents=True, exist_ok=True)
+    spawn_ranks(_rank_main, world, (argv, file_init_method(args.output_dir), torch.get_num_threads()))
+    return None
 
-    device = resolve_device(args.device)
+
+def _rank_main(rank: int, world: int, argv, init_method: str, host_threads: int) -> None:
+    """One spawned rank: cuda:rank (NCCL), or the CPU (gloo) with the host's
+    threads split over the ranks."""
+    args, config = _resolved(argv)
+    if args.device == "cpu":
+        device = torch.device("cpu")
+        torch.set_num_threads(max(1, host_threads // world))
+    else:
+        device = torch.device("cuda", rank)
+    group = init_process_group(device, init_method=init_method, world_size=world, rank=rank)
+    try:
+        train(args, config, group)
+    finally:
+        destroy_process_group(group)
+
+
+def train(args, config, group: Optional[DataGroup]):
+    """Build the model, the data and the trainer on this rank's device and
+    train (or stop after building, with --dry_run). Returns (trainer, state)."""
+    _logging(group)
+    device = group.device if group is not None else resolve_device(args.device)
     options = options_from_config(args, config)
     model, discriminator = build_codec_model(
         config, device=device, generator=torch.Generator(device=device).manual_seed(options.seed)
@@ -172,22 +255,24 @@ def main(argv=None):
 
     out = Path(args.output_dir)
     out.mkdir(parents=True, exist_ok=True)
-    # config round-trip: the dumped file reconstructs the model at inference
-    # (abs_task.py:1282-1297)
-    import yaml
+    if is_writer(group):
+        # config round-trip: the dumped file reconstructs the model at
+        # inference (abs_task.py:1282-1297)
+        import yaml
 
-    with open(out / "config.yaml", "w") as f:
-        yaml.safe_dump(config, f)
+        with open(out / "config.yaml", "w") as f:
+            yaml.safe_dump(config, f)
 
     train_ds, valid_ds = build_datasets(args, config)
     logging.info("train: %d utts, valid: %d utts", len(train_ds), len(valid_ds))
 
-    trainer = GANCodecTrainer(model, discriminator, options)
+    trainer = GANCodecTrainer(model, discriminator, options, group=group)
     state = trainer.init_state()
     logging.info(
-        "generator: %d parameters, discriminator: %d, on %s",
+        "generator: %d parameters, discriminator: %d, on %s%s",
         sum(p.numel() for p in model.parameters()),
         sum(p.numel() for p in discriminator.parameters()), device,
+        "" if group is None else f", data-parallel rank {group.rank} of {group.world} ({group.backend})",
     )
     if args.dry_run:
         logging.info("--dry_run: model and data built, exiting before training")

@@ -18,15 +18,23 @@ seed and epoch, and a resumed run the crops of an uninterrupted one.
 
 Not valid with RIR/noise augmentation or per-crop normalization (those are
 per-crop host transforms); the trainer refuses the combination.
+
+Under data parallelism every rank stages the whole corpus (a replica, as
+the JAX package replicates it over the mesh), draws the offsets of the
+whole batch from the same epoch-seeded RNG, and cuts the crops of its own
+block of the rows (``parallel.dist.local_rows``), so the ranks' crops are
+one process's, split.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Iterator, List, Sequence, Tuple, Union
+from typing import Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+
+from funcodec_tpu_torch.parallel.dist import DataGroup, local_rows
 
 
 def gather_crops(cache: torch.Tensor, idx: torch.Tensor, off: torch.Tensor, crop_len: int) -> torch.Tensor:
@@ -114,9 +122,11 @@ class DeviceCachedCrops:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
-    def epoch_loader(self, batches: Sequence[Sequence[str]], epoch: int):
+    def epoch_loader(self, batches: Sequence[Sequence[str]], epoch: int, group: Optional[DataGroup] = None):
         """Yield (keys, {"speech": (B, crop_len) crops on the card}) for each
-        batch of uttids, cut at ``epoch_offsets``."""
+        batch of uttids, cut at ``epoch_offsets``: this rank's rows of each
+        batch under a data `group`."""
         for keys, (idx, off) in zip(batches, self.epoch_offsets(batches, epoch)):
+            idx, off = local_rows(idx, group), local_rows(off, group)
             speech = gather_crops(self.cache, self._upload(idx), self._upload(off), self.crop_len)
-            yield list(keys), {"speech": speech}
+            yield local_rows(list(keys), group), {"speech": speech}

@@ -50,6 +50,33 @@ class TextCleaner:
         return text
 
 
+def load_num_sequence_text(
+    path: Union[Path, str], loader_type: str = "csv_int"
+) -> Dict[str, List[Union[float, int]]]:
+    """`utt 1,2,3` shape/number files -> dict (fileio/read_text.py:40-90):
+    loader_type text_int / text_float (space-separated) or csv_int /
+    csv_float (comma-separated)."""
+    if loader_type == "text_int":
+        delimiter, dtype = " ", int
+    elif loader_type == "text_float":
+        delimiter, dtype = " ", float
+    elif loader_type == "csv_int":
+        delimiter, dtype = ",", int
+    elif loader_type == "csv_float":
+        delimiter, dtype = ",", float
+    else:
+        raise ValueError(f"Not supported loader_type={loader_type}")
+    out: Dict[str, List[Union[float, int]]] = {}
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            parts = line.rstrip("\n").split(maxsplit=1)
+            if not parts:
+                continue
+            value = parts[1] if len(parts) == 2 else ""
+            out[parts[0]] = [dtype(v) for v in value.split(delimiter) if v != ""]
+    return out
+
+
 class CharTokenizer:
     def __init__(self, space_symbol: str = "<space>", non_linguistic_symbols=()):
         self.space_symbol = space_symbol

@@ -12,6 +12,14 @@ FreqCodec's phase-invariant training). They return the RVQ state
 the step advanced to without writing the buffers; train/step.py commits it.
 Recon, mel and loss reductions are fp32; the discriminator runs in the
 reconstruction's type.
+
+Under data parallelism the training forwards take the rank's
+``parallel.dist.DataGroup`` (None: one process) and this rank's equal block
+of the batch's rows. Each turn's loss terms (batch means) pass through one
+``global_mean``, so that their values, the enc-quant loss (the square of
+the global MSE) and the discriminator's gate are the global batch's on
+every rank, and the ranks' mean gradient is the global loss's; the
+quantizer's statistics and PhaseAug's draws are the global batch's too.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ import torch.nn.functional as F
 from funcodec_tpu_torch.models.quantizer import Quantizer
 from funcodec_tpu_torch.models.seanet import SEANetDecoder, SEANetEncoder
 from funcodec_tpu_torch.ops.stft import audio_to_mel, phase_aug
+from funcodec_tpu_torch.parallel.dist import DataGroup, global_mean
 from funcodec_tpu_torch.quant.rvq import RVQTensors
 
 Discriminator = Union[nn.Module, Callable[[torch.Tensor], List[Tuple[torch.Tensor, List[torch.Tensor]]]]]
@@ -210,24 +219,26 @@ class Encodec(nn.Module):
         return getattr(self, method)(*args, **kwargs)
 
     def _reconstruct(self, speech: torch.Tensor, generator: torch.Generator,
-                     rvq_state: Optional[RVQTensors] = None, training: bool = True):
-        """encode -> RVQ -> decode. Returns (recon (B, T), aux).
+                     rvq_state: Optional[RVQTensors] = None, training: bool = True,
+                     group: Optional[DataGroup] = None):
+        """encode -> RVQ -> decode. Returns (recon (B, T), aux); aux's
+        enc_quant_mses holds each frame's latent MSE, this rank's (the
+        enc-quant loss squares the global ones).
 
         training=False (validation) runs the eval quantizer: no EMA update,
         no dropout, commit 0, the state unchanged."""
         state = self.quantizer.state.tensors() if rvq_state is None else rvq_state
-        commit_losses, enc_quant_losses, codes = [], [], []
+        commit_losses, mses, codes = [], [], []
         all_indices, all_sub_quants, all_embs = [], [], []
         for emb, scale in self._encode(speech):
             if training:
-                quant_out, indices, commit, sub_quants, state = self.quantizer.train_forward(emb, generator, state)
+                quant_out, indices, commit, sub_quants, state = self.quantizer.train_forward(
+                    emb, generator, state, group=group)
             else:
                 quant_out, indices, sub_quants = self.quantizer.inference(emb)
                 commit = torch.zeros((), device=emb.device)
             commit_losses.append(commit)
-            # the MSE, squared (the reference's enc_quant_loss)
-            mse = (quant_out.float() - emb.float()).square().mean()
-            enc_quant_losses.append(mse**2)
+            mses.append((quant_out.float() - emb.float()).square().mean())
             codes.append((quant_out, scale))
             all_indices.append(indices)
             all_sub_quants.append(sub_quants)
@@ -235,7 +246,7 @@ class Encodec(nn.Module):
         recon = self._decode(codes)[..., : speech.shape[-1]]
         aux = dict(
             commit_loss=torch.stack(commit_losses).sum(),
-            enc_quant_loss=torch.stack(enc_quant_losses).sum(),
+            enc_quant_mses=torch.stack(mses),
             indices=all_indices,
             sub_quants=all_sub_quants,
             embs=all_embs,
@@ -265,20 +276,24 @@ class Encodec(nn.Module):
         return total / len(cfg.multi_spectral_window_powers_of_two)
 
     def forward_generator(self, discriminator: Discriminator, speech: torch.Tensor, generator: torch.Generator,
-                          rvq_state: Optional[RVQTensors] = None, training: bool = True):
+                          rvq_state: Optional[RVQTensors] = None, training: bool = True,
+                          group: Optional[DataGroup] = None):
         """The generator turn: (loss, out) with out = {stats, rvq_state,
         gen_loss (detached, the disc gate's carry), real, fake}.
         Differentiate with respect to the generator's parameters; the
         discriminator's parameters carry no gradient here."""
         orig = speech.float()
-        recon, aux = self._reconstruct(speech, generator, rvq_state, training=training)
-        return self._generator_losses(discriminator, orig, recon, aux)
+        recon, aux = self._reconstruct(speech, generator, rvq_state, training=training, group=group)
+        return self._generator_losses(discriminator, orig, recon, aux, group=group)
 
-    def _generator_losses(self, discriminator: Discriminator, orig: torch.Tensor, recon: torch.Tensor, aux):
+    def _generator_losses(self, discriminator: Discriminator, orig: torch.Tensor, recon: torch.Tensor, aux,
+                          group: Optional[DataGroup] = None):
         """The generator's losses from a reconstruction: L1, multi-spectral,
         hinge adversarial and feature matching against the real signal's
-        fmaps (computed without grad), commit and enc-quant. The
-        discriminator sees the reconstruction in its compute type."""
+        fmaps (computed without grad), commit and enc-quant (each frame's
+        latent MSE, squared). The discriminator sees the reconstruction in
+        its compute type. The terms are the global batch's (one
+        global_mean)."""
         cfg = self.cfg
         disc = _without_param_grad(discriminator)
         disc_in_dtype = recon.dtype
@@ -299,13 +314,17 @@ class Encodec(nn.Module):
                     feat_losses.append((rf - ff).abs().float().mean())
         adversarial_loss = torch.stack(adv_losses).mean()
         feat_match_loss = torch.stack(feat_losses).mean()
+        terms = global_mean(torch.stack([recon_loss, multi_spectral, adversarial_loss, feat_match_loss,
+                                         aux["commit_loss"], *aux["enc_quant_mses"]]), group)
+        recon_loss, multi_spectral, adversarial_loss, feat_match_loss, commit_loss = terms[:5]
+        enc_quant_loss = terms[5:].square().sum()
         gen_loss = (
             recon_loss * cfg.recon_loss_weight
             + multi_spectral * cfg.multi_spectral_recon_loss_weight
             + adversarial_loss * cfg.adversarial_loss_weight
             + feat_match_loss * cfg.feat_match_loss_weight
         )
-        loss = gen_loss + aux["commit_loss"] + aux["enc_quant_loss"] * cfg.enc_quant_loss_weight
+        loss = gen_loss + commit_loss + enc_quant_loss * cfg.enc_quant_loss_weight
         zero = torch.zeros((), device=orig.device)
         stats = {k: v.detach() for k, v in dict(
             context_loss=zero,
@@ -315,31 +334,32 @@ class Encodec(nn.Module):
             generator_multi_spectral_recon_loss=multi_spectral,
             generator_adv_loss=adversarial_loss,
             generator_feat_match_loss=feat_match_loss,
-            generator_commit_loss=aux["commit_loss"],
-            generator_enc_quant_loss=aux["enc_quant_loss"],
+            generator_commit_loss=commit_loss,
+            generator_enc_quant_loss=enc_quant_loss,
         ).items()}
         out = dict(stats=stats, rvq_state=aux["rvq_state"], gen_loss=gen_loss.detach(), real=orig, fake=recon)
         return loss, out
 
     def forward_discriminator(self, discriminator: Discriminator, speech: torch.Tensor, generator: torch.Generator,
                               gen_loss_carry: torch.Tensor, rvq_state: Optional[RVQTensors] = None,
-                              training: bool = True):
+                              training: bool = True, group: Optional[DataGroup] = None):
         """The discriminator turn: the generator's forward without grad (its
         quantizer in train mode, so the EMA advances), then
         ``_discriminator_losses``. Returns (loss, out) with the new RVQ state."""
         with torch.no_grad():
-            recon, aux = self._reconstruct(speech, generator, rvq_state, training=training)
+            recon, aux = self._reconstruct(speech, generator, rvq_state, training=training, group=group)
         loss, out = self._discriminator_losses(discriminator, speech.to(recon.dtype), recon, gen_loss_carry,
-                                               training=training, generator=generator)
+                                               training=training, generator=generator, group=group)
         out["rvq_state"] = aux["rvq_state"]
         return loss, out
 
     def _discriminator_losses(self, discriminator: Discriminator, orig: torch.Tensor, fake: torch.Tensor,
                               gen_loss_carry: torch.Tensor, training: bool = True,
-                              generator: Optional[torch.Generator] = None):
+                              generator: Optional[torch.Generator] = None, group: Optional[DataGroup] = None):
         """Hinge loss on real and (detached) fake, in fp32; in training it is
         gated to 0 while the discriminator already wins (disc_loss <=
-        gen_loss_carry).
+        gen_loss_carry). The losses and the gate are the global batch's (one
+        global_mean).
 
         With ``phase_invariant_training`` (FreqCodec) the discriminator is
         also penalized for telling a phase-rotated copy of the real signal
@@ -358,12 +378,10 @@ class Encodec(nn.Module):
             F.relu(1.0 - r.float()).mean() + F.relu(1.0 + f.float()).mean()
             for (r, _), (f, _) in zip(real_outs, fake_outs)
         ]).mean()
-        mask = (disc_loss > gen_loss_carry).to(disc_loss.dtype) if training else None
-        loss = disc_loss * mask if training else disc_loss
-        stats = dict(discriminator_total_loss=loss, discriminator_loss=disc_loss)
+        terms = [disc_loss]
         if pit:
             with torch.no_grad():
-                real_aug = phase_aug(orig, generator)
+                real_aug = phase_aug(orig, generator, group=group)
             aug_outs = discriminator(real_aug)
             pit_losses = []
             for (r_logits, r_fmap), (a_logits, a_fmap) in zip(real_outs, aug_outs):
@@ -371,7 +389,14 @@ class Encodec(nn.Module):
                        for i, (r, a) in enumerate(zip(r_fmap, a_fmap)) if i >= cfg.feat_match_layer_start]
                 pit_losses.append((r_logits - a_logits).abs().mean()
                                   + torch.stack(fls).mean() * cfg.pit_feat_loss_weight)
-            pit_disc_loss = torch.stack(pit_losses).mean()
+            terms.append(torch.stack(pit_losses).mean())
+        terms = global_mean(torch.stack(terms), group)
+        disc_loss = terms[0]
+        mask = (disc_loss > gen_loss_carry).to(disc_loss.dtype) if training else None
+        loss = disc_loss * mask if training else disc_loss
+        stats = dict(discriminator_total_loss=loss, discriminator_loss=disc_loss)
+        if pit:
+            pit_disc_loss = terms[1]
             if training:
                 pit_disc_loss = pit_disc_loss * mask
             loss = loss + pit_disc_loss * cfg.pit_disc_loss_weight

@@ -25,6 +25,14 @@ SpecAug spans of ops/augment.py, the scheduled sampler's uniforms) come from
 an explicit ``torch.Generator``; ``prob_sampler`` also takes the uniforms
 and ``_aug_segment`` the spans, so a caller can replay jax.random's.
 Straight-through estimators are written ``x + (y - x).detach()``.
+
+Under data parallelism ``forward`` takes the rank's
+``parallel.dist.DataGroup`` (None: one process) and this rank's equal
+block of a batch bucketed as a whole. Its denominators are the global
+batch's, as in JAX: the NLL's and the regression loss's numerators and
+denominators and the accuracies go through one ``global_sum``, so a rank
+whose rows hold fewer tokens weighs less, and the draws are made at the
+global batch's shape, each rank keeping its rows.
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ from funcodec_tpu_torch.models.transformer import (
     _is_meta,
 )
 from funcodec_tpu_torch.ops.augment import spec_aug, utterance_mvn
+from funcodec_tpu_torch.parallel.dist import DataGroup, draw_rows, global_sum, local_rows, world_of
 
 Sampling = Union[bool, int, float]
 TIME_WARP = ("apply_time_warp", "time_warp_window", "time_warp_mode")  # SpecAug keys spec_aug does not take
@@ -324,21 +333,22 @@ class LauraGenModel(nn.Module):
             h = self.text_enc_out_layer(text)
         return h, text_lengths
 
-    def _aug_segment(self, seg, lengths, conf: dict, generator: Optional[torch.Generator], spans=None):
+    def _aug_segment(self, seg, lengths, conf: dict, generator: Optional[torch.Generator], spans=None,
+                     group: Optional[DataGroup] = None):
         """SpecAug one LM segment on its valid rows, with identity gradients
         (the reference masks under no_grad: values change, the autograd
         graph does not). Spans are drawn over the padded buffer; `spans`
         ((freq_widths, freq_starts), (time_widths, time_starts)) replays
-        given ones."""
+        given ones (at the global batch's shape)."""
         kwargs = {k: tuple(v) if isinstance(v, list) else v for k, v in conf.items() if k not in TIME_WARP}
         freq, time = spans if spans is not None else (None, None)
-        auged = spec_aug(seg, generator, freq_spans=freq, time_spans=time, **kwargs)
+        auged = spec_aug(seg, generator, freq_spans=freq, time_spans=time, group=group, **kwargs)
         valid = make_pad_mask_bool(lengths, seg.shape[1])[..., None]
         auged = torch.where(valid, auged, seg)
         return seg + (auged - seg).detach()
 
     def build_llm_io(self, text, text_lengths, codec=None, codec_lengths=None,
-                     aug: Optional[torch.Generator] = None):
+                     aug: Optional[torch.Generator] = None, group: Optional[DataGroup] = None):
         """[sos, text, task] (+ codec embeddings) LM inputs and their
         lengths. `aug` (training only) turns on the input / output SpecAug
         and the input MVN the model was built with, drawing from it."""
@@ -346,7 +356,7 @@ class LauraGenModel(nn.Module):
         B, Lt = text.shape[0], text.shape[1]
         if aug is not None:
             if self.input_aug_conf is not None:
-                text = self._aug_segment(text, text_lengths, self.input_aug_conf, aug)
+                text = self._aug_segment(text, text_lengths, self.input_aug_conf, aug, group=group)
             if self.input_normalize:
                 valid = make_pad_mask_bool(text_lengths, Lt)[..., None]
                 normed = torch.where(valid, utterance_mvn(text, text_lengths), text)
@@ -360,7 +370,7 @@ class LauraGenModel(nn.Module):
             codec_emb = self.calc_dense_vector(codec, codec_lengths)
             if aug is not None and self.output_aug_conf is not None:
                 # the reference's aug length: input_lengths - speech_len - 2 = Lc - 1
-                codec_emb = self._aug_segment(codec_emb, codec_lengths - 1, self.output_aug_conf, aug)
+                codec_emb = self._aug_segment(codec_emb, codec_lengths - 1, self.output_aug_conf, aug, group=group)
             segments.append(codec_emb)
             seg_lens.append(codec_lengths.long())
             total += codec.shape[1]
@@ -392,12 +402,13 @@ class LauraGenModel(nn.Module):
             inputs = self._apply_split_pe(inputs, speech_lengths)
         return self.codec_lm.decoder(self.codec_lm.encoder(inputs, mask))
 
-    def nll(self, text, text_lengths, codec, codec_lengths, aug: Optional[torch.Generator] = None):
+    def nll(self, text, text_lengths, codec, codec_lengths, aug: Optional[torch.Generator] = None,
+            group: Optional[DataGroup] = None):
         """The first groups' LM loss terms: (nll (B, Lc + 1, nq), logits
         (B, Lc + 1, nq, V), target, y_lengths). `text` is the encoded text."""
         cfg = self.cfg
         B, Lc = codec.shape[0], codec.shape[1]
-        inputs, input_lengths = self.build_llm_io(text, text_lengths, codec, codec_lengths, aug=aug)
+        inputs, input_lengths = self.build_llm_io(text, text_lengths, codec, codec_lengths, aug=aug, group=group)
         y = self._lm_forward(inputs, input_lengths, text_lengths + 1)
         V = cfg.codebook_size + 1
         # logits at positions text_len + 1 .. text_len + 1 + codec_len
@@ -422,11 +433,12 @@ class LauraGenModel(nn.Module):
         return nll, logits, target, y_lengths
 
     def prob_sampler(self, logits, codec, codec_lengths, generator: Optional[torch.Generator],
-                     uniform: Optional[torch.Tensor] = None):
+                     uniform: Optional[torch.Tensor] = None, group: Optional[DataGroup] = None):
         """Scheduled sampling with a straight-through one-hot; logits (B, Lc,
         nq, bins). A predicted group replaces the ground truth where it is
-        correct or where its uniform (drawn from `generator`, or given,
-        (B, Lc, nq)) exceeds codec_sampling_ratio."""
+        correct or where its uniform (drawn from `generator`, or given, at
+        the global batch's shape (B * world, Lc, nq)) exceeds
+        codec_sampling_ratio."""
         cfg = self.cfg
         Lc = logits.shape[1]
         valid = make_pad_mask_bool(codec_lengths, Lc)[:, :, None, None]
@@ -443,9 +455,29 @@ class LauraGenModel(nn.Module):
             return gt * valid
         correct = pred_token == codec
         if uniform is None:
-            uniform = torch.rand(correct.shape, generator=generator, device=logits.device)
+            uniform = draw_rows(lambda n: torch.rand((n, *correct.shape[1:]), generator=generator,
+                                                     device=logits.device), correct.shape[0], group)
+        else:
+            uniform = local_rows(uniform, group)
         use_pred = correct | (~correct & (uniform > cfg.codec_sampling_ratio))
         return torch.where(use_pred[..., None], pred_prob, gt) * valid
+
+    @staticmethod
+    def _reg_sums(prediction, target, lengths) -> torch.Tensor:
+        """The regression loss's masked sums: [sum |d|, sum d^2, mask count] fp32."""
+        d = target.shape[-1]
+        mask = (torch.arange(d, device=target.device)[None, None, :] < lengths[:, None, None]).float()
+        mask = mask.expand(target.shape)
+        diff = prediction - target
+        return torch.stack([(diff.abs() * mask).sum(), (diff ** 2 * mask).sum(), mask.sum()])
+
+    @staticmethod
+    def _reg_loss(sums: torch.Tensor):
+        """(loss, l1, l2) from [sum |d|, sum d^2, mask count]."""
+        denom = sums[2].clamp_min(1.0)
+        l1 = sums[0] / denom
+        l2 = 0.5 * sums[1] / denom
+        return l1 * 0.5 + l2 * 0.5, l1, l2
 
     def calc_reg_loss(self, prediction, target, lengths):
         """Masked 0.5 * L1 + 0.5 * (0.5 * L2): (loss, l1, l2).
@@ -454,42 +486,43 @@ class LauraGenModel(nn.Module):
         the FEATURE axis (d < codec_len), not time, so with codec_len >=
         codebook_dim the mask is all ones and zero-padded time rows count in
         the denominator."""
-        d = target.shape[-1]
-        mask = (torch.arange(d, device=target.device)[None, None, :] < lengths[:, None, None]).float()
-        mask = mask.expand(target.shape)
-        denom = mask.sum().clamp_min(1.0)
-        diff = prediction - target
-        l1 = (diff.abs() * mask).sum() / denom
-        l2 = 0.5 * (diff ** 2 * mask).sum() / denom
-        return l1 * 0.5 + l2 * 0.5, l1, l2
+        return self._reg_loss(self._reg_sums(prediction, target, lengths))
 
     def forward(self, text, text_lengths, codec, codec_lengths,
-                generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                generator: Optional[torch.Generator] = None,
+                group: Optional[DataGroup] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The training loss and its stats; codec (B, Lc, >= predict_nq).
         Draws come from `generator` in order: the SpecAug spans when the
-        model augments, then the sampler's uniforms."""
+        model augments, then the sampler's uniforms. With a data `group`
+        the rows are this rank's block and the loss and stats the global
+        batch's (module docstring)."""
         cfg = self.cfg
         nq = cfg.predict_nq
         codec = codec.long()
         text, text_lengths = self.encode_text(text, text_lengths)
         augments = bool(self.input_aug_conf or self.output_aug_conf or self.input_normalize)
         nll, logits, target, target_lengths = self.nll(
-            text, text_lengths, codec[:, :, :nq], codec_lengths, aug=generator if augments else None)
+            text, text_lengths, codec[:, :, :nq], codec_lengths, aug=generator if augments else None, group=group)
         out_mask = make_pad_mask_bool(target_lengths, nll.shape[1])[..., None]
         denom = out_mask.sum() * nq if cfg.length_normalized_loss else nll.shape[0] * nq
-        nll_loss = (nll * out_mask).sum() / torch.as_tensor(denom, device=nll.device).clamp_min(1)
 
-        prob = self.prob_sampler(logits[:, :-1, :, : cfg.codebook_size], codec[:, :, :nq], codec_lengths, generator)
+        prob = self.prob_sampler(logits[:, :-1, :, : cfg.codebook_size], codec[:, :, :nq], codec_lengths, generator,
+                                 group=group)
         codec_emb, _ = self.cal_codec_emb(text, text_lengths, prob, codec_lengths)
         target_emb = self.calc_dense_vector(codec, codec_lengths)
-        reg_loss, l1, l2 = self.calc_reg_loss(codec_emb, target_emb, codec_lengths)
-        loss = reg_loss + nll_loss
-        stats = dict(loss=loss, nll_loss=nll_loss, reg_loss=reg_loss, reg_l1_loss=l1, reg_l2_loss=l2)
         # per-group accuracy; the reference's quirk is kept: padded positions
         # carry zero logits and target 0, and pads count as correct
         pred = torch.where(out_mask[..., None], logits, 0.0).argmax(dim=-1)
+        accs = [(pred[:, :, i] == target[:, :, i]).float().mean() for i in range(nq)]
+        # numerators, denominators and accuracies of the global batch: one all_reduce
+        sums = global_sum(torch.stack([(nll * out_mask).sum(), torch.as_tensor(denom, device=nll.device).float(),
+                                       *self._reg_sums(codec_emb, target_emb, codec_lengths), *accs]), group)
+        nll_loss = sums[0] / sums[1].clamp_min(1)
+        reg_loss, l1, l2 = self._reg_loss(sums[2:5])
+        loss = reg_loss + nll_loss
+        stats = dict(loss=loss, nll_loss=nll_loss, reg_loss=reg_loss, reg_l1_loss=l1, reg_l2_loss=l2)
         for i in range(nq):
-            stats[f"out_acc_{i + 1}"] = (pred[:, :, i] == target[:, :, i]).float().mean()
+            stats[f"out_acc_{i + 1}"] = sums[5 + i] / world_of(group)
         return loss, stats
 
     # -- AR decode with a KV cache ----------------------------------------------

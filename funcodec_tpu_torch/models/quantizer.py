@@ -17,6 +17,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 
+from funcodec_tpu_torch.parallel.dist import DataGroup
 from funcodec_tpu_torch.quant.rvq import (
     RVQConfig,
     RVQState,
@@ -114,14 +115,15 @@ class Quantizer(nn.Module):
         return self.rvq_cfg.num_quantizers_for_bandwidth(bandwidth)
 
     def train_forward(self, x: torch.Tensor, generator: torch.Generator, state: Optional[RVQTensors] = None,
-                      bandwidth: Optional[float] = None):
+                      bandwidth: Optional[float] = None, group: Optional[DataGroup] = None):
         """(quantized, indices (n_q, B, T), commit loss, sub_quants, new state)
         from `state` (the buffers when None). The commit loss is the mean
-        over all n_q layers, a dropped layer counting 0."""
+        over all n_q layers, a dropped layer counting 0. With a data `group`
+        the codebook statistics are the global batch's (quant/rvq.py)."""
         n_q = self.n_q_for_bandwidth(bandwidth)
         state = self.state.tensors() if state is None else state
         quantized, indices, commits, sub_quants, new_state = rvq_train_forward(
-            self.rvq_cfg, state, self._pre(x), generator, n_q=n_q)
+            self.rvq_cfg, state, self._pre(x), generator, n_q=n_q, group=group)
         return self._post(quantized), indices, commits.mean(), sub_quants, new_state
 
     def inference(self, x: torch.Tensor, bandwidth: Optional[float] = None):

@@ -9,6 +9,11 @@ Spans are drawn from an explicit ``torch.Generator`` (on the tensor's
 device), with jax.random.randint's ranges; each masking function also takes
 the spans themselves (``widths``, ``starts``, each (B, num_mask)), so that a
 caller can replay another package's draw.
+
+Under data parallelism (``group``, a ``parallel.dist.DataGroup``) x is this
+rank's block of the batch's rows; the spans are drawn (or given) at the
+global batch's shape and each rank keeps its rows, so the ranks mask what
+one process masks.
 """
 
 from __future__ import annotations
@@ -17,11 +22,23 @@ from typing import Optional, Tuple
 
 import torch
 
+from funcodec_tpu_torch.parallel.dist import DataGroup, draw_rows, local_rows
+
 Spans = Tuple[torch.Tensor, torch.Tensor]  # (widths, starts), each (B, num_mask)
 
 
-def _draw(shape, low: int, high: int, generator: torch.Generator, device) -> torch.Tensor:
-    return torch.randint(low, high, shape, generator=generator, device=device)
+def _spans(widths, starts, B: int, num_mask: int, width_range: Tuple[int, int], L: int,
+           generator: Optional[torch.Generator], device, group: Optional[DataGroup]):
+    """(widths, starts) of this rank's rows: given at the global shape, or
+    drawn there (widths in [lo, hi), then starts in [0, max(L - 1, 1)))."""
+
+    def draw(low, high):
+        return draw_rows(lambda n: torch.randint(low, high, (n, num_mask), generator=generator, device=device),
+                         B, group)
+
+    widths = draw(*width_range) if widths is None else local_rows(widths, group)
+    starts = draw(0, max(L - 1, 1)) if starts is None else local_rows(starts, group)
+    return widths, starts
 
 
 def _apply_spans(x: torch.Tensor, axis: int, widths: torch.Tensor, starts: torch.Tensor):
@@ -44,14 +61,13 @@ def mask_along_axis(
     num_mask: int,
     widths: Optional[torch.Tensor] = None,
     starts: Optional[torch.Tensor] = None,
+    group: Optional[DataGroup] = None,
 ) -> torch.Tensor:
     """Zero `num_mask` spans along `axis` per batch row: widths in
     [lo, max(hi, lo + 1)), starts in [0, max(L - 1, 1))."""
     B, L = x.shape[0], x.shape[axis]
-    if widths is None:
-        widths = _draw((B, num_mask), width_range[0], max(width_range[1], width_range[0] + 1), generator, x.device)
-    if starts is None:
-        starts = _draw((B, num_mask), 0, max(L - 1, 1), generator, x.device)
+    widths, starts = _spans(widths, starts, B, num_mask, (width_range[0], max(width_range[1], width_range[0] + 1)),
+                            L, generator, x.device, group)
     return _apply_spans(x, axis, widths, starts)[0]
 
 
@@ -64,16 +80,14 @@ def mask_along_axis_variable_max_width(
     return_mask: bool = False,
     widths: Optional[torch.Tensor] = None,
     starts: Optional[torch.Tensor] = None,
+    group: Optional[DataGroup] = None,
 ):
     """MaskAlongAxisVariableMaxWidth: widths drawn up to ratio * L. Returns
     (masked, mask (B, L, 1)) when return_mask."""
     B, L = x.shape[0], x.shape[axis]
     lo = int(mask_width_ratio_range[0] * L)
     hi = max(int(mask_width_ratio_range[1] * L), lo + 1)
-    if widths is None:
-        widths = _draw((B, num_mask), lo, hi, generator, x.device)
-    if starts is None:
-        starts = _draw((B, num_mask), 0, max(L - 1, 1), generator, x.device)
+    widths, starts = _spans(widths, starts, B, num_mask, (lo, hi), L, generator, x.device, group)
     out, mask = _apply_spans(x, axis, widths, starts)
     return (out, mask[..., None]) if return_mask else out
 
@@ -90,18 +104,19 @@ def spec_aug(
     num_time_mask: int = 2,
     freq_spans: Optional[Spans] = None,
     time_spans: Optional[Spans] = None,
+    group: Optional[DataGroup] = None,
 ) -> torch.Tensor:
     """SpecAug without time warp: feature masks, then time masks."""
     if apply_freq_mask:
         x = mask_along_axis(x, generator, axis=2, width_range=freq_mask_width_range, num_mask=num_freq_mask,
-                            **_given(freq_spans))
+                            group=group, **_given(freq_spans))
     if apply_time_mask:
         if time_mask_width_ratio_range is not None:
             x = mask_along_axis_variable_max_width(x, generator, time_mask_width_ratio_range, num_time_mask, axis=1,
-                                                   **_given(time_spans))
+                                                   group=group, **_given(time_spans))
         else:
             x = mask_along_axis(x, generator, axis=1, width_range=time_mask_width_range or (0, 100),
-                                num_mask=num_time_mask, **_given(time_spans))
+                                num_mask=num_time_mask, group=group, **_given(time_spans))
     return x
 
 

@@ -21,6 +21,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from funcodec_tpu_torch.parallel.dist import DataGroup, draw_rows
+
 
 def hann_window(win_length: int, dtype=torch.float32, device=None) -> torch.Tensor:
     """torch.hann_window(periodic=True)."""
@@ -160,6 +162,7 @@ def phase_aug(
     cutoff: float = 0.05,
     kernel_size: int = 128,
     phi: Optional[torch.Tensor] = None,  # (B, n_fft//2+1) explicit rotation
+    group: Optional[DataGroup] = None,
 ) -> torch.Tensor:
     """PhaseAug (arXiv:2211.04610): rotate each frequency bin k of x's STFT
     by phi(k) = mu(k) + delta * pi * k / (K - 1) and resynthesize, so |STFT|
@@ -170,20 +173,23 @@ def phase_aug(
     shape and dtype; the transform runs in fp32.
 
     The draws come from a torch.Generator, not jax.random, so the two
-    packages agree only through an explicit `phi`.
+    packages agree only through an explicit `phi`. With a data `group`, x is
+    this rank's block of the batch, and mu and delta are drawn at the global
+    batch's shape, each rank keeping its rows (as one process draws them).
     """
     B, T = x.shape
     K = n_fft // 2 + 1
     if phi is None:
         dev = x.device
-        mu = math.sqrt(var) * torch.randn(B, K, generator=generator, device=dev)
+        mu = math.sqrt(var) * draw_rows(lambda n: torch.randn(n, K, generator=generator, device=dev), B, group)
         n = torch.arange(kernel_size, dtype=torch.float32, device=dev) - (kernel_size - 1) / 2.0
         kern = 2 * cutoff * torch.sinc(2 * cutoff * n) * hann_window(kernel_size, device=dev)
         kern = kern / kern.sum()
         pad = (kernel_size - 1) // 2
         mu_p = F.pad(mu[:, None], (pad, kernel_size - 1 - pad), mode="replicate")
         mu = F.conv1d(mu_p, kern.flip(0)[None, None])[:, 0]  # np.convolve flips the kernel
-        delta = torch.rand(B, 1, generator=generator, device=dev) * (2 * delta_max) - delta_max
+        delta = draw_rows(lambda n: torch.rand(n, 1, generator=generator, device=dev), B, group)
+        delta = delta * (2 * delta_max) - delta_max
         phi = mu + delta * math.pi * (torch.arange(K, dtype=torch.float32, device=dev)[None, :] / (K - 1))
     phi = phi.float().clone()
     phi[:, 0] = 0.0

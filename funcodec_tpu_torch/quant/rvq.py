@@ -11,6 +11,22 @@ out of place; the train step commits them (``RVQState.commit``) only after
 its finite-gradient gate. Random draws come from an explicit
 ``torch.Generator``, so they differ from jax.random's.
 
+Under data parallelism (a ``parallel.dist.DataGroup``; None is one process)
+each rank holds an equal block of the batch's rows, and the codebook
+statistics are global, as GSPMD makes JAX's ``jnp.sum(onehot, axis=0)``:
+the per-code counts and sums of the EMA, of each Lloyd iteration and of
+the k-means counts are summed over the ranks before they are used; the
+k-means seeds and the expiry rows are drawn over the global rows from the
+generator every rank seeds alike and assembled from the ranks that own
+them (``parallel.dist.gather_rows``); the dropout depth is one draw of that
+generator. Every rank so computes the same codebooks, bit for bit. The
+counts and sums are accumulated in float64 and rounded to fp32 once, so a
+split of the rows over ranks rounds as one process does (accumulated in
+fp32, the reduction order alone moved the EMA sums past JAX's
+data-parallel tolerance within three steps at four ranks). The
+commitment losses stay per-rank means, which the equal blocks make
+average to the global ones.
+
 The fp32 path is the bit-exact scan: plain torch ops, fp32, first-max ties.
 With ``FUSED_RVQ`` on, ``rvq_inference`` runs the codebook search in the
 hand-written CUDA kernel (quant/rvq_kernel.py), with the numerics of the JAX
@@ -26,6 +42,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from funcodec_tpu_torch.parallel.dist import DataGroup, gather_rows, owned_rows, sum_over_ranks, world_of
 
 # Route eval-mode codebook searches through the fused kernel
 # (quant/rvq_kernel.py); the counterpart of funcodec_tpu's rvq.PALLAS_RVQ.
@@ -202,35 +220,50 @@ def rvq_inference(
 # ---------------------------------------------------------------------------
 
 
-def _sample_vectors(generator: torch.Generator, samples: torch.Tensor, num: int) -> torch.Tensor:
-    """`num` rows of samples (N, D): a random permutation's first rows when
-    N >= num, else rows drawn with replacement."""
-    n, dev = samples.shape[0], generator.device
+def _sample_vectors(generator: torch.Generator, samples: torch.Tensor, num: int,
+                    group: Optional[DataGroup] = None) -> torch.Tensor:
+    """`num` rows of the global samples (this rank's block: samples (N, D)):
+    a random permutation's first rows when world * N >= num, else rows
+    drawn with replacement."""
+    n, dev = samples.shape[0] * world_of(group), generator.device
     if n >= num:
         idx = torch.randperm(n, generator=generator, device=dev)[:num]
     else:
         idx = torch.randint(0, n, (num,), generator=generator, device=dev)
-    return samples[idx.to(samples.device)]
+    return gather_rows(samples, idx, group)
 
 
-def lloyd(samples: torch.Tensor, means: torch.Tensor, num_iters: int):
-    """The k-means iterations from `means` (k, D) over samples (N, D), fp32:
-    each mean moves to the average of its nearest samples, or stays where no
-    sample is nearest. Returns (means, counts (k,))."""
+def _code_stats(idx: torch.Tensor, samples: torch.Tensor, k: int, group: Optional[DataGroup]) -> torch.Tensor:
+    """(k, D + 1) fp32: each of the k codes' sum of the samples (N, D) that
+    `idx` (N,) assigns it and, last, their count, over the ranks (one
+    all_reduce). Accumulated in float64 and rounded once, so the sums of
+    any split of the rows over ranks round alike."""
+    onehot = F.one_hot(idx.long(), k).double()
+    stats = torch.cat([onehot.T @ samples.double(), onehot.sum(dim=0)[:, None]], dim=1)
+    return sum_over_ranks(stats, group).float()
+
+
+def lloyd(samples: torch.Tensor, means: torch.Tensor, num_iters: int, group: Optional[DataGroup] = None):
+    """The k-means iterations from `means` (k, D) over the global samples
+    (this rank's block: samples (N, D)), fp32: each mean moves to the
+    average of its nearest samples, or stays where no sample is nearest.
+    Returns (means, counts (k,))."""
     k = means.shape[0]
     for _ in range(num_iters):
-        onehot = F.one_hot(nearest_codebook_indices(samples, means).long(), k).to(samples.dtype)
-        bins = onehot.sum(dim=0)
-        new_means = (onehot.T @ samples) / bins.clamp_min(1.0)[:, None]
+        stats = _code_stats(nearest_codebook_indices(samples, means), samples, k, group)
+        bins = stats[:, -1]
+        new_means = stats[:, :-1] / bins.clamp_min(1.0)[:, None]
         means = torch.where((bins == 0)[:, None], means, new_means)
     idx = nearest_codebook_indices(samples, means)
-    return means, F.one_hot(idx.long(), k).to(samples.dtype).sum(dim=0)
+    return means, sum_over_ranks(F.one_hot(idx.long(), k).to(samples.dtype).sum(dim=0), group)
 
 
-def kmeans(generator: torch.Generator, samples: torch.Tensor, num_clusters: int, num_iters: int):
-    """k-means of samples (N, D) fp32: `num_clusters` rows drawn as the first
-    means, then ``lloyd``. Returns (means (k, D), counts (k,))."""
-    return lloyd(samples, _sample_vectors(generator, samples, num_clusters), num_iters)
+def kmeans(generator: torch.Generator, samples: torch.Tensor, num_clusters: int, num_iters: int,
+           group: Optional[DataGroup] = None):
+    """k-means of the global samples (this rank's block: samples (N, D))
+    fp32: `num_clusters` rows drawn as the first means, then ``lloyd``.
+    Returns (means (k, D), counts (k,))."""
+    return lloyd(samples, _sample_vectors(generator, samples, num_clusters, group), num_iters, group)
 
 
 def _nearest_time_resize(x: torch.Tensor, new_t: int) -> torch.Tensor:
@@ -272,7 +305,8 @@ def _train_one_quantizer(
     embed_avg_q: torch.Tensor,  # (bins, D)
     active: bool,
     generator: torch.Generator,
-    fresh_idx: Optional[torch.Tensor] = None,  # (bins,) rows for effective expiry
+    fresh_idx: Optional[torch.Tensor] = None,  # (bins,) global rows for effective expiry
+    group: Optional[DataGroup] = None,
 ):
     """One codebook's forward and EMA step.
 
@@ -283,25 +317,27 @@ def _train_one_quantizer(
     bins = cfg.codebook_size
     xs = residual.detach().float()
     if cfg.kmeans_init and active and float(inited_q) < 0.5:
-        means, counts = kmeans(generator, xs, bins, cfg.kmeans_iters)
+        means, counts = kmeans(generator, xs, bins, cfg.kmeans_iters, group)
         embed_q, embed_avg_q, cluster_size_q = means, means, counts
         inited_q = torch.ones_like(inited_q)
     idx = nearest_codebook_indices(xs, embed_q)
     quantized = embed_q[idx.long()]
     if not active:
         return quantized, idx, inited_q, cluster_size_q, embed_q, embed_avg_q
-    onehot = F.one_hot(idx.long(), bins).float()
-    cluster, embed, avg = _ema(cfg, cluster_size_q, embed_avg_q, onehot.sum(dim=0), onehot.T @ xs)
+    stats = _code_stats(idx, xs, bins, group)
+    cluster, embed, avg = _ema(cfg, cluster_size_q, embed_avg_q, stats[:, -1], stats[:, :-1])
     if cfg.expiry_mode == "effective":
-        fresh = xs[fresh_idx] if fresh_idx is not None else _sample_vectors(generator, xs, bins)
+        fresh = (gather_rows(xs, fresh_idx, group) if fresh_idx is not None
+                 else _sample_vectors(generator, xs, bins, group))
         cluster, embed, avg = _expire(cfg, cluster, embed, avg, fresh)
     return quantized, idx, inited_q, cluster, embed, avg
 
 
 def _fresh_rows(cfg: RVQConfig, generator: torch.Generator, n_scan: int, N: int, device) -> Optional[torch.Tensor]:
-    """(n_scan, bins) batch rows for effective expiry, drawn once for all
-    layers: windows at random offsets of one shared permutation (distinct
-    rows within a layer), or rows with replacement when N < bins."""
+    """(n_scan, bins) rows of the global batch (N rows) for effective expiry,
+    drawn once for all layers: windows at random offsets of one shared
+    permutation (distinct rows within a layer), or rows with replacement
+    when N < bins."""
     if cfg.expiry_mode != "effective":
         return None
     bins, dev = cfg.codebook_size, generator.device
@@ -314,13 +350,14 @@ def _fresh_rows(cfg: RVQConfig, generator: torch.Generator, n_scan: int, N: int,
     return rows.to(device)
 
 
-def _slow_scan(cfg, state: RVQTensors, flat_sg, start, n_on, generator, fresh):
+def _slow_scan(cfg, state: RVQTensors, flat_sg, start, n_on, generator, fresh, group):
     """The per-layer scan over the active layers, k-means init mid-chain."""
     residual, outs = flat_sg, []
     for i in range(n_on):
         l = start + i
         out = _train_one_quantizer(cfg, residual, state.inited[l], state.cluster_size[l], state.embed[l],
-                                   state.embed_avg[l], True, generator, None if fresh is None else fresh[i])
+                                   state.embed_avg[l], True, generator, None if fresh is None else fresh[i],
+                                   group)
         residual = residual - out[0]
         outs.append(out)
     qs, idxs, inited, cluster, embed, avg = (torch.stack(t) for t in zip(*outs))
@@ -328,7 +365,7 @@ def _slow_scan(cfg, state: RVQTensors, flat_sg, start, n_on, generator, fresh):
 
 
 @torch.no_grad()
-def _fast_scan(cfg, state: RVQTensors, flat_sg, start, n_on, fresh):
+def _fast_scan(cfg, state: RVQTensors, flat_sg, start, n_on, fresh, group):
     """The search over the active layers (distance, argmax, gather,
     subtract), then the EMA and expiry of all of them at once."""
     embed_slice = state.embed[start: start + n_on]
@@ -342,13 +379,17 @@ def _fast_scan(cfg, state: RVQTensors, flat_sg, start, n_on, fresh):
     idxs, qs = torch.stack(idxs), torch.stack(qs)
     N, D = flat_sg.shape
     r_stack = flat_sg[None] - (torch.cumsum(qs, dim=0) - qs)  # each layer's input
-    onehot = F.one_hot(idxs.long(), cfg.codebook_size).float()  # (n, N, bins)
-    r_aug = torch.cat([r_stack, torch.ones(n_on, N, 1, device=flat_sg.device)], dim=-1)
-    sums = torch.bmm(onehot.transpose(1, 2), r_aug)  # [..., :D] per-code sums, [..., D] counts
+    onehot = F.one_hot(idxs.long(), cfg.codebook_size).double()  # (n, N, bins)
+    r_aug = torch.cat([r_stack, torch.ones(n_on, N, 1, device=flat_sg.device)], dim=-1).double()
+    # [..., :D] per-code sums, [..., D] counts, over the ranks; float64, rounded once (_code_stats)
+    sums = sum_over_ranks(torch.bmm(onehot.transpose(1, 2), r_aug), group).float()
     sl = slice(start, start + n_on)
     cluster, embed, avg = _ema(cfg, state.cluster_size[sl], state.embed_avg[sl], sums[..., D], sums[..., :D])
     if fresh is not None:
-        picked = torch.gather(r_stack, 1, fresh[:n_on, :, None].expand(-1, -1, D))
+        local, mine = owned_rows(fresh[:n_on], N, group)
+        picked = torch.gather(r_stack, 1, local[:, :, None].expand(-1, -1, D))
+        if group is not None:
+            picked = sum_over_ranks(torch.where(mine[..., None], picked, torch.zeros_like(picked)), group)
         cluster, embed, avg = _expire(cfg, cluster, embed, avg, picked)
     return idxs, qs, RVQTensors(state.inited[sl], cluster, embed, avg)
 
@@ -369,6 +410,7 @@ def rvq_train_forward(
     x: torch.Tensor,  # (B, T, D)
     generator: torch.Generator,
     n_q: Optional[int] = None,
+    group: Optional[DataGroup] = None,
 ):
     """The RVQ training forward (funcodec_tpu quant/rvq.py rvq_train_forward).
 
@@ -383,7 +425,9 @@ def rvq_train_forward(
 
     Returns (quantized_out (B, T, D) in x's type, indices (n_q, B, T) int32,
     commit_losses (n_q,), sub_quants (n_q, B, T, D) fp32, new state). The
-    new state is computed out of place; `state` is not written.
+    new state is computed out of place; `state` is not written. With a
+    `group`, x is this rank's equal block of the batch and the statistics
+    and draws are the global batch's (module docstring).
     """
     n_q = n_q or cfg.num_quantizers
     B, T, D = x.shape
@@ -404,7 +448,8 @@ def rvq_train_forward(
         t_ds = T // 2
         x_ds = _nearest_time_resize(x32, t_ds).reshape(B * t_ds, D)
         q, idx0, i0, c0, e0, a0 = _train_one_quantizer(
-            cfg, x_ds, state.inited[0], state.cluster_size[0], state.embed[0], state.embed_avg[0], True, generator)
+            cfg, x_ds, state.inited[0], state.cluster_size[0], state.embed[0], state.embed_avg[0], True, generator,
+            group=group)
         q_ste = x_ds + (q - x_ds).detach()
         commit0 = ((q - x_ds) ** 2).mean() * w
         q0_up = _nearest_time_resize(q_ste.reshape(B, t_ds, D), T)
@@ -418,15 +463,15 @@ def rvq_train_forward(
     N = flat.shape[0]
     n_on = max(0, min(cutoff, n_q) - start)  # the active layers of the scan
     flat_sg = flat.detach()
-    fresh = _fresh_rows(cfg, generator, n_scan, N, x.device) if n_scan else None
+    fresh = _fresh_rows(cfg, generator, n_scan, N * world_of(group), x.device) if n_scan else None
     inited_slice = state.inited[start:n_q]
     slow = FORCE_SLOW_SCAN or (cfg.kmeans_init and bool((inited_slice <= 0.5).any()))
     if n_on == 0:
         idxs = qs = rows = None
     elif slow:
-        idxs, qs, rows = _slow_scan(cfg, state, flat_sg, start, n_on, generator, fresh)
+        idxs, qs, rows = _slow_scan(cfg, state, flat_sg, start, n_on, generator, fresh, group)
     else:
-        idxs, qs, rows = _fast_scan(cfg, state, flat_sg, start, n_on, fresh)
+        idxs, qs, rows = _fast_scan(cfg, state, flat_sg, start, n_on, fresh, group)
 
     off = n_scan - n_on
     dev = x.device

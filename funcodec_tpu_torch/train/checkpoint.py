@@ -22,6 +22,11 @@ files and names; the JAX package writes flax msgpack ``.ckpt`` files instead.
 
 Every file is written to a temporary name and moved into place with
 ``os.replace``, so a crash never leaves a half-written checkpoint.
+
+Under data parallelism the ranks hold the same state, so rank 0 alone
+writes (the trainers call the writers there and the other ranks wait at a
+barrier until the files are on disk); every rank resumes from the same
+``checkpoint.pth``.
 """
 
 from __future__ import annotations

@@ -15,6 +15,18 @@ card from the device cache (data/device_cache.py). Each step draws from a
 uninterrupted one draws. Stats are fetched every ``stats_interval`` steps in
 one device-to-host copy. Checkpoints are PyTorch files under the reference's
 names (train/checkpoint.py).
+
+Under data parallelism (``group``, a ``parallel.dist.DataGroup``, the JAX
+trainer's ``mesh``) every rank runs this loop over the same batches and
+loads and trains on its equal block of each batch's rows (the device
+cache's crops are cut for the whole batch, each rank keeping its rows);
+the step's stats are the global batch's on every rank. Validation splits
+each batch into blocks that may differ by a row (a rank without a row
+runs the batch's last one at weight 0) and averages the ranks' stats
+weighted by their rows. Rank 0 alone writes checkpoints, weights,
+reporter.json, tensorboard and validation wavs, and the others wait for
+the files at a barrier; every rank resumes from the same files, and rank 0
+decides early stopping.
 """
 
 from __future__ import annotations
@@ -37,6 +49,16 @@ from funcodec_tpu_torch.data.sampler import (
     shuffle_batches_for_epoch,
     sorted_batches,
     unsorted_batches,
+)
+from funcodec_tpu_torch.parallel.dist import (
+    DataGroup,
+    barrier,
+    broadcast_value,
+    is_writer,
+    local_rows,
+    sum_over_ranks,
+    to_device,
+    world_of,
 )
 from funcodec_tpu_torch.train.checkpoint import (
     load_train_state,
@@ -150,12 +172,14 @@ def _sync(device: torch.device) -> None:
 
 class GANCodecTrainer:
     """Trains `model` and `discriminator` (built by tasks/codec.py on the
-    device they run on) with `options`."""
+    device they run on) with `options`; `group` is this rank's data group
+    (None: one process)."""
 
-    def __init__(self, model, discriminator, options: TrainerOptions):
+    def __init__(self, model, discriminator, options: TrainerOptions, group: Optional[DataGroup] = None):
         self.model = model
         self.discriminator = discriminator
         self.opt = options
+        self.group = group
         self.device = next(model.parameters()).device
         self.reporter = Reporter()
         self._tb = None
@@ -194,6 +218,7 @@ class GANCodecTrainer:
                 torch.bfloat16 if o.train_dtype in ("bfloat16", "bf16") else None
             ),
             shared_forward=o.shared_forward,
+            group=group,
         )
 
     # -- setup ---------------------------------------------------------------
@@ -204,15 +229,6 @@ class GANCodecTrainer:
             self.model, self.discriminator, self.optimizer_g, self.optimizer_d
         )
 
-    def _to_device(self, a) -> torch.Tensor:
-        """A host batch on the device; on a card through pinned memory
-        without blocking, so it queues behind the steps already issued."""
-        t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
-        if t.device == self.device:
-            return t
-        if self.device.type == "cuda" and t.device.type == "cpu":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
 
     # -- loops ---------------------------------------------------------------
 
@@ -223,7 +239,7 @@ class GANCodecTrainer:
             from funcodec_tpu_torch.utils.profiling import StepTraceCapture
 
             self._tracer = StepTraceCapture(
-                o.profile_dir, o.profile_start_step, o.profile_num_steps
+                o.profile_dir if is_writer(self.group) else None, o.profile_start_step, o.profile_num_steps
             )
         host_step = int(state.step)
         si = max(1, o.stats_interval)
@@ -244,8 +260,10 @@ class GANCodecTrainer:
         for i, (keys, batch) in enumerate(loader):
             self._tracer.tick(host_step)
             t_data = time.time()
-            speech = self._to_device(batch["speech"])
-            samples += speech.numel()
+            # this rank's rows; a host batch through pinned memory without
+            # blocking, so it queues behind the steps already issued
+            speech = to_device(batch["speech"], self.device)
+            samples += speech.numel() * world_of(self.group)
             state, stats = self._train_step(
                 state, {"speech": speech}, step_generator(self.device, seed, host_step)
             )
@@ -268,7 +286,7 @@ class GANCodecTrainer:
                 (now - t_data) if si == 1 else (now - t_last) / si
             )
             t_last = now
-            sub.register(host_stats, weight=batch["speech"].shape[0])
+            sub.register(host_stats, weight=len(keys) * world_of(self.group))
             if (i + 1) % log_interval == 0:
                 logging.info(sub.log_message())
         self._tracer.stop()
@@ -279,11 +297,17 @@ class GANCodecTrainer:
         self.reporter.finish_epoch(sub)
         return state, sub.to_dict()
 
-    def validate(self, state, loader, epoch: int, seed: int) -> Dict[str, float]:
+    def validate(self, state, loader, epoch: int, seed: int, rows=None) -> Dict[str, float]:
         """Eval forwards on the fp32 masters (no cast to the compute dtype),
         as the JAX package's valid_step: the generator's losses and, on its
         reconstruction, the discriminator's; a few real/fake pairs dumped
-        and scored with the quality metrics."""
+        and scored with the quality metrics. Under data parallelism each
+        rank evaluates its block of a batch and the stats are the ranks'
+        row-weighted mean (every stat but the enc-quant loss, the square of
+        a mean, then equals one process's); rank 0 dumps and scores from
+        its rows. `loader` yields this rank's rows of each batch and `rows`
+        holds (this rank's rows, the batch's rows) of each (the batch's last
+        row counting 0 on a rank that has none); None: whole batches."""
         from funcodec_tpu_torch.data.wav_io import save_audio
         from funcodec_tpu_torch.utils.quality import reconstruction_metrics
 
@@ -295,7 +319,8 @@ class GANCodecTrainer:
         with torch.inference_mode():
             zero = torch.zeros((), device=self.device)
             for vi, (keys, batch) in enumerate(loader):
-                speech = self._to_device(batch["speech"])
+                speech = to_device(batch["speech"], self.device)
+                mine, total = (len(keys), len(keys)) if rows is None else rows[vi]
                 _, gout = model.forward_generator(
                     disc, speech, step_generator(self.device, seed, vi), training=False
                 )
@@ -306,17 +331,14 @@ class GANCodecTrainer:
                     disc, speech.to(fake.dtype), fake, zero, training=False,
                     generator=step_generator(self.device, seed, vi),
                 )
-                sub.register(
-                    fetch_stats({**gout["stats"], **dout["stats"]}),
-                    weight=speech.shape[0],
-                )
+                sub.register(self._valid_stats({**gout["stats"], **dout["stats"]}, mine), weight=total)
                 # dump a few real/fake pairs per epoch (gan_trainer.py:482-495)
                 # and score them (the recipe's ViSQOL role, run.sh:249-295)
-                if dumped < self.opt.num_valid_dump_wavs:
+                if dumped < self.opt.num_valid_dump_wavs and is_writer(self.group):
                     out_dir.mkdir(parents=True, exist_ok=True)
                     fake_np = fake.float().cpu().numpy()
                     real_np = np.asarray(batch["speech"], np.float32)
-                    for b, key in enumerate(keys):
+                    for b, key in enumerate(keys[:mine]):
                         if dumped >= self.opt.num_valid_dump_wavs:
                             break
                         save_audio(
@@ -335,6 +357,17 @@ class GANCodecTrainer:
         self.reporter.finish_epoch(sub)
         self.epoch_walls.setdefault(epoch, {})["valid_s"] = time.time() - t0
         return sub.to_dict()
+
+    def _valid_stats(self, stats: Dict[str, torch.Tensor], rows: int) -> Dict[str, float]:
+        """A validation batch's stats on the host: this rank's, or under data
+        parallelism the ranks' means weighted by their `rows` (one all_reduce)."""
+        if self.group is None:
+            return fetch_stats(stats)
+        names = list(stats)
+        buf = torch.stack([stats[k].detach().float() * rows for k in names]
+                          + [torch.tensor(float(rows), device=self.device)])
+        buf = sum_over_ranks(buf, self.group).cpu()
+        return dict(zip(names, (buf[:-1] / buf[-1]).tolist()))
 
     # -- checkpointing -------------------------------------------------------
 
@@ -383,10 +416,18 @@ class GANCodecTrainer:
         return p
 
     def _save_step_checkpoint(self, state):
-        path = self._ckpt_dir() / f"{int(state.step)}steps.pth"
-        save_train_state(str(path), state)
+        if is_writer(self.group):
+            save_train_state(str(self._ckpt_dir() / f"{int(state.step)}steps.pth"), state)
+        barrier(self.group)
 
     def _save_epoch(self, state, epoch: int) -> None:
+        """The epoch's files, written by rank 0; every rank waits for them."""
+        if is_writer(self.group):
+            self._write_epoch(state, epoch)
+            self._emit_tb(epoch)
+        barrier(self.group)
+
+    def _write_epoch(self, state, epoch: int) -> None:
         d = self._ckpt_dir()
         t0 = time.time()
         save_train_state(str(d / "checkpoint.pth"), state)
@@ -508,20 +549,23 @@ class GANCodecTrainer:
                 reps = -(-o.num_iters_per_epoch // max(len(batches), 1))
                 batches = (batches * reps)[: o.num_iters_per_epoch]
             if device_cache is not None:
-                loader = device_cache.epoch_loader(batches, epoch)
+                loader = device_cache.epoch_loader(batches, epoch, self.group)
             else:
+                # each rank loads its block of every batch
                 loader = PrefetchLoader(
-                    train_dataset, batches, collate_fn, num_workers=o.num_workers
+                    train_dataset, [local_rows(b, self.group) for b in batches], collate_fn,
+                    num_workers=o.num_workers,
                 )
             state, train_stats = self.train_one_epoch(state, loader, epoch, seed)
 
             v_batches = unsorted_batches(valid_ids, o.batch_size, drop_last=False)
+            v_keys = [local_rows(b, self.group, uneven=True) or b[-1:] for b in v_batches]
+            v_rows = [(len(local_rows(b, self.group, uneven=True)), len(b)) for b in v_batches]
             v_loader = PrefetchLoader(
-                valid_dataset, v_batches, collate_fn, num_workers=o.num_workers
+                valid_dataset, v_keys, collate_fn, num_workers=o.num_workers
             )
-            self.validate(state, v_loader, epoch, seed)
+            self.validate(state, v_loader, epoch, seed, v_rows)
             self._save_epoch(state, epoch)
-            self._emit_tb(epoch)
             keys_of_interest = (
                 "generator_loss", "generator_recon_loss",
                 "generator_multi_spectral_recon_loss", "discriminator_loss",
@@ -532,9 +576,9 @@ class GANCodecTrainer:
                 {k: round(train_stats[k], 4) for k in keys_of_interest if k in train_stats},
                 {k: round(valid_stats[k], 4) for k in keys_of_interest if k in valid_stats},
             )
-            if o.patience is not None and self.reporter.check_early_stopping(
+            if o.patience is not None and broadcast_value(float(self.reporter.check_early_stopping(
                 o.patience, phase, key, mode
-            ):
+            )), self.group):
                 logging.info("early stopping at epoch %d", epoch)
                 break
             if o.max_update is not None and int(state.step) >= o.max_update:

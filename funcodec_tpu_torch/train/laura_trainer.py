@@ -23,6 +23,15 @@ the feature axis, the accuracy counting pads) depend on the padded length.
 Checkpoints are PyTorch files under the reference's names
 (train/checkpoint.py); ``{epoch}epoch.pth`` is the model's state_dict,
 which cli/text2audio_inference serves.
+
+Under data parallelism (``group``, a ``parallel.dist.DataGroup``, the JAX
+trainer's ``mesh``) every rank runs the loop over the same batches; a batch
+is bucketed whole, so every rank pads to the same lengths, and each rank
+keeps its equal block of the rows (a batch must split evenly, as a sharded
+batch must in JAX). The loss's denominators and the stats are the global
+batch's (models/laura.py), the gradients are averaged over the ranks in
+one all_reduce a step, and rank 0 alone writes the files while the others
+wait at a barrier. cli/text2audio_train stays one process, as JAX's.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ import torch
 import torch.nn as nn
 from torch.func import functional_call
 
+from funcodec_tpu_torch.parallel.dist import DataGroup, barrier, broadcast_value, is_writer, shard_rows
 from funcodec_tpu_torch.train.checkpoint import load_train_state, save_train_state, save_weights, update_symlink
 from funcodec_tpu_torch.train.gan_trainer import _sync, fetch_stats, step_generator
 from funcodec_tpu_torch.train.reporter import Reporter
@@ -114,20 +124,23 @@ class LauraTrainerOptions:
 
 
 def make_laura_train_step(model: nn.Module, optimizer: GradientTransformation,
-                          compute_dtype: Optional[torch.dtype] = None) -> Callable:
+                          compute_dtype: Optional[torch.dtype] = None,
+                          group: Optional[DataGroup] = None) -> Callable:
     """step(state, batch, generator) -> (state, stats): the loss's forward
     and backward on `compute_dtype` copies of the parameters and the batch's
     floating inputs, then the gated optimizer update of the fp32 masters in
     place. `batch` holds text, text_lengths, codec and codec_lengths on the
-    model's device; stats are the model's plus grad_norm and nonfinite_skip."""
+    model's device (this rank's rows under a data `group`, the gradients
+    then averaged over the ranks); stats are the model's plus grad_norm and
+    nonfinite_skip."""
     masters = trainable(model)
 
     def step(state: LauraTrainState, batch: Dict[str, torch.Tensor], generator: torch.Generator):
         params = cast_floating(dict(model.named_parameters()), compute_dtype)
         loss, stats = functional_call(model, params, (
             cast_floating(batch["text"], compute_dtype), batch["text_lengths"], batch["codec"],
-            batch["codec_lengths"], generator))
-        grads = _grads(loss, masters)
+            batch["codec_lengths"], generator), {"group": group})
+        grads = _grads(loss, masters, group)
         state.opt_state, grad_norm, finite = apply_updates_if_finite(optimizer, grads, state.opt_state, masters)
         stats = {k: v.detach() for k, v in stats.items()}  # not the graph's: it is freed here
         stats.update(grad_norm=grad_norm, nonfinite_skip=_skip(finite, grad_norm.device))
@@ -139,12 +152,14 @@ def make_laura_train_step(model: nn.Module, optimizer: GradientTransformation,
 
 class LauraTrainer:
     """Trains `model` (built by tasks/text2audio.py on the device it runs
-    on, its codebook grafted) with `options`."""
+    on, its codebook grafted) with `options`; `group` is this rank's data
+    group (None: one process)."""
 
-    def __init__(self, model: nn.Module, options: LauraTrainerOptions):
+    def __init__(self, model: nn.Module, options: LauraTrainerOptions, group: Optional[DataGroup] = None):
         o = options
         self.model = model
         self.opt = o
+        self.group = group
         self.device = model.device
         self.reporter = Reporter()
         lr = o.optim_conf.get("lr", 1e-3)
@@ -160,7 +175,7 @@ class LauraTrainer:
             momentum=o.optim_conf.get("momentum", 0.0),
         )
         self.train_step = make_laura_train_step(
-            model, self.optimizer, torch.bfloat16 if o.train_dtype in ("bfloat16", "bf16") else None)
+            model, self.optimizer, torch.bfloat16 if o.train_dtype in ("bfloat16", "bf16") else None, group)
         # per-epoch walls (train, valid, checkpoint), steps and codec frames trained on
         self.epoch_walls: Dict[int, Dict[str, float]] = {}
 
@@ -168,17 +183,13 @@ class LauraTrainer:
         return LauraTrainState(step=0, model=self.model, opt_state=self.optimizer.init(trainable(self.model)))
 
     def to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        """A collated batch bucketed, its codec clamped at 0, on the device
-        (through pinned memory without blocking, on a card)."""
+        """A collated batch bucketed (whole), its codec clamped at 0, this
+        rank's rows on the device (through pinned memory without blocking,
+        on a card)."""
         batch = bucket_batch(batch)
         host = dict(text=batch["text"], text_lengths=batch["text_lengths"], codec=np.maximum(batch["codec"], 0),
                     codec_lengths=batch["codec_lengths"])
-        out = {}
-        for k, a in host.items():
-            t = torch.from_numpy(np.ascontiguousarray(a))
-            out[k] = (t.pin_memory().to(self.device, non_blocking=True) if self.device.type == "cuda"
-                      else t.to(self.device))
-        return out
+        return shard_rows(host, self.group, self.device)
 
     # -- loops ---------------------------------------------------------------
 
@@ -213,7 +224,7 @@ class LauraTrainer:
             for vi, (keys, batch) in enumerate(loader):
                 b = self.to_device(batch)
                 _, stats = state.model(b["text"], b["text_lengths"], b["codec"], b["codec_lengths"],
-                                       step_generator(self.device, self.opt.seed, vi))
+                                       step_generator(self.device, self.opt.seed, vi), group=self.group)
                 sub.register(fetch_stats(stats), weight=len(keys))
         self.reporter.finish_epoch(sub)
         self.epoch_walls.setdefault(epoch, {})["valid_s"] = time.time() - t0
@@ -222,6 +233,12 @@ class LauraTrainer:
     # -- checkpoints ---------------------------------------------------------
 
     def _save_epoch(self, state: LauraTrainState, epoch: int) -> None:
+        """The epoch's files, written by rank 0; every rank waits for them."""
+        if is_writer(self.group):
+            self._write_epoch(state, epoch)
+        barrier(self.group)
+
+    def _write_epoch(self, state: LauraTrainState, epoch: int) -> None:
         o = self.opt
         d = Path(o.output_dir)
         t0 = time.time()
@@ -267,7 +284,8 @@ class LauraTrainer:
         o = self.opt
         Path(o.output_dir).mkdir(parents=True, exist_ok=True)
         state, start_epoch = self.resume(state)
-        tracer = StepTraceCapture(o.profile_dir, o.profile_start_step, o.profile_num_steps)
+        tracer = StepTraceCapture(o.profile_dir if is_writer(self.group) else None, o.profile_start_step,
+                                  o.profile_num_steps)
         phase, key, mode = o.best_model_criterion
         for epoch in range(start_epoch, o.max_epoch + 1):
             self.reporter.set_epoch(epoch)
@@ -277,6 +295,7 @@ class LauraTrainer:
             stats = self.reporter.stats[epoch]
             logging.info("epoch %d: train loss=%.4f valid loss=%.4f", epoch, stats["train"]["loss"],
                          stats["valid"]["loss"])
-            if o.patience is not None and self.reporter.check_early_stopping(o.patience, phase, key, mode):
+            if o.patience is not None and broadcast_value(
+                    float(self.reporter.check_early_stopping(o.patience, phase, key, mode)), self.group):
                 break
         return state

@@ -5,6 +5,10 @@ a reporter.json written by either package loads in the other).
 Behavioral reference: funcodec/train/reporter.py (Average/WeightedAverage
 :103-116, SubReporter :118-280, Reporter :282-540: epoch logs, best-epoch
 queries, early stopping, state_dict round trip).
+
+Under data parallelism each rank registers the global batch's stats (the
+train step's, and validation's reduced over the ranks) into a reporter of
+its own; rank 0 writes reporter.json and decides early stopping.
 """
 
 from __future__ import annotations

@@ -21,6 +21,15 @@ A turn whose global gradient norm is not finite changes nothing: not the
 parameters, not the optimizer state, not the RVQ buffers (the new codebook
 state is computed out of place and committed after the gate).
 
+Under data parallelism (``group``, a ``parallel.dist.DataGroup``; None is
+one process) each rank runs the step on its equal block of the batch's
+rows: the model's loss terms, codebook statistics and draws are the global
+batch's (models/encodec.py, quant/rvq.py), and each turn's gradients are
+averaged over the ranks in one all_reduce right after the backward, so the
+global norm, the clip and the finite gate see the global gradients, as in
+JAX. Every rank then applies the same update to the same state, and every
+stat the step returns is the global batch's on every rank.
+
 ``make_optimizer`` builds the optimizers of the reference's registry names
 as functional transformations (init(params) -> state; update(grads, state,
 params) -> (updates, state)) with optax's arithmetic.
@@ -35,6 +44,7 @@ import torch
 import torch.nn as nn
 from torch.func import functional_call
 
+from funcodec_tpu_torch.parallel.dist import DataGroup, all_reduce_mean
 from funcodec_tpu_torch.quant.rvq import codebook_health
 
 Tensors = List[torch.Tensor]
@@ -74,7 +84,8 @@ def chain(*transforms: GradientTransformation) -> GradientTransformation:
 
 def add_noise(eta: float, gamma: float, seed: int = 0) -> GradientTransformation:
     """Annealed gradient noise N(0, eta / (1 + t)^gamma) (optax.add_noise),
-    drawn from a torch.Generator on the parameters' device seeded with `seed`."""
+    drawn from a torch.Generator on the parameters' device seeded with `seed`
+    (alike on every rank, so the ranks add the same noise)."""
 
     def init(params):
         return dict(count=0, generator=torch.Generator(device=params[0].device).manual_seed(seed))
@@ -284,9 +295,11 @@ def create_gan_train_state(model: nn.Module, discriminator: nn.Module, optimizer
     )
 
 
-def _grads(loss: torch.Tensor, params: Sequence[torch.Tensor]) -> Tensors:
+def _grads(loss: torch.Tensor, params: Sequence[torch.Tensor], group: Optional[DataGroup] = None) -> Tensors:
+    """d loss / d params (zeros where unused), averaged over the ranks of
+    `group` in one all_reduce."""
     grads = torch.autograd.grad(loss, list(params), allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    return all_reduce_mean([torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)], group)
 
 
 def _detached(module: nn.Module, compute_dtype: Optional[torch.dtype]) -> Dict[str, torch.Tensor]:
@@ -298,17 +311,18 @@ def _disc_fn(discriminator: nn.Module, params: Dict[str, torch.Tensor]):
 
 
 def generator_grads(model: nn.Module, discriminator: nn.Module, speech: torch.Tensor,
-                    generator: torch.Generator, compute_dtype: Optional[torch.dtype] = None):
+                    generator: torch.Generator, compute_dtype: Optional[torch.dtype] = None,
+                    group: Optional[DataGroup] = None):
     """The generator turn's forward and backward: forward_generator on
     `compute_dtype` copies of the model's parameters and of the batch, the
     discriminator's parameters detached. Returns (out, gradients of the
-    master parameters in named_parameters order)."""
+    master parameters in named_parameters order, averaged over `group`)."""
     names, params = zip(*model.named_parameters())
     c_params = cast_floating(dict(zip(names, params)), compute_dtype)
     loss, out = functional_call(model, c_params, ("forward_generator",
                                                   _disc_fn(discriminator, _detached(discriminator, compute_dtype)),
-                                                  cast_floating(speech, compute_dtype), generator))
-    return out, _grads(loss, params)
+                                                  cast_floating(speech, compute_dtype), generator), {"group": group})
+    return out, _grads(loss, params, group)
 
 
 def _zero_disc_stats(device, pit: bool = False) -> Dict[str, torch.Tensor]:
@@ -340,8 +354,11 @@ def make_gan_train_step(
     disc_train_interval: int = 1,
     compute_dtype: Optional[torch.dtype] = None,
     shared_forward: bool = False,
+    group: Optional[DataGroup] = None,
 ):
     """step(state, {"speech": (B, T) fp32}, generator) -> (state, stats).
+    With a data `group`, "speech" is this rank's block of the global batch
+    and `generator` is seeded alike on every rank.
 
     ``shared_forward=False`` is the reference's two-forward step: the
     discriminator turn (its own generator forward without grad, the RVQ EMA
@@ -382,9 +399,9 @@ def make_gan_train_step(
     def disc_turn(state: GANTrainState, speech, generator, stats) -> None:
         loss, out = functional_call(model, _detached(model, compute_dtype), (
             "forward_discriminator", _disc_fn(discriminator, cast_params(discriminator)),
-            cast_floating(speech, compute_dtype), generator, state.gen_loss_carry))
+            cast_floating(speech, compute_dtype), generator, state.gen_loss_carry), {"group": group})
         d_params = masters(discriminator)
-        grads = _grads(loss, d_params)
+        grads = _grads(loss, d_params, group)
         state.opt_state_d, norm, finite = apply_updates_if_finite(optimizer_d, grads, state.opt_state_d, d_params)
         # the RVQ buffers are also held back on a bad batch
         if finite:
@@ -408,8 +425,8 @@ def make_gan_train_step(
         else:
             stats.update(_zero_disc_stats(speech.device, pit))
         if state.step % gen_train_interval == 0:
-            apply_generator(state, *generator_grads(model, discriminator, speech, generator, compute_dtype), True,
-                            stats)
+            apply_generator(state, *generator_grads(model, discriminator, speech, generator, compute_dtype, group),
+                            True, stats)
         else:
             stats.update(_zero_gen_stats(speech.device))
         add_codebook_health(stats)
@@ -420,13 +437,14 @@ def make_gan_train_step(
         speech = batch["speech"]
         stats: Dict[str, torch.Tensor] = {}
         # one generator forward and backward for the whole step
-        g_out, g_grads = generator_grads(model, discriminator, speech, generator, compute_dtype)
+        g_out, g_grads = generator_grads(model, discriminator, speech, generator, compute_dtype, group)
         if state.step % disc_train_interval == 0:
             loss, d_out = model._discriminator_losses(
                 _disc_fn(discriminator, cast_params(discriminator)), cast_floating(speech.float(), compute_dtype),
-                cast_floating(g_out["fake"].detach(), compute_dtype), state.gen_loss_carry, generator=generator)
+                cast_floating(g_out["fake"].detach(), compute_dtype), state.gen_loss_carry, generator=generator,
+                group=group)
             d_params = masters(discriminator)
-            grads = _grads(loss, d_params)
+            grads = _grads(loss, d_params, group)
             state.opt_state_d, norm, finite = apply_updates_if_finite(optimizer_d, grads, state.opt_state_d,
                                                                       d_params)
             # the carry resets only when the disc turn runs

@@ -262,10 +262,11 @@ def test_forward_with_augmentation_and_sampling_matches_jax(monkeypatch):
     calls = []
     orig_aug, orig_sampler = tm._aug_segment, tm.prob_sampler
 
-    def aug(seg, lengths, conf, gen, spans_=None):
+    def aug(seg, lengths, conf, gen, spans_=None, group=None):
         sp = spans[len(calls)]
         calls.append(conf)
-        return orig_aug(seg, lengths, conf, gen, spans=tuple(tuple(torch.from_numpy(a) for a in s) for s in sp))
+        return orig_aug(seg, lengths, conf, gen, spans=tuple(tuple(torch.from_numpy(a) for a in s) for s in sp),
+                        group=group)
 
     monkeypatch.setattr(tm, "_aug_segment", aug)
     monkeypatch.setattr(tm, "prob_sampler", functools.partial(orig_sampler, uniform=u))
