@@ -17,7 +17,10 @@ the training loop behind ``cli/codec_train``; then LauraTTS serving on the
 shipped LauraTTS topology through ``cli/text2audio_inference``; then
 FreqCodec, the second codec family, served and trained at its released
 gr8 and gr1 topologies; then the LibriTTS Laura recipe (tokens, LM
-training through ``cli/text2audio_train``, synthesis).
+training through ``cli/text2audio_train``, synthesis); data parallelism;
+then the LibriTTS codec recipe's tooling (wav arks, --stat_flops, n-best
+averaging, scoring) with the residual and identity quantizers, the context
+loss and the semantic codec.
 In phases that each raise on failure:
 
 1. checks: a CUDA card is present; TF32 is turned off for fp32 matmuls and
@@ -183,13 +186,30 @@ In phases that each raise on failure:
    one replica's, bf16 main-path launches exact per replica, the first
    request's kernel calls against their plain versions, codes differing
    only at near-ties, each replica its own packed weights.
+14. recipe: the codec recipe (egs/LibriTTS/codec/run.sh) end to end under
+   build/chip_smoke/recipe/, and the remaining codec models, bf16 with the
+   three flags, every kernel launch counted against what the gates imply
+   and every kernel call held against its plain version. A seeded corpus
+   of 40 + 8 utterances of 24 kHz PCM16 dumped to 16 kHz wav arks by
+   cli/dump_to_wav_ark (4 shards) and scanned by calc_shape; cli/codec_train
+   --stat_flops on the flagship yaml with a residual_quantizer (1,024 x 32,
+   quantize dropout) and the context loss (a 6-block transformer, masked
+   prediction), 2 epochs x 4 steps at B = 16 x 2.56 s, the logged cost tree
+   and summary checked; cli/average_nbest over its two epochs (the fp64
+   mean); cli/codec_inference on the averaged weights (encode with
+   --stat_flops to codecs.txt, decode to wavs); cli/codec_eval's
+   quality.json (complete, finite); CodecSemanticAug in its five PPG modes
+   (forward_generator_ppg and backward at B = 16 x 2.56 s, inference_ppg at
+   B = 8 x 10 s); one identity_quantizer step; codec_flops_tree equal with
+   the flags on and off. Then the steady bf16 step with and without the
+   context loss (6 steps a side, in turns), ms and device kernels a step.
 
 The line before the last is the card's name and power limit (nvidia-smi),
 the one before it a JSON object of the kernels (with each one's launches in
 the fused training configuration, in the trainer phase's two-epoch run, in
 the TTS phase's zero-shot request, in the FreqCodec main-path requests, in
-the Laura recipe's stages 1 and 3 and in the data-parallel phase, and the
-backwards' times); the last
+the Laura recipe's stages 1 and 3, in the data-parallel phase and on the
+codec recipe's path, and the backwards' times); the last
 line is
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
 """
@@ -198,6 +218,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import logging
 import math
 import os
 import shutil
@@ -1027,13 +1048,15 @@ NO_DRAWS = dict(kmeans_init=False, quantize_dropout=False, expiry_mode="referenc
 STEADY = dict(kmeans_init=False)  # initialized codebooks; the recipe's dropout and expiry
 
 
-def build_trainer(dev, shared: bool, dtype, seed: int = 0, group=None, optim: str = "adam", **quantizer):
+def build_trainer(dev, shared: bool, dtype, seed: int = 0, group=None, optim: str = "adam", model_conf=None,
+                  **quantizer):
     """The flagship generator and discriminator from the yaml (quantizer_conf
-    overridden by `quantizer`), their optimizers (Adam, or `optim`) at
-    optim_conf's and optim2_conf's rates, a train state and its step (over a
-    data `group`, or one process)."""
+    overridden by `quantizer`, model_conf updated by `model_conf`), their
+    optimizers (Adam, or `optim`) at optim_conf's and optim2_conf's rates, a
+    train state and its step (over a data `group`, or one process)."""
     config = load_config(str(FLAGSHIP_YAML))
     config["quantizer_conf"].update(quantizer)
+    config["model_conf"].update(model_conf or {})
     model, disc = build_codec_model(config, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
     opts = [make_optimizer(lr=c["lr"], betas=tuple(c["betas"]), name=optim)
             for c in (config["optim_conf"], config["optim2_conf"])]
@@ -1364,18 +1387,18 @@ VALID_REL = FP32_REL_TOL["resblock_tgn"]
 VALID_UPDATES = 4
 
 
-def _trainer_corpus(d: Path, n: int, seconds, seed: int) -> dict:
-    """Seeded sine mixtures plus noise as 16 kHz PCM16 wavs and their wav.scp: {key: samples}."""
+def _trainer_corpus(d: Path, n: int, seconds, seed: int, sr: int = SR) -> dict:
+    """Seeded sine mixtures plus noise as PCM16 wavs at `sr` and their wav.scp: {key: samples}."""
     d.mkdir(parents=True, exist_ok=True)
     rs = np.random.RandomState(seed)
     lengths = {}
     with open(d / "wav.scp", "w") as scp:
         for i, sec in enumerate(rs.uniform(*seconds, n)):
-            key, m = f"utt{i:03d}", int(round(sec * SR))
-            t = np.arange(m) / SR
+            key, m = f"utt{i:03d}", int(round(sec * sr))
+            t = np.arange(m) / sr
             w = sum(a * np.sin(2 * np.pi * f * t + ph) for a, f, ph in
                     zip(rs.uniform(0.05, 0.2, 3), rs.uniform(80, 4000, 3), rs.uniform(0, 2 * np.pi, 3)))
-            write_wav(d / f"{key}.wav", (w + 0.02 * rs.randn(m)).astype(np.float32), SR)
+            write_wav(d / f"{key}.wav", (w + 0.02 * rs.randn(m)).astype(np.float32), sr)
             scp.write(f"{key} {d / f'{key}.wav'}\n")
             lengths[key] = m
     return lengths
@@ -3775,6 +3798,431 @@ def dp_phase(dev, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# recipe phase: the codec recipe's tooling, the residual and identity
+# quantizers, the context loss and CodecSemanticAug
+# ---------------------------------------------------------------------------
+
+RECIPE_DIR = OUT_DIR / "recipe"
+RECIPE_FILE_SR = 24_000  # the corpus's file rate; dump_to_wav_ark resamples it to SR
+RECIPE_CONF = dict(TRAINER_CONF, keep_nbest_models=2)  # both epochs kept for average_nbest
+# the context loss at ContextConfig's defaults (6 blocks, 8 heads, 2,048 units, odim 128)
+RECIPE_CONTEXT = {"model": "transformer", "ce_loss_weight": 1.0,
+                  "mask_conf": {"mask_ratio_range": [0.0, 0.05], "num_mask": 2}}
+RECIPE_ENCODE_B = 8  # the valid split in one batch
+PPG_DIM, PPG_DS_RATE, PPG_FRAMES_PER_S = 86, 2, 100
+PPG_MODES = ("residual", "addition", "concat", "supervision", "ptts")
+# the PPG layers' stride-1 convs with K > 1, which FUSED_STRIDE1 runs in conv1d_s1: the
+# downsampling stack's first conv in every mode, the concat fusion's conv, and (training
+# only: inference runs no classifier) the supervision classifier's first two convs
+PPG_CONVS = {"train": {"residual": 1, "addition": 1, "concat": 2, "supervision": 3, "ptts": 1},
+             "infer": {"residual": 1, "addition": 1, "concat": 2, "supervision": 1, "ptts": 1}}
+PPG_INFER_B, PPG_INFER_SECONDS = 8, 10.0
+RECIPE_TIMED = 6  # steady steps timed a side, in turns of 3 (without, with, with, without)
+QUALITY_KEYS = {"lsd_db", "mel_distortion", "si_snr_db", "stoi", "nsim"}
+NO_LAUNCHES = dict.fromkeys(COUNTERS, 0)
+
+
+def _launches(base: dict, n: int = 1, **extra) -> dict:
+    return {k: n * v + extra.get(k, 0) for k, v in base.items()}
+
+
+def _recipe_part(what: str, expect: dict, fn, held: dict):
+    """fn() with its kernel calls recorded; its launches must equal `expect`. Then
+    each recorded call is held against its plain version (_held_calls, _held_rvq),
+    and the counters are set back to what fn() left, so that those launches do not
+    count. Returns fn()'s result."""
+    _sync(CARD)
+    before = read_counts()
+    with _recorded_seanet_calls() as calls, _recorded_rvq_calls() as rvq_calls:
+        result = fn()
+        _sync(CARD)
+    after = read_counts()
+    launched = {k: after[k] - before[k] for k in after}
+    if launched != expect:
+        raise RuntimeError(f"recipe {what}: launches {launched}, expected {expect}")
+    errs = _held_calls(calls, f"recipe {what}") if calls else {}
+    if rvq_calls:
+        errs["rvq_encode"] = _held_rvq(rvq_calls, f"recipe {what}")
+    for name, (mod, attr) in COUNTERS.items():
+        setattr(mod, attr, after[name])
+    for k, v in errs.items():
+        held["max_abs_err"][k] = max(held["max_abs_err"].get(k, 0.0), v)
+    held["calls"] += len(calls) + len(rvq_calls)
+    held["launches"][what] = launched
+    return result
+
+
+class _Messages(logging.Handler):
+    """Collects the log records' messages; INFO reaches it while it is attached."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+    def __enter__(self):
+        root = logging.getLogger()
+        self._level = root.level
+        root.addHandler(self)
+        root.setLevel(logging.INFO)
+        return self
+
+    def __exit__(self, *exc):
+        root = logging.getLogger()
+        root.removeHandler(self)
+        root.setLevel(self._level)
+
+    def tree(self) -> str:
+        trees = [m.strip("\n") for m in self.messages if "serving-path cost tree" in m]
+        if len(trees) != 1:
+            raise RuntimeError(f"--stat_flops: {len(trees)} cost trees logged, expected 1")
+        return trees[0]
+
+
+def _recipe_config() -> dict:
+    """The flagship yaml with the recipe's model: a residual_quantizer of the
+    yaml's codebooks with quantize dropout, and the context loss."""
+    config = load_config(str(FLAGSHIP_YAML))
+    config.update(RECIPE_CONF)
+    q = config["quantizer_conf"]
+    config["quantizer"] = "residual_quantizer"
+    config["quantizer_conf"] = {"codebook_size": q["codebook_size"], "num_quantizers": q["num_quantizers"],
+                                "quantize_dropout": True}
+    config["model_conf"].update(context_loss_weight=1.0, context_loss_conf=RECIPE_CONTEXT)
+    return config
+
+
+def recipe_data(held: dict) -> dict:
+    """Step 1: the seeded 24 kHz corpus dumped to 16 kHz wav arks by
+    cli/dump_to_wav_ark, and calc_shape's scan of it."""
+    from funcodec_tpu_torch.cli import dump_to_wav_ark
+    from funcodec_tpu_torch.data.wav_io import read_2column_text
+    from funcodec_tpu_torch.utils.shape_utils import calc_shape
+
+    def run():
+        out = {}
+        for split, n, seconds, seed in (("train", TRAINER_UTTS, TRAINER_SECONDS, 60),
+                                        ("valid", VALID_UTTS, VALID_SECONDS, 61)):
+            raw = _trainer_corpus(RECIPE_DIR / "raw" / split, n, seconds, seed, sr=RECIPE_FILE_SR)
+            dump = RECIPE_DIR / "dump" / split
+            wrote = dump_to_wav_ark.main(["--wav_scp", str(RECIPE_DIR / "raw" / split / "wav.scp"), "--out_dir",
+                                          str(dump), "--sample_rate", str(SR), "--nj", "4"])
+            kept, dropped = calc_shape(str(RECIPE_DIR / "raw"), split, str(RECIPE_DIR / "shape"), num_workers=4)
+            shapes = {k: int(v) for k, v in read_2column_text(RECIPE_DIR / "shape" / split / "speech_shape").items()}
+            lengths = {k: int(v) for k, v in read_2column_text(dump / "length.txt").items()}
+            want = {k: -(-m * SR // RECIPE_FILE_SR) for k, m in raw.items()}  # resample_poly's output length
+            if wrote != n or (kept, dropped) != (n, 0) or shapes != raw or lengths != want or \
+                    len(list(dump.glob("wav.*.ark"))) != 4:
+                raise RuntimeError(f"recipe data {split}: {wrote} dumped, calc_shape ({kept}, {dropped}); "
+                                   f"the shapes or 16 kHz lengths disagree with the corpus")
+            out[split] = lengths
+        return out
+
+    lengths = _recipe_part("data", NO_LAUNCHES, run, held)
+    log(f"[recipe] cli/dump_to_wav_ark --nj 4: {len(lengths['train'])} + {len(lengths['valid'])} utterances of "
+        f"{RECIPE_FILE_SR} Hz PCM16 to {SR} Hz wav arks (4 shards each), length.txt equal to resample_poly's "
+        f"lengths; calc_shape's speech_shape equal to the corpus'")
+    return lengths
+
+
+def recipe_train(dev, lengths: dict, held: dict):
+    """Step 2: cli/codec_train with --stat_flops, bf16, the three kernels, on the dumped arks."""
+    import yaml
+
+    from funcodec_tpu_torch.cli import codec_train
+    from funcodec_tpu_torch.models.quantizer import ResidualQuantizer
+    from funcodec_tpu_torch.utils.misc import codec_flops_tree, model_summary
+
+    config = _recipe_config()
+    conf = RECIPE_DIR / "config.yaml"
+    conf.write_text(yaml.safe_dump(config))
+    exp = RECIPE_DIR / "exp"
+    iters, epochs = config["num_iters_per_epoch"], config["max_epoch"]
+    v_batches = -(-len(lengths["valid"]) // config["batch_size"])
+    args = ["--config", str(conf), "--output_dir", str(exp), "--train_wav_scp",
+            str(RECIPE_DIR / "dump" / "train" / "wav.scp"), "--valid_wav_scp",
+            str(RECIPE_DIR / "dump" / "valid" / "wav.scp"), "--train_dtype", "bfloat16", "--device", str(dev),
+            "--stat_flops"]
+    t0 = time.perf_counter()
+    with _Messages() as logged:
+        trainer, state = _recipe_part("codec_train", _expected(epochs * iters, epochs * v_batches),
+                                      lambda: codec_train.main(args), held)
+    wall = time.perf_counter() - t0
+    model = state.model
+    stats = _check_run(exp, epochs, "recipe")
+    if not isinstance(model.quantizer, ResidualQuantizer) or model.context is None or state.step != epochs * iters:
+        raise RuntimeError("recipe codec_train: not the residual quantizer with the context loss, or steps missing")
+    tree = logged.tree()
+    if tree != codec_flops_tree(model, samples=config["speech_max_length"]) or \
+            model_summary(model, "generator") not in logged.messages:
+        raise RuntimeError("recipe codec_train: the logged cost tree or parameter summary is not the model's")
+    last = stats[str(epochs)]
+    ctx, acc = last["train"]["context_loss"], last["train"]["context_pred_acc"]
+    if not (ctx > 0 and 0 <= acc <= 1 and last["valid"]["context_loss"] > 0 and "rvq_dead_codes" in last["train"]):
+        raise RuntimeError(f"recipe codec_train: context stats {ctx}, {acc} or the codebook health missing")
+    log(f"[recipe] cli/codec_train --stat_flops, residual_quantizer ({config['quantizer_conf']}) + context loss "
+        f"(transformer 6 x 8 heads x 2048, ce 1.0, masks [0, 0.05] x 2), bf16 B={config['batch_size']}, {epochs} "
+        f"epochs x {iters} steps: {wall:.2f} s; launches exact; epoch {epochs} train context_loss {ctx:.4f}, "
+        f"pred_acc {acc:.4f}, valid multi-spectral {last['valid']['generator_multi_spectral_recon_loss']:.4f}; "
+        f"the logged tree is codec_flops_tree's ({tree.splitlines()[-1].strip()})")
+    params = {name: sum(p.numel() for p in m.parameters()) for name, m in
+              (("generator", model), ("context", model.context))}
+    log(f"[recipe] parameters: {params} (the generator's include the context model's)")
+    return config, exp, model, dict(wall_s=wall, context_loss=ctx, context_pred_acc=acc, parameters=params,
+                                    valid_multi_spectral=last["valid"]["generator_multi_spectral_recon_loss"])
+
+
+def recipe_average(exp: Path, held: dict) -> Path:
+    """Step 3: cli/average_nbest over the two epochs: the fp64 mean of the
+    parameters, the best epoch's buffers."""
+    from funcodec_tpu_torch.cli import average_nbest
+
+    def run():
+        path = Path(average_nbest.main(["--exp_dir", str(exp), "--nbest", "2"]))
+        if path.name != "valid.generator_multi_spectral_recon_loss.ave_2best.pth":
+            raise RuntimeError(f"recipe average_nbest: wrote {path.name}")
+        avg = torch.load(path, map_location="cpu", weights_only=True)
+        epochs = [torch.load(exp / f"{e}epoch.pth", map_location="cpu", weights_only=True) for e in (1, 2)]
+        best = min((1, 2), key=lambda e: json.loads((exp / "reporter.json").read_text())["stats"][str(e)]["valid"][
+            "generator_multi_spectral_recon_loss"])
+        for k, v in avg.items():
+            want = ((epochs[0][k].double() + epochs[1][k].double()) / 2).float() if "quantizer.rq.model" not in k \
+                else epochs[best - 1][k]
+            if v.shape != want.shape or float((v.double() - want.double()).abs().max()) > 1e-7:
+                raise RuntimeError(f"recipe average_nbest: {k} is not the mean of the two epochs")
+        return path
+
+    return _recipe_part("average_nbest", NO_LAUNCHES, run, held)
+
+
+def recipe_serve(dev, exp: Path, avg: Path, lengths: dict, held: dict) -> dict:
+    """Step 4: cli/codec_inference with the averaged weights (bf16, the three
+    flags): encode the valid split to codecs.txt (with --stat_flops), then
+    decode it to wavs; step 5: cli/codec_eval over them."""
+    from funcodec_tpu_torch.cli import codec_eval
+    from funcodec_tpu_torch.utils.misc import codec_flops_tree
+
+    valid = lengths["valid"]
+    n_batches = -(-len(valid) // RECIPE_ENCODE_B)
+    frames = {k: -(-n // 320) for k, n in valid.items()}
+    common = ["--config_file", str(exp / "config.yaml"), "--model_file", str(avg), "--batch_size",
+              str(RECIPE_ENCODE_B), "--bit_width", "16000", "--dtype", "bfloat16", "--device", str(dev)]
+    t0 = time.perf_counter()
+    with _Messages() as logged:
+        _recipe_part("encode", _launches(LAURA_ENCODE, n_batches), lambda: cli.main(
+            common + ["--output_dir", str(RECIPE_DIR / "codes"), "--data_path_and_name_and_type",
+                      f"{RECIPE_DIR / 'dump' / 'valid' / 'wav.scp'},speech,sound", "--run_mod", "encode",
+                      "--stat_flops"]), held)
+    codes = _codecs(RECIPE_DIR / "codes" / "codecs.txt")
+    config = load_config(str(exp / "config.yaml"))
+    nq, bins = config["quantizer_conf"]["num_quantizers"], config["quantizer_conf"]["codebook_size"]
+    if set(codes) != set(valid) or any(c.shape != (nq, frames[k]) or c.min() < 0 or c.max() >= bins
+                                       for k, c in codes.items()):
+        raise RuntimeError("recipe encode: codecs.txt does not hold (n_q, frames) tokens of every key")
+    model, _ = build_codec_model(config, device=dev)
+    if logged.tree() != codec_flops_tree(model, samples=SR):
+        raise RuntimeError("recipe encode: --stat_flops logged another tree than codec_flops_tree's")
+    del model
+    _recipe_part("decode", _launches(DECODE_PER_BATCH, n_batches), lambda: cli.main(
+        common + ["--output_dir", str(RECIPE_DIR / "decode"), "--data_path_and_name_and_type",
+                  f"{RECIPE_DIR / 'codes' / 'codecs.txt'},speech,codec_json", "--run_mod", "decode"]), held)
+    _check_wavs(RECIPE_DIR / "decode", {k: f * 320 for k, f in frames.items()}, SR, "recipe decode")
+    serve_s = time.perf_counter() - t0
+    quality = _recipe_part("codec_eval", NO_LAUNCHES, lambda: codec_eval.main(
+        ["--ref_scp", str(RECIPE_DIR / "raw" / "valid" / "wav.scp"), "--deg_dir", str(RECIPE_DIR / "decode"),
+         "--output_dir", str(RECIPE_DIR / "score")]), held)
+    saved = json.loads((RECIPE_DIR / "score" / "quality.json").read_text())
+    values = [v for m in [saved["mean"], *saved["per_utt"].values()] for v in m.values()]
+    if set(saved) != {"mean", "per_utt"} or set(saved["per_utt"]) != set(valid) or \
+            any(set(m) != QUALITY_KEYS for m in [saved["mean"], *saved["per_utt"].values()]) or \
+            not all(math.isfinite(v) for v in values) or saved["mean"] != quality["mean"]:
+        raise RuntimeError("recipe codec_eval: quality.json's schema is incomplete or a value is not finite")
+    log(f"[recipe] cli/codec_inference on the averaged weights, bf16 B={RECIPE_ENCODE_B}: encode (--stat_flops) to "
+        f"codecs.txt and decode to {len(valid)} wavs in {serve_s:.2f} s, launches exact; cli/codec_eval from the "
+        f"24 kHz references: quality.json complete and finite (random weights: mean {saved['mean']})")
+    return dict(serve_wall_s=serve_s, quality_mean=saved["mean"])
+
+
+def _semantic_model(dev, mode: str):
+    config = load_config(str(FLAGSHIP_YAML))
+    config["quantizer_conf"].update(STEADY)
+    config["model"] = "codec_semantic_aug"
+    config["model_conf"]["ppg_conf"] = {"ppg_dim": PPG_DIM, "ppg_ds_rate": PPG_DS_RATE, "ppg_usage_mod": mode}
+    return build_codec_model(config, device=dev, generator=torch.Generator(device=dev).manual_seed(70))
+
+
+def recipe_semantic(dev, held: dict) -> dict:
+    """Step 6: CodecSemanticAug in its five modes: forward_generator_ppg and
+    its backward at B = 16 x 2.56 s, inference_ppg at B = 8 x 10 s, bf16 over
+    fp32 weights, on seeded posteriors at 100 frames a second."""
+    from torch.func import functional_call
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(71)
+    speech = torch.from_numpy(_speech(72, TRAIN_B, TRAIN_SECONDS)).to(dev, bf16)
+    ppg = torch.rand(TRAIN_B, round(TRAIN_SECONDS * PPG_FRAMES_PER_S), PPG_DIM, generator=gen, device=dev)
+    x_inf = torch.from_numpy(_speech(73, PPG_INFER_B, PPG_INFER_SECONDS)).to(dev, bf16)
+    ppg_inf = torch.rand(PPG_INFER_B, round(PPG_INFER_SECONDS * PPG_FRAMES_PER_S), PPG_DIM, generator=gen,
+                         device=dev)
+    out = {}
+    for mode in PPG_MODES:
+        model, disc = _semantic_model(dev, mode)
+        names, params = zip(*model.named_parameters())
+        c_params = {n: p.to(bf16) for n, p in zip(names, params)}
+        d_params = {n: p.detach().to(bf16) for n, p in disc.named_parameters()}
+
+        def turn():
+            loss, o = functional_call(model, c_params, ("forward_generator_ppg",
+                                                        lambda x: functional_call(disc, d_params, (x,)), speech, ppg,
+                                                        step_generator(dev, 0, 0)))
+            return loss.detach(), o, torch.autograd.grad(loss, params, allow_unused=True)
+
+        loss, o, grads = _recipe_part(f"semantic {mode} train",
+                                      _launches(TRAIN_EXPECT, conv1d_s1=PPG_CONVS["train"][mode]), turn, held)
+        stats = _floats(o["stats"])
+        grads = dict(zip(names, grads))
+        ppg_grad = [g for n, g in grads.items() if g is not None and n.startswith(
+            "ppg_classifier" if mode == "supervision" else "ppg_embedding")]
+        if not math.isfinite(loss.item()) or not all(torch.isfinite(g).all() for g in grads.values() if g is not None) \
+                or not ppg_grad or max(float(g.abs().max()) for g in ppg_grad) == 0 or \
+                (mode == "supervision") != (stats["ppg_supervision_loss"] > 0):
+            raise RuntimeError(f"recipe semantic {mode}: the loss, a gradient or the PPG's gradient is wrong")
+        with torch.inference_mode():
+            res = _recipe_part(f"semantic {mode} inference",
+                               _launches(EXPECT[MAIN_PATH], conv1d_s1=PPG_CONVS["infer"][mode]),
+                               lambda: functional_call(model, c_params, ("inference_ppg", x_inf, ppg_inf)), held)
+        idx, recon = res["code_indices"][0], res["recon_speech"]
+        frames = round(PPG_INFER_SECONDS * SR / 320)
+        q = model.quantizer.cfg
+        if idx.shape != (q.num_quantizers, PPG_INFER_B, frames) or idx.min() < 0 or idx.max() >= q.codebook_size or \
+                recon.shape != x_inf.shape or not torch.isfinite(recon).all():
+            raise RuntimeError(f"recipe semantic {mode}: inference_ppg gave {tuple(idx.shape)} tokens, "
+                               f"{tuple(recon.shape)} recon")
+        out[mode] = dict(loss=float(loss), ppg_supervision_loss=stats["ppg_supervision_loss"])
+        del model, disc, c_params, grads, res
+    torch.cuda.empty_cache()
+    log(f"[recipe] CodecSemanticAug (ppg_dim {PPG_DIM}, ds {PPG_DS_RATE}), five modes: forward_generator_ppg + "
+        f"backward at B={TRAIN_B} x {TRAIN_SECONDS} s and inference_ppg at B={PPG_INFER_B} x {PPG_INFER_SECONDS} s, "
+        f"bf16, launches exact (the PPG convs through conv1d_s1: {PPG_CONVS}); losses "
+        f"{ {m: round(v['loss'], 4) for m, v in out.items()} }")
+    return out
+
+
+def recipe_identity(dev, held: dict) -> dict:
+    """Step 7: one bf16 shared step with identity_quantizer (no codebooks)."""
+    config = load_config(str(FLAGSHIP_YAML))
+    config["quantizer"] = "identity_quantizer"
+    model, disc = build_codec_model(config, device=dev, generator=torch.Generator(device=dev).manual_seed(80))
+    opts = [make_optimizer(lr=c["lr"], betas=tuple(c["betas"])) for c in (config["optim_conf"], config["optim2_conf"])]
+    state = create_gan_train_state(model, disc, *opts)
+    step = make_gan_train_step(model, disc, *opts, shared_forward=True, compute_dtype=torch.bfloat16)
+    before = [p.detach().clone() for p in model.parameters()]
+    state, stats = _recipe_part("identity step", TRAIN_EXPECT, lambda: step(
+        state, {"speech": _train_speech(dev, TRAIN_B)}, step_generator(dev, 0, 0)), held)
+    stats = _floats(stats)
+    moved = sum(not torch.equal(a, b) for a, b in zip(before, model.parameters()))
+    if any(k.startswith("rvq_") for k in stats) or state.rvq_state.embed.numel() or moved < len(before) - 1 or \
+            stats["generator_commit_loss"] != 0.0:
+        raise RuntimeError(f"recipe identity: {moved} of {len(before)} tensors moved, stats {sorted(stats)}")
+    log(f"[recipe] identity_quantizer: one bf16 shared step with no codebooks, launches exact, {moved} of "
+        f"{len(before)} generator tensors moved, generator loss {stats['generator_loss']:.4f}")
+    del state, step, model, disc
+    return stats
+
+
+def recipe_tree(model, held: dict) -> str:
+    """Step 8: codec_flops_tree at 1 s with the three flags on, then off: the same string, no launch."""
+    from funcodec_tpu_torch.utils.misc import codec_flops_tree
+
+    def run():
+        set_flags(MAIN_PATH)
+        on = codec_flops_tree(model, samples=SR)
+        conv_ops.FUSED_STRIDE1 = conv_ops.FUSED_RESBLOCK = rvq.FUSED_RVQ = False
+        off = codec_flops_tree(model, samples=SR)
+        set_flags(MAIN_PATH)
+        if on != off:
+            raise RuntimeError("recipe: codec_flops_tree changes with the kernel flags")
+        return on
+
+    tree = _recipe_part("flops tree", NO_LAUNCHES, run, held)
+    log(f"[recipe] codec_flops_tree at 1 s, flags on = flags off: {tree.splitlines()[-1].strip()}")
+    return tree
+
+
+def recipe_timing(dev, card: str) -> dict:
+    """Step 9: the steady bf16 shared step (fused kernels, initialized
+    codebooks) with and without the context loss: ms a step over
+    RECIPE_TIMED steps a side in turns, and device kernels a step."""
+    _set_seanet_flags(True)
+    sides = {name: build_trainer(dev, True, torch.bfloat16, model_conf=mc, **STEADY) for name, mc in
+             (("without", None), ("with", dict(context_loss_weight=1.0, context_loss_conf=RECIPE_CONTEXT)))}
+    speech = _train_speech(dev, TRAIN_B)
+    counter = {name: 0 for name in sides}
+
+    def steps(name, n):
+        state, step = sides[name]
+        for _ in range(n):
+            state, _ = step(state, {"speech": speech}, step_generator(dev, 0, counter[name]))
+            counter[name] += 1
+
+    for name in sides:
+        steps(name, 2)  # warm-up
+    times = {name: [] for name in sides}
+    for name in ("without", "with", "with", "without"):
+        _sync(dev)
+        t0 = time.perf_counter()
+        steps(name, RECIPE_TIMED // 2)
+        _sync(dev)
+        times[name].append((time.perf_counter() - t0) / (RECIPE_TIMED // 2) * 1e3)
+    kernels = {name: _kernel_launches(lambda: steps(name, 1)) for name in sides}
+    ms = {name: sum(v) / len(v) for name, v in times.items()}
+    _set_seanet_flags(False)
+    log(f"[recipe] steady bf16 shared step, B={TRAIN_B} x {TRAIN_SECONDS} s, fused: without the context loss "
+        f"{ms['without']:.2f} ms ({times['without']}), with it {ms['with']:.2f} ms ({times['with']}): "
+        f"{(ms['with'] / ms['without'] - 1) * 100:+.2f} %; device kernels a step {kernels} ({card})")
+    del sides
+    torch.cuda.empty_cache()
+    return dict(ms=ms, ms_turns=times, kernels_per_step=kernels, ratio=ms["with"] / ms["without"])
+
+
+def recipe_phase(dev, card: str) -> dict:
+    """Steps 1-8 on the recipe's path with every count set to 0 before them and
+    read after (each part's calls held against their plain versions, those
+    launches not counted); then step 9's timing."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(RECIPE_DIR, ignore_errors=True)
+    RECIPE_DIR.mkdir(parents=True)
+    held = dict(max_abs_err={}, calls=0, launches={})
+    set_flags(MAIN_PATH)
+    _sync(dev)
+    reset_counts()
+    lengths = recipe_data(held)
+    config, exp, model, train = recipe_train(dev, lengths, held)
+    avg = recipe_average(exp, held)
+    serve = recipe_serve(dev, exp, avg, lengths, held)
+    semantic = recipe_semantic(dev, held)
+    identity = recipe_identity(dev, held)
+    set_flags(MAIN_PATH)
+    tree = recipe_tree(model, held)
+    _sync(dev)
+    counts = read_counts()
+    expect = {k: sum(part[k] for part in held["launches"].values()) for k in counts}
+    if counts != expect:
+        raise RuntimeError(f"recipe: launches {counts}, the parts' sum {expect}")
+    path_s = time.perf_counter() - t_phase
+    del model
+    torch.cuda.empty_cache()
+    timing = recipe_timing(dev, card)
+    log(f"[recipe] the recipe's path {path_s:.2f} s, launches {counts}, {held['calls']} kernel calls held against "
+        f"their plain versions (max|err| {held['max_abs_err']}); phase {time.perf_counter() - t_phase:.2f} s")
+    return dict(launches=counts, parts=held["launches"], max_abs_err=held["max_abs_err"], held_calls=held["calls"],
+                path_s=path_s, phase_s=time.perf_counter() - t_phase, train=train, serve=serve, semantic=semantic,
+                identity_loss=identity["generator_loss"], tree_total=tree.splitlines()[-1].strip(), timing=timing)
+
+
 def main() -> int:
     dev = check_device()
     card = card_line(CARD)
@@ -3802,6 +4250,7 @@ def main() -> int:
     freq = freq_phase(dev, card)
     laura = laura_phase(dev, card)
     dp = dp_phase(dev, card)
+    recipe = recipe_phase(dev, card)
     if "funcodec_tpu" in sys.modules or ("jax" in sys.modules and not _JAX_PRELOADED):
         raise RuntimeError("the port imported JAX or the JAX package")
 
@@ -3813,7 +4262,7 @@ def main() -> int:
             configs=train_results, launches=train_counts, fused_gradients=fused_grads, backward=backward_rows,
             backward_max_relative_error=backward_errs, forward_max_abs_error=train_fwd_errs,
             card_vs_cpu=card_cpu, timing=train_rows), trainer=trainer, tts=tts, freqcodec=freq, laura=laura,
-        data_parallel=dp),
+        data_parallel=dp, recipe=recipe),
         indent=1))
     conv_main = _summed([r for r in conv_rows if r["main_path"]])
     conv_main["library_ms"] = sum(r["library_ms"] for r in conv_rows if r["main_path"])
@@ -3855,7 +4304,7 @@ def main() -> int:
             library_ms=row["library_ms"]))
     # the training phase's fused steps, the trainer phase's two-epoch run, a TTS request, the
     # FreqCodec main-path requests (gr8 and gr1), the Laura recipe's stages 1 and 3, the
-    # data-parallel phase's NCCL world-1 steps and serving replicas
+    # data-parallel phase's NCCL world-1 steps and serving replicas, and the recipe phase's path
     for k in kernels:
         k["training_launches"] = train_counts.get(k["name"], 0)
         k["trainer_launches"] = trainer["launches"].get(k["name"], 0)
@@ -3871,6 +4320,9 @@ def main() -> int:
         k["dp_launches"] = dp["launches"].get(k["name"], 0)
         if k["name"] in dp["max_abs_err"]:  # the gloo ranks' own calls against the plain version
             k["dp_max_abs_err"] = dp["max_abs_err"][k["name"]]
+        k["recipe_launches"] = recipe["launches"].get(k["name"], 0)
+        if k["name"] in recipe["max_abs_err"]:
+            k["recipe_max_abs_err"] = recipe["max_abs_err"][k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -666,7 +666,8 @@ def get_parser() -> argparse.ArgumentParser:
                         help="cards to serve on, one model replica each (-1: all visible); clamped to the "
                              "visible cards")
     parser.add_argument("--stat_flops", action="store_true",
-                        help="print the per-layer FLOPs/params tree before running (not ported yet)")
+                        help="log the per-layer FLOPs/params tree of the serving path at 1 s of audio "
+                             "before running (codec_inference.py:328-342; utils/misc.codec_flops_tree)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to serve on (default: cuda; cpu runs on the host)")
     return parser
@@ -675,10 +676,12 @@ def get_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = get_parser().parse_args(argv)
     if args.stat_flops:
-        raise NotImplementedError(
-            "--stat_flops needs utils/misc.codec_flops_tree, which comes with the tooling slice "
-            "(ROADMAP.md slice E, item 22)"
-        )
+        from funcodec_tpu_torch.utils.misc import codec_flops_tree
+
+        # counted from the layers' shapes: the model is built, never run
+        model, _ = build_codec_model(load_config(args.config_file), device=args.device)
+        logging.info("\n%s", codec_flops_tree(model, samples=args.sampling_rate))
+        del model
     triples = [tuple(s.split(",")) for s in args.data_path_and_name_and_type]
     inference_pipeline(
         output_dir=args.output_dir,

@@ -53,6 +53,7 @@ from funcodec_tpu_torch.parallel.dist import (
 )
 from funcodec_tpu_torch.tasks.codec import build_codec_model, load_config, resolve_device
 from funcodec_tpu_torch.train.gan_trainer import GANCodecTrainer, TrainerOptions
+from funcodec_tpu_torch.utils.misc import codec_flops_tree, model_summary
 
 
 def build_datasets(args, config):
@@ -147,8 +148,8 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--dry_run", action="store_true",
                         help="build everything, run zero steps (abs_task.py:1299)")
     parser.add_argument("--stat_flops", action="store_true",
-                        help="print the per-layer FLOPs/params tree of the "
-                             "serving path (gan_speech_codec.py:345-355; not ported)")
+                        help="log the per-layer FLOPs/params tree of the serving path at "
+                             "speech_max_length samples (gan_speech_codec.py:345-355)")
     parser.add_argument("--profile_dir", type=str, default=None,
                         help="capture a torch.profiler trace of a few steps "
                              "into this directory (utils/profiling.py)")
@@ -167,10 +168,6 @@ def get_parser() -> argparse.ArgumentParser:
 def _resolved(argv):
     """(args, config): the command line and the config with its overrides."""
     args = get_parser().parse_args(argv)
-    if args.stat_flops:
-        raise NotImplementedError(
-            "--stat_flops needs utils/misc.codec_flops_tree, which is not ported yet (ROADMAP.md item 22)"
-        )
     config = load_config(args.config)
     for field in ("seed", "max_epoch", "num_iters_per_epoch", "batch_size"):
         v = getattr(args, field)
@@ -274,6 +271,9 @@ def train(args, config, group: Optional[DataGroup]):
         sum(p.numel() for p in discriminator.parameters()), device,
         "" if group is None else f", data-parallel rank {group.rank} of {group.world} ({group.backend})",
     )
+    logging.info(model_summary(model, "generator"))
+    if args.stat_flops:
+        logging.info("\n%s", codec_flops_tree(model, samples=config.get("speech_max_length", 16000)))
     if args.dry_run:
         logging.info("--dry_run: model and data built, exiting before training")
         return trainer, state

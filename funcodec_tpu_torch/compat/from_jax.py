@@ -95,11 +95,7 @@ def _layers(sd: Dict[str, torch.Tensor], prefix: str, layers: Sequence[Layer], p
         if kind == "conv":
             _conv(sd, base, spec, p)
         elif kind == "lstm":
-            for l, lp in enumerate(p):
-                sd[f"{base}.lstm.weight_ih_l{l}"] = _t(np.asarray(lp["w_ih"]).T)
-                sd[f"{base}.lstm.weight_hh_l{l}"] = _t(np.asarray(lp["w_hh"]).T)
-                sd[f"{base}.lstm.bias_ih_l{l}"] = _t(lp["b_ih"])
-                sd[f"{base}.lstm.bias_hh_l{l}"] = _t(lp["b_hh"])
+            _lstm(sd, f"{base}.lstm", p)
         elif kind == "snake":
             sd[f"{base}.alpha"] = _t(np.asarray(p["alpha"]).reshape(1, -1, 1))
         elif kind == "resblock":
@@ -117,11 +113,26 @@ def _layers(sd: Dict[str, torch.Tensor], prefix: str, layers: Sequence[Layer], p
             raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
 
 
+def _lstm(sd: Dict[str, torch.Tensor], base: str, layers) -> None:
+    """A JAX stacked LSTM's per-layer {w_ih, w_hh, b_ih, b_hh} ((in, 4H)
+    layouts) as nn.LSTM's tensors under `base`."""
+    for l, lp in enumerate(layers):
+        sd[f"{base}.weight_ih_l{l}"] = _t(np.asarray(lp["w_ih"]).T)
+        sd[f"{base}.weight_hh_l{l}"] = _t(np.asarray(lp["w_hh"]).T)
+        sd[f"{base}.bias_ih_l{l}"] = _t(lp["b_ih"])
+        sd[f"{base}.bias_hh_l{l}"] = _t(lp["b_hh"])
+
+
 def state_dict_from_jax(model, params: Mapping[str, Any], rvq_state) -> Dict[str, torch.Tensor]:
     """funcodec_tpu Encodec (params, rvq_state) as numpy -> the port's state_dict.
 
-    `model` is the port's Encodec (its layer lists drive the walk);
-    `rvq_state` has the four codebook buffers as attributes or keys.
+    `model` is the port's Encodec, FreqCodec or CodecSemanticAug (its layer
+    lists drive the walk); `rvq_state` has the four codebook buffers as
+    attributes or keys. Carried too: the context model (``params["context"]``)
+    and the semantic codec's ``ppg_*`` / ``utt_level_proj`` layers. The
+    identity quantizer holds no codebooks in the port (the JAX one's unused
+    one-quantizer state is dropped); a residual_quantizer's are its inner
+    quantizer's.
     """
     sd: Dict[str, torch.Tensor] = {}
     _layers(sd, "encoder.model", model.encoder.layers, params["encoder"])
@@ -131,9 +142,25 @@ def state_dict_from_jax(model, params: Mapping[str, Any], rvq_state) -> Dict[str
         if name in qp:
             sd[f"quantizer.{name}.weight"] = _t(np.asarray(qp[name]["kernel"]).T)
             sd[f"quantizer.{name}.bias"] = _t(qp[name]["bias"])
+    empty = model.quantizer.state.embed.shape[0] == 0
     for name in RVQ_BUFFERS:
         value = rvq_state[name] if isinstance(rvq_state, Mapping) else getattr(rvq_state, name)
-        sd[f"quantizer.rq.model.{name}"] = _t(value)
+        sd[f"quantizer.rq.model.{name}"] = _t(np.asarray(value)[:0] if empty else value)
+    context = getattr(model, "context", None)
+    if context is not None:
+        if context.cfg.model == "transformer":
+            encoder_state_dict_from_jax(sd, "context.encoder", context.encoder.cfg, params["context"])
+        else:
+            _lstm(sd, "context.lstm", params["context"])
+    if "ppg_embedding" in params:
+        sd["ppg_embedding.weight"] = _t(params["ppg_embedding"])
+        _layers(sd, "ppg_ds_layer", model.ppg_ds_layers, params["ppg_ds_layer"])
+        _layers(sd, "ppg_cond_layer", model.ppg_cond_layers, params["ppg_cond_layer"])
+        if "ppg_classifier" in params:
+            _layers(sd, "ppg_classifier", model.ppg_classifier_layers, params["ppg_classifier"])
+        if "utt_level_proj" in params:
+            sd["utt_level_proj.weight"] = _t(np.asarray(params["utt_level_proj"]["kernel"]).T)
+            sd["utt_level_proj.bias"] = _t(params["utt_level_proj"]["bias"])
     return sd
 
 

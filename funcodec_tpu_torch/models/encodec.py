@@ -59,7 +59,10 @@ class EncodecConfig:
     multi_spectral_n_mels: int = 64
     use_power_spec_loss: bool = False
     bypass_quantizer: bool = False
+    # the context loss (codec_basic.py:224-238, models/context.py): off
+    # unless the weight is positive and the flattened conf is given
     context_loss_weight: float = 0.0
+    context_loss_conf: Optional[Tuple[Tuple[str, Any], ...]] = None
 
     @property
     def segment_length(self) -> Optional[int]:
@@ -96,7 +99,9 @@ def linear_overlap_add(frames: List[torch.Tensor], stride: int) -> torch.Tensor:
 
 
 class Encodec(nn.Module):
-    """EnCodec assembly; submodules ``encoder``, ``quantizer``, ``decoder``."""
+    """EnCodec assembly; submodules ``encoder``, ``quantizer``, ``decoder``
+    and, with the context loss, ``context`` (models/context.py, its weights
+    drawn from `generator` on `device`, the encoder's by default)."""
 
     def __init__(
         self,
@@ -104,14 +109,24 @@ class Encodec(nn.Module):
         encoder: SEANetEncoder,
         quantizer: Quantizer,
         decoder: SEANetDecoder,
+        *,
+        device=None,
+        generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if cfg.context_loss_weight > 0:
-            raise NotImplementedError("the context loss is not ported yet (ROADMAP.md item 17)")
         self.cfg = cfg
         self.encoder = encoder
         self.quantizer = quantizer
         self.decoder = decoder
+        self.context = None
+        if cfg.context_loss_weight > 0 and cfg.context_loss_conf is not None:
+            from funcodec_tpu_torch.models.context import ContextConfig, ContextModule
+
+            conf = dict(cfg.context_loss_conf)
+            conf.setdefault("odim", cfg.odim)
+            if device is None:
+                device = next(encoder.parameters()).device
+            self.context = ContextModule(ContextConfig(**conf), device=device, generator=generator)
 
     # -- encode / decode ------------------------------------------------------
 
@@ -284,16 +299,30 @@ class Encodec(nn.Module):
         discriminator's parameters carry no gradient here."""
         orig = speech.float()
         recon, aux = self._reconstruct(speech, generator, rvq_state, training=training, group=group)
-        return self._generator_losses(discriminator, orig, recon, aux, group=group)
+        return self._generator_losses(discriminator, orig, recon, aux, generator=generator, group=group)
+
+    def _context_terms(self, aux, generator: Optional[torch.Generator], group: Optional[DataGroup]):
+        """(context loss, prediction accuracy): models/context.py's loss of
+        each frame's latents on its first quantizer's codes and codewords
+        against the detached first codebook of the step's new state, summed
+        over the frames (the accuracy averaged); this rank's means."""
+        loss = acc = torch.zeros((), device=aux["embs"][0].device)
+        codebook0 = aux["rvq_state"].embed[0].detach()
+        for emb, idx, subq in zip(aux["embs"], aux["indices"], aux["sub_quants"]):
+            c_loss, c_acc = self.context.loss(emb, idx[0], subq[0], codebook0, generator, group=group)
+            loss = loss + c_loss
+            acc = acc + c_acc / len(aux["embs"])
+        return loss, acc
 
     def _generator_losses(self, discriminator: Discriminator, orig: torch.Tensor, recon: torch.Tensor, aux,
-                          group: Optional[DataGroup] = None):
+                          generator: Optional[torch.Generator] = None, group: Optional[DataGroup] = None):
         """The generator's losses from a reconstruction: L1, multi-spectral,
         hinge adversarial and feature matching against the real signal's
         fmaps (computed without grad), commit and enc-quant (each frame's
-        latent MSE, squared). The discriminator sees the reconstruction in
-        its compute type. The terms are the global batch's (one
-        global_mean)."""
+        latent MSE, squared), and with a context module the context loss
+        (its spans drawn from `generator`) times context_loss_weight. The
+        discriminator sees the reconstruction in its compute type. The terms
+        are the global batch's (one global_mean)."""
         cfg = self.cfg
         disc = _without_param_grad(discriminator)
         disc_in_dtype = recon.dtype
@@ -314,21 +343,26 @@ class Encodec(nn.Module):
                     feat_losses.append((rf - ff).abs().float().mean())
         adversarial_loss = torch.stack(adv_losses).mean()
         feat_match_loss = torch.stack(feat_losses).mean()
+        zero = torch.zeros((), device=orig.device)
+        context_loss, context_acc = (zero, zero) if self.context is None else self._context_terms(
+            aux, generator, group)
         terms = global_mean(torch.stack([recon_loss, multi_spectral, adversarial_loss, feat_match_loss,
-                                         aux["commit_loss"], *aux["enc_quant_mses"]]), group)
-        recon_loss, multi_spectral, adversarial_loss, feat_match_loss, commit_loss = terms[:5]
-        enc_quant_loss = terms[5:].square().sum()
+                                         aux["commit_loss"], context_loss, context_acc,
+                                         *aux["enc_quant_mses"]]), group)
+        recon_loss, multi_spectral, adversarial_loss, feat_match_loss, commit_loss, context_loss, context_acc = (
+            terms[:7])
+        enc_quant_loss = terms[7:].square().sum()
         gen_loss = (
             recon_loss * cfg.recon_loss_weight
             + multi_spectral * cfg.multi_spectral_recon_loss_weight
             + adversarial_loss * cfg.adversarial_loss_weight
             + feat_match_loss * cfg.feat_match_loss_weight
         )
-        loss = gen_loss + commit_loss + enc_quant_loss * cfg.enc_quant_loss_weight
-        zero = torch.zeros((), device=orig.device)
+        loss = (gen_loss + commit_loss + enc_quant_loss * cfg.enc_quant_loss_weight
+                + context_loss * cfg.context_loss_weight)
         stats = {k: v.detach() for k, v in dict(
-            context_loss=zero,
-            context_pred_acc=zero,
+            context_loss=context_loss,
+            context_pred_acc=context_acc,
             generator_loss=loss,
             generator_recon_loss=recon_loss,
             generator_multi_spectral_recon_loss=multi_spectral,

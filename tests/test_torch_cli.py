@@ -178,12 +178,22 @@ def test_dispatch_pcm16_matches_jax(corpus, monkeypatch):
     np.testing.assert_array_equal(out, ref)
 
 
-def test_unported_options_raise(corpus, tmp_path):
+def test_unported_options_raise(corpus, tmp_path, caplog):
+    """--stat_flops raised until the tooling was ported: it now logs the
+    serving path's cost tree before serving. The flax .ckpt still raises."""
+    import logging
+
+    from funcodec_tpu_torch.utils.misc import codec_flops_tree
+
     base = ["--config_file", str(corpus / "config.yaml"), "--model_file", str(corpus / "model.pth"),
             "--output_dir", str(tmp_path), "--data_path_and_name_and_type",
-            f"{corpus / 'wav.scp'},speech,sound", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="slice E"):
+            f"{corpus / 'wav.scp'},speech,sound", "--device", "cpu", "--batch_size", "2"]
+    with caplog.at_level(logging.INFO):
         tcli.main(base + ["--stat_flops"])
+    model = tcli.Speech2Token(str(corpus / "config.yaml"), str(corpus / "model.pth"), device="cpu").model
+    assert [r.getMessage() for r in caplog.records if "cost tree" in r.getMessage()] == [
+        "\n" + codec_flops_tree(model, samples=16000)]
+    assert (tmp_path / "codecs.txt").exists()
     ckpt = tmp_path / "model.ckpt"
     ckpt.write_bytes(b"")
     with pytest.raises(NotImplementedError, match="flax-msgpack .ckpt"):

@@ -283,9 +283,19 @@ def test_unported_options_raise(section, key, value):
     transformer: that case now builds the bottleneck transformer; the
     freq_codec model and the 2D encoder raised until FreqCodec was ported:
     those cases now build a FreqCodec and a 2D encoder (given the (freq,
-    time) ratio pairs a 2D encoder takes). codec_semantic_aug still raises."""
+    time) ratio pairs a 2D encoder takes); codec_semantic_aug raised until
+    the semantic codec was ported: that case now builds a CodecSemanticAug.
+    A name that is not registered raises."""
     config = _config()
     (config[section] if section else config)[key] = value
+    if value == "codec_semantic_aug":
+        from funcodec_tpu_torch.models.semantic import CodecSemanticAug
+
+        tm, _ = tbuild(config, device="cpu")
+        assert isinstance(tm, CodecSemanticAug) and tm.cfg.ppg_usage_mod == "residual"
+        with pytest.raises(ValueError, match="unknown model"):
+            tbuild(dict(config, model="codec_semantic_aug_v2"), device="cpu")
+        return
     if value == "freq_codec":
         from funcodec_tpu_torch.models.freqcodec import FreqCodec
 

@@ -195,7 +195,14 @@ def test_codec_train_device_cache(corpus, tmp_path, monkeypatch):
         main(_args(root, tmp_path / "exp2"))
 
 
-def test_print_config_dry_run_and_unported_flags(corpus, tmp_path, capsys):
+def test_print_config_dry_run_and_unported_flags(corpus, tmp_path, capsys, caplog):
+    """--print_config, --dry_run, and --stat_flops (which raised until the
+    tooling was ported, and now logs the cost tree at speech_max_length);
+    the card by default, with no fallback to the CPU."""
+    import logging
+
+    from funcodec_tpu_torch.utils.misc import codec_flops_tree
+
     main(_args(corpus, tmp_path / "p", "--print_config", "--batch_size", "3"))
     printed = yaml.safe_load(capsys.readouterr().out)
     assert printed["batch_size"] == 3 and printed["encoder_conf"] == CONFIG["encoder_conf"]
@@ -203,8 +210,11 @@ def test_print_config_dry_run_and_unported_flags(corpus, tmp_path, capsys):
     assert state.step == 0 and (tmp_path / "d" / "config.yaml").exists()
     assert not (tmp_path / "d" / "checkpoint.pth").exists()
     assert trainer.device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="item 22"):
-        main(_args(corpus, tmp_path / "f", "--stat_flops"))
+    with caplog.at_level(logging.INFO):
+        _, state = main(_args(corpus, tmp_path / "f", "--stat_flops", "--dry_run"))
+    trees = [r.getMessage() for r in caplog.records if "cost tree" in r.getMessage()]
+    samples = CONFIG.get("speech_max_length", 16000)
+    assert trees == ["\n" + codec_flops_tree(state.model, samples=samples)] and f"{samples} samples" in trees[0]
     if not torch.cuda.is_available():  # the card by default, and no fallback to the CPU
         args = _args(corpus, tmp_path / "c")[:-2]
         with pytest.raises(RuntimeError, match="is_available"):
