@@ -20,7 +20,9 @@ gr8 and gr1 topologies; then the LibriTTS Laura recipe (tokens, LM
 training through ``cli/text2audio_train``, synthesis); data parallelism;
 then the LibriTTS codec recipe's tooling (wav arks, --stat_flops, n-best
 averaging, scoring) with the residual and identity quantizers, the context
-loss and the semantic codec.
+loss and the semantic codec; a streaming session on the causal EnCodec;
+and the HiFiGAN generator, the HiFiGAN and SoundStream discriminators, the
+Kaldi fbank frontend and the .ecdc coder.
 In phases that each raise on failure:
 
 1. checks: a CUDA card is present; TF32 is turned off for fp32 matmuls and
@@ -203,13 +205,42 @@ In phases that each raise on failure:
    B = 8 x 10 s); one identity_quantizer step; codec_flops_tree equal with
    the flags on and off. Then the steady bf16 step with and without the
    context loss (6 steps a side, in turns), ms and device kernels a step.
+15. streaming: models/streaming.StreamingCodecSession on the causal
+   weight_norm EnCodec of scripts/bench_streaming.py (16 kHz, n_filters 32,
+   dimension 128, ratios 8·5·4·2, a 2-layer LSTM, 32 x 1024 codebooks, no
+   audio_normalize; 14,851,810 seeded parameters) built by
+   build_codec_model. Two seeded 10 s clips at B = 2 streamed as a 2,560-sample
+   first chunk (reflect pads need 2,240), then 20, 80 and 320 ms chunks in
+   turns, then flush(). fp32 (TF32 off): tokens equal to
+   inference_encoding(use_scale=False) but at near-ties, samples within 2e-4
+   (of the output's scale) of the whole decode of the same tokens. bf16 with
+   FUSED_STRIDE1 (and FUSED_RVQ, which the session's fp32 scan never
+   reaches): conv1d_s1 in the first encode and the first decode chunk only
+   (6 each), every count set to 0 before the stream and read after, each
+   call held against its plain version; token flips against fp32 within
+   the sanity bound. Then the steady round trip (encode_chunk +
+   decode_chunk) of a primed fp32 session at B = 1 and 8 and chunks of 20,
+   80 and 320 ms: ms (best of 20, fenced), real-time factor per stream and
+   in all, device kernels a round trip.
+16. extras: the HiFiGAN generator at its defaults (80 mels, 512 channels,
+   x256) at B = 4 x 200 frames and each of the seven extra discriminators
+   at its defaults at B = 2 x 1 s, fp32 on the card against the CPU from
+   the same weights (1e-4 of each tensor's scale); two bf16 shared GAN
+   steps of the flagship yaml's generator with both SEANet flags against
+   HiFiGAN MSMPD + SoundStream + complex-STFT at B = 16 x 2.56 s (launches
+   exact per step, each kernel call held against its plain version, finite
+   stats, both modules moved), then its steady ms a step and peak memory
+   beside the MS-STFT step's; WavFrontend (80 mels, LFR 7/6, a seeded CMVN
+   file) at B = 8 x 10 s on the card against the CPU; compress_tokens /
+   decompress_tokens of the streamed tokens (bytes, host ms, equal).
 
 The line before the last is the card's name and power limit (nvidia-smi),
 the one before it a JSON object of the kernels (with each one's launches in
 the fused training configuration, in the trainer phase's two-epoch run, in
 the TTS phase's zero-shot request, in the FreqCodec main-path requests, in
-the Laura recipe's stages 1 and 3, in the data-parallel phase and on the
-codec recipe's path, and the backwards' times); the last
+the Laura recipe's stages 1 and 3, in the data-parallel phase, on the
+codec recipe's path, in the streaming session and in the extras phase's GAN
+steps, and the backwards' times); the last
 line is
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
 """
@@ -239,16 +270,20 @@ from funcodec_tpu_torch.cli.codec_inference import Speech2Token  # noqa: E402
 from funcodec_tpu_torch.data.kaldi_ark import ArkScpReader  # noqa: E402
 from funcodec_tpu_torch.data.wav_io import read_wav, write_wav  # noqa: E402
 from funcodec_tpu_torch.kernels import build  # noqa: E402
+from funcodec_tpu_torch.models.hifigan_gen import HiFiGANConfig, HiFiGANGenerator  # noqa: E402
 from funcodec_tpu_torch.models.seanet import (  # noqa: E402
     SEANetConfig,
     SEANetResnetBlock,
     _resblock_layers,
     make_layer,
 )
+from funcodec_tpu_torch.models.streaming import StreamingCodecSession  # noqa: E402
 from funcodec_tpu_torch.ops import conv_kernel, copy_kernel, resblock_kernel  # noqa: E402
+from funcodec_tpu_torch.ops.fbank import WavFrontend  # noqa: E402
 from funcodec_tpu_torch.ops.pad import conv_padding_total, pad1d_time, split_padding  # noqa: E402
 from funcodec_tpu_torch.quant import rvq_kernel  # noqa: E402
-from funcodec_tpu_torch.tasks.codec import build_codec_model, load_config  # noqa: E402
+from funcodec_tpu_torch.quant.entropy import compress_tokens, decompress_tokens  # noqa: E402
+from funcodec_tpu_torch.tasks.codec import build_codec_model, build_discriminator, load_config  # noqa: E402
 from funcodec_tpu_torch.tools import bw_probe  # noqa: E402
 from funcodec_tpu_torch.tools.benchlib import PEAK_BYTES, card_line, timeit, timeit_amortized  # noqa: E402
 from funcodec_tpu_torch.train.gan_trainer import step_generator  # noqa: E402
@@ -1049,14 +1084,17 @@ STEADY = dict(kmeans_init=False)  # initialized codebooks; the recipe's dropout 
 
 
 def build_trainer(dev, shared: bool, dtype, seed: int = 0, group=None, optim: str = "adam", model_conf=None,
-                  **quantizer):
+                  disc_conf=None, **quantizer):
     """The flagship generator and discriminator from the yaml (quantizer_conf
-    overridden by `quantizer`, model_conf updated by `model_conf`), their
+    overridden by `quantizer`, model_conf updated by `model_conf`, the
+    discriminator_conf replaced by `disc_conf`), their
     optimizers (Adam, or `optim`) at optim_conf's and optim2_conf's rates, a
     train state and its step (over a data `group`, or one process)."""
     config = load_config(str(FLAGSHIP_YAML))
     config["quantizer_conf"].update(quantizer)
     config["model_conf"].update(model_conf or {})
+    if disc_conf is not None:
+        config["discriminator_conf"] = disc_conf
     model, disc = build_codec_model(config, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
     opts = [make_optimizer(lr=c["lr"], betas=tuple(c["betas"]), name=optim)
             for c in (config["optim_conf"], config["optim2_conf"])]
@@ -2008,13 +2046,13 @@ def _held_calls(calls, what: str = "tts") -> dict:
     """Each recorded call's wrapper against its plain version on the same
     inputs (_held: 2 bf16 ulps, or FP32_REL_TOL of the output's scale for
     fp32 inputs); these launches are not counted."""
-    worst = {"conv1d_s1": 0.0, "resblock_tgn": 0.0}
+    worst = {}  # only the kernels that were called: no error for a kernel that was not
     with torch.inference_mode():
         for i, (kernel, fn, x, args, kwargs) in enumerate(calls):
             out = fn(x, *args, **kwargs)
             if out is None:
                 raise RuntimeError(f"{what} {kernel} call {i}: the wrapper did not launch at {tuple(x.shape)}")
-            worst[kernel] = max(worst[kernel], _held(kernel, f"{what} call {i} B={x.shape[0]} C={x.shape[1]} "
+            worst[kernel] = max(worst.get(kernel, 0.0), _held(kernel, f"{what} call {i} B={x.shape[0]} C={x.shape[1]} "
                                                      f"T={x.shape[2]}", out, PLAIN[kernel](x, *args, **kwargs)))
     return worst
 
@@ -2531,15 +2569,40 @@ def laura_card_cpu(dev, config, tokens, model, ds, lens) -> dict:
                 grad_norms_card=g_card, grad_norms_cpu=g_cpu)
 
 
-def _kernel_launches(fn) -> int:
-    """Device kernels one fn() launches, counted by torch.profiler."""
+def _device_kernels(fn, ranges: tuple = ()) -> tuple:
+    """(device kernels one fn() launches, their summed device ms), from torch.profiler. With
+    `ranges`, a third item: {name: (kernels, device ms)} of the kernels launched inside each
+    record_function range of that name, found through the profiler's launch correlation (each
+    kernel hangs on the op that launched it), so in the same profiled run as the total."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     _sync(CARD)
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         _sync(CARD)
-    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False) and e.name not in ranges]
+    total = (len(kernels), sum(e.time_range.elapsed_us() for e in kernels) / 1e3)
+    if not ranges:
+        return total
+    parts = {name: [0, 0.0] for name in ranges}
+
+    def add(e, part):
+        part[0] += len(e.kernels)
+        part[1] += sum(k.duration for k in e.kernels) / 1e3
+        for child in e.cpu_children:
+            add(child, part)
+
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name in parts:
+            add(e, parts[e.name])
+    return (*total, {name: tuple(v) for name, v in parts.items()})
+
+
+def _kernel_launches(fn) -> int:
+    """Device kernels one fn() launches, counted by torch.profiler."""
+    return _device_kernels(fn)[0]
 
 
 def laura_step_timing(dev, config, tokens, ds, batches, lens, card: str) -> dict:
@@ -3827,7 +3890,7 @@ def _launches(base: dict, n: int = 1, **extra) -> dict:
     return {k: n * v + extra.get(k, 0) for k, v in base.items()}
 
 
-def _recipe_part(what: str, expect: dict, fn, held: dict):
+def _held_part(what: str, expect: dict, fn, held: dict, tag: str = "recipe"):
     """fn() with its kernel calls recorded; its launches must equal `expect`. Then
     each recorded call is held against its plain version (_held_calls, _held_rvq),
     and the counters are set back to what fn() left, so that those launches do not
@@ -3840,10 +3903,10 @@ def _recipe_part(what: str, expect: dict, fn, held: dict):
     after = read_counts()
     launched = {k: after[k] - before[k] for k in after}
     if launched != expect:
-        raise RuntimeError(f"recipe {what}: launches {launched}, expected {expect}")
-    errs = _held_calls(calls, f"recipe {what}") if calls else {}
+        raise RuntimeError(f"{tag} {what}: launches {launched}, expected {expect}")
+    errs = _held_calls(calls, f"{tag} {what}") if calls else {}
     if rvq_calls:
-        errs["rvq_encode"] = _held_rvq(rvq_calls, f"recipe {what}")
+        errs["rvq_encode"] = _held_rvq(rvq_calls, f"{tag} {what}")
     for name, (mod, attr) in COUNTERS.items():
         setattr(mod, attr, after[name])
     for k, v in errs.items():
@@ -3921,7 +3984,7 @@ def recipe_data(held: dict) -> dict:
             out[split] = lengths
         return out
 
-    lengths = _recipe_part("data", NO_LAUNCHES, run, held)
+    lengths = _held_part("data", NO_LAUNCHES, run, held)
     log(f"[recipe] cli/dump_to_wav_ark --nj 4: {len(lengths['train'])} + {len(lengths['valid'])} utterances of "
         f"{RECIPE_FILE_SR} Hz PCM16 to {SR} Hz wav arks (4 shards each), length.txt equal to resample_poly's "
         f"lengths; calc_shape's speech_shape equal to the corpus'")
@@ -3948,7 +4011,7 @@ def recipe_train(dev, lengths: dict, held: dict):
             "--stat_flops"]
     t0 = time.perf_counter()
     with _Messages() as logged:
-        trainer, state = _recipe_part("codec_train", _expected(epochs * iters, epochs * v_batches),
+        trainer, state = _held_part("codec_train", _expected(epochs * iters, epochs * v_batches),
                                       lambda: codec_train.main(args), held)
     wall = time.perf_counter() - t0
     model = state.model
@@ -3995,7 +4058,7 @@ def recipe_average(exp: Path, held: dict) -> Path:
                 raise RuntimeError(f"recipe average_nbest: {k} is not the mean of the two epochs")
         return path
 
-    return _recipe_part("average_nbest", NO_LAUNCHES, run, held)
+    return _held_part("average_nbest", NO_LAUNCHES, run, held)
 
 
 def recipe_serve(dev, exp: Path, avg: Path, lengths: dict, held: dict) -> dict:
@@ -4012,7 +4075,7 @@ def recipe_serve(dev, exp: Path, avg: Path, lengths: dict, held: dict) -> dict:
               str(RECIPE_ENCODE_B), "--bit_width", "16000", "--dtype", "bfloat16", "--device", str(dev)]
     t0 = time.perf_counter()
     with _Messages() as logged:
-        _recipe_part("encode", _launches(LAURA_ENCODE, n_batches), lambda: cli.main(
+        _held_part("encode", _launches(LAURA_ENCODE, n_batches), lambda: cli.main(
             common + ["--output_dir", str(RECIPE_DIR / "codes"), "--data_path_and_name_and_type",
                       f"{RECIPE_DIR / 'dump' / 'valid' / 'wav.scp'},speech,sound", "--run_mod", "encode",
                       "--stat_flops"]), held)
@@ -4026,12 +4089,12 @@ def recipe_serve(dev, exp: Path, avg: Path, lengths: dict, held: dict) -> dict:
     if logged.tree() != codec_flops_tree(model, samples=SR):
         raise RuntimeError("recipe encode: --stat_flops logged another tree than codec_flops_tree's")
     del model
-    _recipe_part("decode", _launches(DECODE_PER_BATCH, n_batches), lambda: cli.main(
+    _held_part("decode", _launches(DECODE_PER_BATCH, n_batches), lambda: cli.main(
         common + ["--output_dir", str(RECIPE_DIR / "decode"), "--data_path_and_name_and_type",
                   f"{RECIPE_DIR / 'codes' / 'codecs.txt'},speech,codec_json", "--run_mod", "decode"]), held)
     _check_wavs(RECIPE_DIR / "decode", {k: f * 320 for k, f in frames.items()}, SR, "recipe decode")
     serve_s = time.perf_counter() - t0
-    quality = _recipe_part("codec_eval", NO_LAUNCHES, lambda: codec_eval.main(
+    quality = _held_part("codec_eval", NO_LAUNCHES, lambda: codec_eval.main(
         ["--ref_scp", str(RECIPE_DIR / "raw" / "valid" / "wav.scp"), "--deg_dir", str(RECIPE_DIR / "decode"),
          "--output_dir", str(RECIPE_DIR / "score")]), held)
     saved = json.loads((RECIPE_DIR / "score" / "quality.json").read_text())
@@ -4080,7 +4143,7 @@ def recipe_semantic(dev, held: dict) -> dict:
                                                         step_generator(dev, 0, 0)))
             return loss.detach(), o, torch.autograd.grad(loss, params, allow_unused=True)
 
-        loss, o, grads = _recipe_part(f"semantic {mode} train",
+        loss, o, grads = _held_part(f"semantic {mode} train",
                                       _launches(TRAIN_EXPECT, conv1d_s1=PPG_CONVS["train"][mode]), turn, held)
         stats = _floats(o["stats"])
         grads = dict(zip(names, grads))
@@ -4091,7 +4154,7 @@ def recipe_semantic(dev, held: dict) -> dict:
                 (mode == "supervision") != (stats["ppg_supervision_loss"] > 0):
             raise RuntimeError(f"recipe semantic {mode}: the loss, a gradient or the PPG's gradient is wrong")
         with torch.inference_mode():
-            res = _recipe_part(f"semantic {mode} inference",
+            res = _held_part(f"semantic {mode} inference",
                                _launches(EXPECT[MAIN_PATH], conv1d_s1=PPG_CONVS["infer"][mode]),
                                lambda: functional_call(model, c_params, ("inference_ppg", x_inf, ppg_inf)), held)
         idx, recon = res["code_indices"][0], res["recon_speech"]
@@ -4120,7 +4183,7 @@ def recipe_identity(dev, held: dict) -> dict:
     state = create_gan_train_state(model, disc, *opts)
     step = make_gan_train_step(model, disc, *opts, shared_forward=True, compute_dtype=torch.bfloat16)
     before = [p.detach().clone() for p in model.parameters()]
-    state, stats = _recipe_part("identity step", TRAIN_EXPECT, lambda: step(
+    state, stats = _held_part("identity step", TRAIN_EXPECT, lambda: step(
         state, {"speech": _train_speech(dev, TRAIN_B)}, step_generator(dev, 0, 0)), held)
     stats = _floats(stats)
     moved = sum(not torch.equal(a, b) for a, b in zip(before, model.parameters()))
@@ -4147,7 +4210,7 @@ def recipe_tree(model, held: dict) -> str:
             raise RuntimeError("recipe: codec_flops_tree changes with the kernel flags")
         return on
 
-    tree = _recipe_part("flops tree", NO_LAUNCHES, run, held)
+    tree = _held_part("flops tree", NO_LAUNCHES, run, held)
     log(f"[recipe] codec_flops_tree at 1 s, flags on = flags off: {tree.splitlines()[-1].strip()}")
     return tree
 
@@ -4223,6 +4286,442 @@ def recipe_phase(dev, card: str) -> dict:
                 identity_loss=identity["generator_loss"], tree_total=tree.splitlines()[-1].strip(), timing=timing)
 
 
+# ---------------------------------------------------------------------------
+# streaming phase
+# ---------------------------------------------------------------------------
+
+# the causal weight_norm EnCodec of scripts/bench_streaming.py: 16 kHz, n_filters 32,
+# dimension 128, ratios 8·5·4·2, a 2-layer LSTM, 32 x 1024 codebooks, no audio_normalize
+STREAM_CONFIG = {
+    "encoder_conf": {"causal": True, "norm": "weight_norm", "n_filters": 32, "ratios": [8, 5, 4, 2],
+                     "seq_model": "lstm"},
+    "decoder_conf": {"causal": True, "norm": "weight_norm", "n_filters": 32, "ratios": [8, 5, 4, 2],
+                     "seq_model": "lstm"},
+    "quantizer_conf": {"codebook_size": 1024, "num_quantizers": 32, "kmeans_init": False, "sampling_rate": SR,
+                       "encoder_hop_length": 320},
+    "model_conf": {"odim": 128, "target_sample_hz": SR, "audio_normalize": False},
+}
+STREAM_B, STREAM_SECONDS = 2, 10.0
+# the first chunk primes the session; reflect pads need >= 2,240 samples here (min_first_chunk)
+STREAM_FIRST = 2560
+STREAM_CYCLE_MS = (20, 80, 320)  # the steady chunks, in this order, then 20 ms ones to the end
+STREAM_REL = 2e-4  # streamed samples against the whole decode of the same tokens, of the output's scale
+STREAM_NEAR_TIE = 1e-4  # a streamed token may differ from the whole path's only at such a near-tie
+# bf16 with FUSED_STRIDE1: conv1d_s1 in each direction's first (unprimed) chunk, at the
+# six stride-1 K > 1 convs (the head conv, four residual k3 convs, the last conv);
+# primed chunks run plain convs on carry + chunk; the session's RVQ is the fp32 scan
+STREAM_EXPECT = {"first encode chunk": dict(NO_LAUNCHES, conv1d_s1=6),
+                 "first decode chunk": dict(NO_LAUNCHES, conv1d_s1=6),
+                 "primed chunks": NO_LAUNCHES, "flush": NO_LAUNCHES}
+STREAM_TIMED_B = (1, 8)
+STREAM_TIMED_MS = (20, 80, 320)
+STREAM_REPS = 20
+
+
+def _stream_chunks(total: int) -> list:
+    chunks = [STREAM_FIRST]
+    cycle = [SR * ms // 1000 for ms in STREAM_CYCLE_MS]
+    rest = total - STREAM_FIRST
+    while rest >= sum(cycle):
+        chunks += cycle
+        rest -= sum(cycle)
+    small = cycle[0]
+    chunks += [small] * (rest // small)
+    assert sum(chunks) == total
+    return chunks
+
+
+@contextlib.contextmanager
+def _encode_calls():
+    """Record each Quantizer.encode scan inside the block (models/quantizer.py
+    calls rvq_encode by name): [(input (B, T, D) fp32, codes (n_q, B, T), embed)]."""
+    import funcodec_tpu_torch.models.quantizer as quantizer_mod
+
+    calls, inner = [], quantizer_mod.rvq_encode
+
+    def wrapper(cfg, state, x, n_q=None):
+        codes = inner(cfg, state, x, n_q)
+        calls.append((x.float().clone(), codes.clone(), state.embed))
+        return codes
+
+    quantizer_mod.rvq_encode = wrapper
+    try:
+        yield calls
+    finally:
+        quantizer_mod.rvq_encode = inner
+
+
+def _stream(model, wav: torch.Tensor, dtype, chunks, held=None) -> tuple:
+    """wav (B, T) through a StreamingCodecSession in `chunks`, then flush():
+    (tokens (n_q, B, T'), samples (B, T)). With `held`, each part's launches
+    are held to STREAM_EXPECT and its kernel calls to their plain versions."""
+    sess = StreamingCodecSession(model, batch=wav.shape[0], dtype=dtype)
+    toks, outs, start = [], [], 0
+
+    def part(what, fn):
+        return fn() if held is None else _held_part(what, STREAM_EXPECT[what], fn, held, tag="streaming")
+
+    def rest():
+        nonlocal start
+        for L in chunks[1:]:
+            t = sess.encode_chunk(wav[:, start:start + L])
+            toks.append(t)
+            outs.append(sess.decode_chunk(t))
+            start += L
+
+    toks.append(part("first encode chunk", lambda: sess.encode_chunk(wav[:, :chunks[0]])))
+    start = chunks[0]
+    outs.append(part("first decode chunk", lambda: sess.decode_chunk(toks[0])))
+    part("primed chunks", rest)
+    tail = part("flush", sess.flush)
+    if tail is not None:
+        outs.append(tail)
+    return torch.cat(toks, dim=2), torch.cat(outs, dim=1)
+
+
+def _merged(calls):
+    """A session's per-chunk encode calls as one call over the whole stream."""
+    return (torch.cat([c[0] for c in calls], dim=1), torch.cat([c[1] for c in calls], dim=2), calls[0][2])
+
+
+def _in_range(name: str, fn):
+    """fn, each call inside a torch.profiler record_function range `name`."""
+    from torch.profiler import record_function
+
+    def ranged(*args, **kwargs):
+        with record_function(name):
+            return fn(*args, **kwargs)
+
+    return ranged
+
+
+def streaming_timing(model, dev, card: str) -> list:
+    """The steady per-chunk round trip (encode_chunk + decode_chunk) of a
+    primed fp32 session, fenced, best of STREAM_REPS; its device kernels and
+    their summed time (one profiled round trip), and the idle share of the
+    best round trip that leaves."""
+    rows = []
+    gen = torch.Generator(device=dev).manual_seed(61)
+    _set_seanet_flags(False)
+    for B in STREAM_TIMED_B:
+        for ms in STREAM_TIMED_MS:
+            sess = StreamingCodecSession(model, batch=B)
+            sess.decode_chunk(sess.encode_chunk(0.1 * torch.randn(B, STREAM_FIRST, device=dev, generator=gen)))
+            x = 0.1 * torch.randn(B, SR * ms // 1000, device=dev, generator=gen)
+
+            def trip():
+                return sess.decode_chunk(sess.encode_chunk(x))
+
+            for _ in range(2):
+                trip()
+            best = float("inf")
+            for _ in range(STREAM_REPS):
+                _sync(dev)
+                t0 = time.perf_counter()
+                out = trip()
+                _sync(dev)
+                best = min(best, time.perf_counter() - t0)
+            if out.shape != (B, x.shape[1]) or not torch.isfinite(out).all():
+                raise RuntimeError(f"streaming timing B={B} {ms} ms: output {tuple(out.shape)}")
+            # the quantizer's part of the same profiled round trip: its encode (the fp32 scan)
+            # and decode, each run inside a named range
+            q = model.quantizer
+            q.encode, q.decode = _in_range("rvq_scan", q.encode), _in_range("rvq_decode", q.decode)
+            try:
+                kernels, device_ms, parts = _device_kernels(trip, ranges=("rvq_scan", "rvq_decode"))
+            finally:
+                del q.encode, q.decode
+            scan, dequant = parts["rvq_scan"], parts["rvq_decode"]
+            if not (0 < scan[0] < kernels and 0 < dequant[0] < kernels):
+                raise RuntimeError(f"streaming timing B={B} {ms} ms: the profiler put {scan[0]} of the round trip's "
+                                   f"{kernels} kernels in the RVQ scan and {dequant[0]} in the decode")
+            rtf = ms / 1e3 / best
+            rows.append(dict(batch=B, chunk_ms=ms, ms=best * 1e3, rtf_per_stream=rtf, rtf_total=B * rtf,
+                             device_kernels=kernels, device_ms=device_ms, idle_share=1 - device_ms / (best * 1e3),
+                             scan_kernels=scan[0], scan_device_ms=scan[1], dequant_kernels=dequant[0],
+                             dequant_device_ms=dequant[1]))
+            log(f"[streaming] round trip B={B} chunk {ms} ms: {best * 1e3:.3f} ms (best of {STREAM_REPS}), "
+                f"{rtf:.2f}x real time per stream, {B * rtf:.2f}x in all; {kernels} device kernels, "
+                f"{device_ms:.3f} ms of kernel time under the profiler (idle {rows[-1]['idle_share']:.3f} of the "
+                f"best round trip), of them the RVQ encode scan's {scan[0]} kernels {scan[1]:.3f} ms and the RVQ "
+                f"decode's {dequant[0]} kernels {dequant[1]:.3f} ms ({card})")
+    return rows
+
+
+def streaming_phase(dev, card: str) -> dict:
+    """Phase 15: StreamingCodecSession on the causal EnCodec. fp32 (TF32 off):
+    tokens equal to the whole path's but at near-ties, samples within
+    STREAM_REL of the whole decode of the same tokens. bf16 with
+    FUSED_STRIDE1: launches exact per part (every count set to 0 before the
+    stream and read after), each kernel call held against its plain version,
+    token flips against fp32 within MAX_FLIP_ALL. Then the timing."""
+    t_phase = time.perf_counter()
+    model, _ = build_codec_model(STREAM_CONFIG, device=dev, generator=torch.Generator(device=dev).manual_seed(5))
+    model.eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    if abs(n_params / 1e6 - PARAMS_M) / PARAMS_M > 0.02:
+        raise RuntimeError(f"streaming: {n_params} parameters, not {PARAMS_M}M +-2%")
+    wav = torch.from_numpy(_speech(60, STREAM_B, STREAM_SECONDS)).to(dev)
+    chunks = _stream_chunks(wav.shape[1])
+    T = wav.shape[1] // 320
+
+    _set_seanet_flags(False)
+    with _encode_calls() as s_calls:
+        toks, recon = _stream(model, wav, torch.float32, chunks)
+    with _encode_calls() as w_calls, torch.no_grad():
+        whole = model.inference_encoding(wav, use_scale=False)["code_indices"][0]
+    flips, n_codes, gap = _code_flips([_merged(s_calls)], w_calls)
+    with torch.no_grad():
+        ref = model.inference_decoding(toks.permute(1, 2, 0))["recon_speech"]
+    rel = float((recon - ref).abs().max()) / float(ref.abs().max())
+    if toks.shape != (STREAM_CONFIG["quantizer_conf"]["num_quantizers"], STREAM_B, T) or recon.shape != wav.shape or not torch.isfinite(recon).all():
+        raise RuntimeError(f"streaming fp32: tokens {tuple(toks.shape)}, samples {tuple(recon.shape)}")
+    log(f"[streaming] causal EnCodec {n_params} parameters; B={STREAM_B} x {STREAM_SECONDS} s in {len(chunks)} chunks "
+        f"({STREAM_FIRST} samples, then {STREAM_CYCLE_MS} ms in turns, then 20 ms), fp32: {flips} of {n_codes} tokens "
+        f"differ from inference_encoding(use_scale=False) (largest distance gap at a first differing stage {gap:.3e} "
+        f"of the residual's squared norm, limit {STREAM_NEAR_TIE:.0e}); samples against the whole decode of the "
+        f"streamed tokens {rel:.3e} of its scale (limit {STREAM_REL:.0e})")
+    if gap > STREAM_NEAR_TIE or rel > STREAM_REL or whole.shape != toks.shape:
+        raise RuntimeError("streaming fp32: the session disagrees with the whole-utterance path")
+
+    held = dict(max_abs_err={}, calls=0, launches={})
+    set_flags("stride1")  # FUSED_RVQ on too: the session's RVQ must not reach rvq_encode
+    _sync(dev)
+    reset_counts()
+    toks_bf, recon_bf = _stream(model, wav, torch.bfloat16, chunks, held)
+    _sync(dev)
+    counts = read_counts()
+    expect = {k: sum(part[k] for part in STREAM_EXPECT.values()) for k in counts}
+    if counts != expect:
+        raise RuntimeError(f"streaming bf16: launches {counts}, expected {expect}")
+    bf_flips = _flips(toks_bf.cpu().numpy(), toks.cpu().numpy())
+    if not torch.isfinite(recon_bf).all() or recon_bf.shape != wav.shape or bf_flips[1] > MAX_FLIP_ALL:
+        raise RuntimeError(f"streaming bf16: samples {tuple(recon_bf.shape)}, flips against fp32 {bf_flips}")
+    _set_seanet_flags(False)
+    log(f"[streaming] bf16, FUSED_STRIDE1: launches {counts} exact ({held['calls']} kernel calls held against their "
+        f"plain versions, max|err| {held['max_abs_err']}); token flips against fp32 q0 {bf_flips[0]:.4f} all "
+        f"{bf_flips[1]:.4f} (limit {MAX_FLIP_ALL})")
+    path_s = time.perf_counter() - t_phase
+    timing = streaming_timing(model, dev, card)
+    del model
+    torch.cuda.empty_cache()
+    log(f"[streaming] phase {time.perf_counter() - t_phase:.2f} s (the checks {path_s:.2f} s)")
+    return dict(params=n_params, chunks=len(chunks), launches=counts, parts=held["launches"],
+                max_abs_err=held["max_abs_err"], held_calls=held["calls"], fp32_token_flips=flips, tokens=n_codes,
+                flip_gap=gap, sample_rel=rel, bf16_flips=dict(q0=bf_flips[0], all=bf_flips[1]), timing=timing,
+                tokens_fp32=toks.cpu(), phase_s=time.perf_counter() - t_phase)
+
+
+# ---------------------------------------------------------------------------
+# extras phase
+# ---------------------------------------------------------------------------
+
+EXTRA_REL = 1e-4  # fp32 on the card (TF32 off) against the CPU, of each tensor's scale
+EXTRA_DISCS = ("hifigan_period_discriminator", "hifigan_multi_period_discriminator", "hifigan_scale_discriminator",
+               "hifigan_multi_scale_discriminator", "hifigan_multi_scale_multi_period_discriminator",
+               "soundstream_multi_scale_discriminator", "soundstream_complex_stft_discriminator")
+# the GAN step's discriminators: JAX's bf16 step takes the complex-STFT one (its STFT
+# is fp32, so its convs run in fp32 in both packages)
+EXTRA_GAN = {"disc_conf_list": [{"name": "hifigan_multi_scale_multi_period_discriminator"},
+                                {"name": "soundstream_multi_scale_discriminator"},
+                                {"name": "soundstream_complex_stft_discriminator"}]}
+EXTRA_GAN_STEPS = 2
+HIFIGAN_B, HIFIGAN_FRAMES = 4, 200
+FBANK_B, FBANK_SECONDS = 8, 10.0
+# Card vs CPU in the power domain: |P_card - P_cpu| over each frame's largest mel bin, P the
+# exp of the log-mel that the CMVN is undone from (a log-mel difference is dominated by fp32
+# rounding in low-power bins). The limit sits between fp32 rounding and what the card reads
+# for the waveform rounded to fp16, a control that the check must reject
+FBANK_POWER_TOL = 5e-5
+
+
+def _card_cpu_rel(card_t, cpu_t) -> float:
+    a, b = card_t.detach().cpu(), cpu_t.detach()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def extras_hifigan(dev, card: str) -> dict:
+    cfg = HiFiGANConfig()
+    cpu = HiFiGANGenerator(cfg, device="cpu", generator=torch.Generator().manual_seed(11))
+    gpu = HiFiGANGenerator(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(11))
+    gpu.load_state_dict(cpu.state_dict())
+    c = torch.from_numpy(np.random.RandomState(62).randn(HIFIGAN_B, cfg.in_channels, HIFIGAN_FRAMES).astype(np.float32))
+    with torch.no_grad():
+        y_cpu = cpu(c)
+        y_gpu = gpu(c.to(dev))
+        ms = timeit(lambda: gpu(c.to(dev)), dev, warmup=1, iters=3) * 1e3
+    rel = _card_cpu_rel(y_gpu, y_cpu)
+    n_params = sum(p.numel() for p in gpu.parameters())
+    log(f"[extras] HiFiGAN generator ({n_params} parameters, {cfg.in_channels} mels, {cfg.channels} channels, "
+        f"x{cfg.upsample_factor}) B={HIFIGAN_B} x {HIFIGAN_FRAMES} frames -> {tuple(y_gpu.shape)}: card vs CPU "
+        f"{rel:.3e} of the output's scale (limit {EXTRA_REL:.0e}); {ms:.3f} ms on the card ({card})")
+    if y_gpu.shape != (HIFIGAN_B, 1, HIFIGAN_FRAMES * 256) or not torch.isfinite(y_gpu).all() or rel > EXTRA_REL:
+        raise RuntimeError("extras: the HiFiGAN generator on the card disagrees with the CPU")
+    return dict(params=n_params, rel=rel, ms=ms)
+
+
+def extras_discriminators(dev) -> dict:
+    x = torch.from_numpy(_speech(63, 2, 1.0))
+    out = {}
+    for name in EXTRA_DISCS:
+        conf = {"disc_conf_list": [{"name": name}]}
+        cpu = build_discriminator(conf, device="cpu", generator=torch.Generator().manual_seed(12))
+        gpu = build_discriminator(conf, device=dev, generator=torch.Generator(device=dev).manual_seed(12))
+        gpu.load_state_dict(cpu.state_dict())
+        with torch.no_grad():
+            o_cpu, o_gpu = cpu(x), gpu(x.to(dev))
+        worst, n = 0.0, 0
+        for (lg, fg), (lc, fc) in zip(o_gpu, o_cpu, strict=True):
+            for a, b in [(lg, lc)] + list(zip(fg, fc, strict=True)):
+                if a.shape != b.shape or not torch.isfinite(a).all():
+                    raise RuntimeError(f"extras {name}: {tuple(a.shape)} on the card, {tuple(b.shape)} on the CPU")
+                worst = max(worst, _card_cpu_rel(a, b))
+                n += 1
+        out[name] = dict(outputs=len(o_gpu), tensors=n, rel=worst,
+                         params=sum(p.numel() for p in gpu.parameters()))
+        log(f"[extras] {name} (defaults, {out[name]['params']} parameters) B=2 x 1 s fp32: {len(o_gpu)} outputs, "
+            f"{n} logits and fmaps, card vs CPU {worst:.3e} of each tensor's scale (limit {EXTRA_REL:.0e})")
+        if worst > EXTRA_REL:
+            raise RuntimeError(f"extras {name}: the card disagrees with the CPU")
+    return out
+
+
+def extras_gan(dev, held: dict) -> dict:
+    """EXTRA_GAN_STEPS bf16 shared steps of the flagship generator (the yaml's
+    quantizer, both SEANet flags) against EXTRA_GAN's discriminators at
+    B = 16 x 2.56 s: launches exact per step, each kernel call held against
+    its plain version, finite stats, both modules moved."""
+    _set_seanet_flags(True)
+    state, step = build_trainer(dev, True, torch.bfloat16, disc_conf=EXTRA_GAN)
+    speech = _train_speech(dev, TRAIN_B, seed=47)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    before_g, before_d = _masters(state)
+    stats = []
+    for i in range(EXTRA_GAN_STEPS):
+        state, s = _held_part(f"gan step {i}", TRAIN_EXPECT, lambda: step(state, {"speech": speech}, gen), held,
+                              tag="extras")
+        stats.append(_floats(s))
+    _set_seanet_flags(False)
+    after_g, after_d = _masters(state)
+    moved = [any(not torch.equal(a, b) for a, b in zip(x, y)) for x, y in ((before_g, after_g), (before_d, after_d))]
+    n_disc = sum(p.numel() for p in state.discriminator.parameters())
+    if not all(moved) or state.step != EXTRA_GAN_STEPS:
+        raise RuntimeError(f"extras gan: moved (generator, discriminator) {moved}, step {state.step}")
+    log(f"[extras] bf16 shared steps, both SEANet flags, B={TRAIN_B} x {TRAIN_SECONDS} s, against HiFiGAN MSMPD + "
+        f"SoundStream + complex-STFT ({n_disc} discriminator parameters): {EXTRA_GAN_STEPS} steps, launches per step "
+        f"{TRAIN_EXPECT}, stats finite (step 0: generator_loss {stats[0]['generator_loss']:.4f}, discriminator_loss "
+        f"{stats[0]['discriminator_loss']:.4f}), both modules moved")
+    del state, step
+    torch.cuda.empty_cache()
+    return dict(stats=stats, disc_params=n_disc)
+
+
+def extras_gan_timing(dev, card: str) -> dict:
+    """The steady bf16 shared step (both SEANet flags, initialized codebooks)
+    against EXTRA_GAN's discriminators and against the MS-STFT one: ms a step,
+    best of 3 after a warm-up, and peak memory."""
+    _set_seanet_flags(True)
+    rows = {}
+    for name, disc_conf in (("extras", EXTRA_GAN), ("ms-stft", None)):
+        state, step = build_trainer(dev, True, torch.bfloat16, disc_conf=disc_conf, **STEADY)
+        batch = {"speech": _train_speech(dev, TRAIN_B, seed=43)}
+        g = torch.Generator(device=dev).manual_seed(8)
+        state, _ = step(state, batch, g)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            state, s = step(state, batch, g)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        _floats(s)
+        rows[name] = dict(ms=best * 1e3, peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        del state, step, batch
+        torch.cuda.empty_cache()
+    _set_seanet_flags(False)
+    log(f"[extras] steady bf16 shared step, both SEANet flags, B={TRAIN_B} x {TRAIN_SECONDS} s: against the extra "
+        f"discriminators {rows['extras']['ms']:.1f} ms a step, peak {rows['extras']['peak_gib']:.2f} GiB; against "
+        f"the MS-STFT one {rows['ms-stft']['ms']:.1f} ms, {rows['ms-stft']['peak_gib']:.2f} GiB ({card})")
+    return rows
+
+
+def extras_fbank(dev, card: str) -> dict:
+    d = OUT_DIR / "extras"
+    d.mkdir(parents=True, exist_ok=True)
+    rs = np.random.RandomState(64)
+    dim = 80 * 7
+    feats = rs.randn(1000, dim) * 3.0 + 5.0
+    (d / "cmvn.txt").write_text("[ " + " ".join(map(str, list(feats.sum(0)) + [1000])) + "\n"
+                                + " ".join(map(str, list((feats**2).sum(0)) + [0])) + " ]")
+    kw = dict(n_mels=80, lfr_m=7, lfr_n=6, cmvn_file=str(d / "cmvn.txt"))
+    fe_gpu, fe_cpu = WavFrontend(**kw, device=dev), WavFrontend(**kw, device="cpu")
+    wav = torch.from_numpy(_speech(65, FBANK_B, FBANK_SECONDS))
+    y_gpu, y_cpu = fe_gpu(wav.to(dev)), fe_cpu(wav)
+    shift, scale = (c.double() for c in fe_cpu.cmvn)
+
+    def power_err(y) -> float:  # relative to each frame's largest bin of the CPU's
+        p, p_cpu = ((t.cpu().double() / scale - shift).reshape(*t.shape[:2], 7, 80).exp() for t in (y, y_cpu))
+        return float(((p - p_cpu).abs() / p_cpu.amax(-1, keepdim=True)).max())
+
+    err, log_err = power_err(y_gpu), float((y_gpu.cpu() - y_cpu).abs().max())
+    control = power_err(fe_gpu(wav.half().float().to(dev)))  # the waveform rounded to fp16
+    ms = timeit(lambda: fe_gpu(wav.to(dev)), dev, warmup=1, iters=3) * 1e3
+    log(f"[extras] WavFrontend (80 mels, LFR 7/6, a seeded CMVN) B={FBANK_B} x {FBANK_SECONDS} s -> "
+        f"{tuple(y_gpu.shape)}: card vs CPU power error {err:.3e} of each frame's largest bin (limit "
+        f"{FBANK_POWER_TOL:.1e}; the fp16-rounded waveform reads {control:.3e}), CMVN'd log-mel max|err| "
+        f"{log_err:.3e}; {ms:.3f} ms on the card ({card})")
+    if y_gpu.shape != (FBANK_B, math.ceil((1 + (int(FBANK_SECONDS * SR) - 400) // 160) / 6), dim) or err > FBANK_POWER_TOL:
+        raise RuntimeError("extras: WavFrontend on the card disagrees with the CPU")
+    if control <= FBANK_POWER_TOL:
+        raise RuntimeError("extras: the WavFrontend check passes an fp16-rounded waveform: it cannot see that error")
+    return dict(power_rel_err=err, limit=FBANK_POWER_TOL, fp16_control_power_rel_err=control, log_mel_max_abs_err=log_err,
+                ms=ms)
+
+
+def extras_entropy(tokens: torch.Tensor) -> dict:
+    """compress_tokens / decompress_tokens over each row of the streamed tokens."""
+    sizes, ms = [], 0.0
+    for b in range(tokens.shape[1]):
+        rows = tokens[:, b].T.contiguous()  # (T, n_q)
+        t0 = time.perf_counter()
+        blob = compress_tokens(rows, STREAM_CONFIG["quantizer_conf"]["codebook_size"], SR, 320)
+        ms += (time.perf_counter() - t0) * 1e3
+        if not np.array_equal(decompress_tokens(blob), rows.numpy()):
+            raise RuntimeError("extras: decompress_tokens does not give back the streamed tokens")
+        sizes.append(len(blob))
+    bits = 8 * sum(sizes) / tokens.numel()
+    log(f"[extras] .ecdc of the streamed tokens ({tuple(tokens.shape)}): {sizes} bytes ({bits:.3f} bits a token), "
+        f"compress {ms:.1f} ms in all on the host, decompressed equal")
+    return dict(bytes=sizes, bits_per_token=bits, compress_ms=ms)
+
+
+def extras_phase(dev, card: str, stream_tokens: torch.Tensor) -> dict:
+    """Phase 16: the HiFiGAN generator and the seven extra discriminators on
+    the card against the CPU; the GAN step with the extra discriminators
+    (every count set to 0 before its steps, read after); WavFrontend; the
+    .ecdc round trip of the streamed tokens."""
+    t_phase = time.perf_counter()
+    hifigan = extras_hifigan(dev, card)
+    discs = extras_discriminators(dev)
+    held = dict(max_abs_err={}, calls=0, launches={})
+    _sync(dev)
+    reset_counts()
+    gan = extras_gan(dev, held)
+    _sync(dev)
+    counts = read_counts()
+    expect = {k: sum(part[k] for part in held["launches"].values()) for k in counts}
+    if counts != expect:
+        raise RuntimeError(f"extras: launches {counts}, the steps' sum {expect}")
+    gan["timing"] = extras_gan_timing(dev, card)
+    fbank = extras_fbank(dev, card)
+    entropy = extras_entropy(stream_tokens)
+    log(f"[extras] launches {counts}, {held['calls']} kernel calls held against their plain versions "
+        f"(max|err| {held['max_abs_err']}); phase {time.perf_counter() - t_phase:.2f} s")
+    return dict(launches=counts, max_abs_err=held["max_abs_err"], held_calls=held["calls"], hifigan=hifigan,
+                discriminators=discs, gan=gan, fbank=fbank, entropy=entropy, phase_s=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     dev = check_device()
     card = card_line(CARD)
@@ -4251,6 +4750,8 @@ def main() -> int:
     laura = laura_phase(dev, card)
     dp = dp_phase(dev, card)
     recipe = recipe_phase(dev, card)
+    streaming = streaming_phase(dev, card)
+    extras = extras_phase(dev, card, streaming.pop("tokens_fp32"))
     if "funcodec_tpu" in sys.modules or ("jax" in sys.modules and not _JAX_PRELOADED):
         raise RuntimeError("the port imported JAX or the JAX package")
 
@@ -4262,7 +4763,7 @@ def main() -> int:
             configs=train_results, launches=train_counts, fused_gradients=fused_grads, backward=backward_rows,
             backward_max_relative_error=backward_errs, forward_max_abs_error=train_fwd_errs,
             card_vs_cpu=card_cpu, timing=train_rows), trainer=trainer, tts=tts, freqcodec=freq, laura=laura,
-        data_parallel=dp, recipe=recipe),
+        data_parallel=dp, recipe=recipe, streaming=streaming, extras=extras),
         indent=1))
     conv_main = _summed([r for r in conv_rows if r["main_path"]])
     conv_main["library_ms"] = sum(r["library_ms"] for r in conv_rows if r["main_path"])
@@ -4304,7 +4805,8 @@ def main() -> int:
             library_ms=row["library_ms"]))
     # the training phase's fused steps, the trainer phase's two-epoch run, a TTS request, the
     # FreqCodec main-path requests (gr8 and gr1), the Laura recipe's stages 1 and 3, the
-    # data-parallel phase's NCCL world-1 steps and serving replicas, and the recipe phase's path
+    # data-parallel phase's NCCL world-1 steps and serving replicas, the recipe phase's path,
+    # the streaming session's bf16 stream and the extras phase's GAN steps
     for k in kernels:
         k["training_launches"] = train_counts.get(k["name"], 0)
         k["trainer_launches"] = trainer["launches"].get(k["name"], 0)
@@ -4323,6 +4825,12 @@ def main() -> int:
         k["recipe_launches"] = recipe["launches"].get(k["name"], 0)
         if k["name"] in recipe["max_abs_err"]:
             k["recipe_max_abs_err"] = recipe["max_abs_err"][k["name"]]
+        # the worst held call per kernel, null for a kernel that no held call reaches; a held
+        # resblock_tgn call holds the block's output, so its finalizes too
+        held_as = "resblock_tgn" if k["name"] == "resblock_tgn_finalize" else k["name"]
+        for phase, res in (("streaming", streaming), ("extras", extras)):
+            k[f"{phase}_launches"] = res["launches"].get(k["name"], 0)
+            k[f"{phase}_max_abs_err"] = res["max_abs_err"].get(held_as) if k[f"{phase}_launches"] else None
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

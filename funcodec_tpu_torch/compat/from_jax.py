@@ -4,7 +4,9 @@
 the port's own layer list (the same (kind, spec) list as the JAX package's)
 beside the JAX params and returns a state_dict under the reference FunCodec
 names, which the port's modules carry; ``discriminator_state_dict_from_jax``
-does the same for the discriminator's parameters, and ``train_state_from_jax``
+does the same for the discriminators' parameters (every registry kind),
+``hifigan_generator_state_dict_from_jax`` for the HiFiGAN vocoder, and
+``train_state_from_jax``
 carries a whole GAN train state (both modules, the Adam moments and counts,
 the gate carry and the step). 1D and 2D convs (FreqCodec's SEANet2d)
 carry their kernels into torch's layouts; weight-normed convs carry
@@ -249,17 +251,126 @@ def _conv2d(sd: Dict[str, torch.Tensor], base: str, p: Mapping[str, Any]) -> Non
     sd[f"{base}.bias"] = _t(p["bias"])
 
 
-def discriminator_state_dict_from_jax(disc_params: Sequence[Any]) -> Dict[str, torch.Tensor]:
-    """funcodec_tpu MultipleDiscriminator params (per discriminator, per STFT
-    scale: {"convs": [...], "conv_post": {...}}) as numpy -> the port
-    MultipleDiscriminator's state_dict."""
+def _conv1d(sd: Dict[str, torch.Tensor], base: str, p: Mapping[str, Any]) -> None:
+    """One discriminator or vocoder Conv1d: (K, Cin/g, Cout) -> torch (Cout, Cin/g, K)."""
+    if "kernel" in p:
+        sd[f"{base}.weight"] = _t(np.transpose(np.asarray(p["kernel"]), (2, 1, 0)))
+    else:
+        sd[f"{base}.weight_v"] = _t(np.transpose(np.asarray(p["v"]), (2, 1, 0)))
+        sd[f"{base}.weight_g"] = _t(np.asarray(p["g"]).reshape(-1, 1, 1))
+    if "bias" in p:
+        sd[f"{base}.bias"] = _t(p["bias"])
+
+
+def _msstft(sd, base, p) -> None:
+    for j, scale in enumerate(p):
+        sbase = f"{base}.discriminators.{j}"
+        for k, cp in enumerate(scale["convs"]):
+            _conv2d(sd, f"{sbase}.convs.{k}.conv", cp)
+        _conv2d(sd, f"{sbase}.conv_post.conv", scale["conv_post"])
+
+
+def _period(sd, base, p) -> None:
+    for k, cp in enumerate(p["convs"]):
+        _conv2d(sd, f"{base}.convs.{k}.0", cp)
+    _conv2d(sd, f"{base}.output_conv", p["out"])
+
+
+def _scale(sd, base, p) -> None:
+    for k, cp in enumerate(p["convs"]):
+        _conv1d(sd, f"{base}.layers.{k}.0", cp)
+    _conv1d(sd, f"{base}.layers.{len(p['convs'])}", p["out"])
+
+
+def _each(fn):
+    def walk(sd, base, p):
+        for k, q in enumerate(p):
+            fn(sd, f"{base}.discriminators.{k}", q)
+
+    return walk
+
+
+def _msmpd(sd, base, p) -> None:
+    _each(_scale)(sd, f"{base}.msd", p["msd"])
+    _each(_period)(sd, f"{base}.mpd", p["mpd"])
+
+
+def _soundstream(sd, base, p) -> None:
+    for d, q in enumerate(p):
+        dbase = f"{base}.discriminators.{d}"
+        _conv1d(sd, f"{dbase}.init_conv", q["init"])
+        for i, cp in enumerate(q["convs"]):
+            _conv1d(sd, f"{dbase}.conv_layers.{i}.0", cp)
+        _conv1d(sd, f"{dbase}.final_conv.0", q["final"][0])
+        _conv1d(sd, f"{dbase}.final_conv.2", q["final"][1])
+
+
+def _complex_stft(sd, base, p) -> None:
+    def complex_conv(cbase, q):
+        _conv2d(sd, f"{cbase}.re", q["re"])
+        _conv2d(sd, f"{cbase}.im", q["im"])
+
+    complex_conv(f"{base}.init_conv", p["init"])
+    for i, u in enumerate(p["units"]):
+        complex_conv(f"{base}.units.{i}.c1", u["c1"])
+        sd[f"{base}.units.{i}.b"] = _t(u["b"])
+        complex_conv(f"{base}.units.{i}.c2", u["c2"])
+    complex_conv(f"{base}.final_conv", p["final"])
+
+
+# the port's discriminator class -> the walk of its JAX params
+_DISC_WALKS = {
+    "MultiScaleSTFTDiscriminator": _msstft,
+    "HiFiGANPeriodDiscriminator": _period,
+    "HiFiGANMultiPeriodDiscriminator": _each(_period),
+    "HiFiGANScaleDiscriminator": _scale,
+    "HiFiGANMultiScaleDiscriminator": _each(_scale),
+    "HiFiGANMultiScaleMultiPeriodDiscriminator": _msmpd,
+    "MultiScaleDiscriminator": _soundstream,
+    "ComplexSTFTDiscriminator": _complex_stft,
+}
+
+
+def discriminator_state_dict_from_jax(disc_params: Sequence[Any], discriminator) -> Dict[str, torch.Tensor]:
+    """funcodec_tpu MultipleDiscriminator params (one entry per discriminator
+    of the conf list) as numpy -> the port MultipleDiscriminator's
+    state_dict. Each entry is walked by the kind of the port's sub-module
+    at the same index of `discriminator`."""
     sd: Dict[str, torch.Tensor] = {}
-    for i, scales in enumerate(disc_params):
-        for j, p in enumerate(scales):
-            base = f"discriminators.{i}.discriminators.{j}"
-            for k, cp in enumerate(p["convs"]):
-                _conv2d(sd, f"{base}.convs.{k}.conv", cp)
-            _conv2d(sd, f"{base}.conv_post.conv", p["conv_post"])
+    for i, p in enumerate(disc_params):
+        _DISC_WALKS[type(discriminator.discriminators[i]).__name__](sd, f"discriminators.{i}", p)
+    return sd
+
+
+def hifigan_generator_state_dict_from_jax(model, params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """funcodec_tpu HiFiGANGenerator params (numpy) -> the port's state_dict
+    (`model`, the port's HiFiGANGenerator, gives the config). JAX keeps a
+    transposed conv's weight-norm g per output channel, torch per input
+    channel: such a conv carries its fused weight as v, with v's torch norm
+    as g (the same weight)."""
+    cfg = model.cfg
+    sd: Dict[str, torch.Tensor] = {}
+
+    def conv_transpose(base, p):
+        if "kernel" in p:
+            sd[f"{base}.weight"] = _t(np.transpose(np.asarray(p["kernel"]), (1, 2, 0)))
+        else:
+            v = np.transpose(_fused_jax_kernel(p["v"], p["g"]), (1, 2, 0))  # (K, Cin, Cout) -> (Cin, Cout, K)
+            sd[f"{base}.weight_v"] = _t(v)
+            sd[f"{base}.weight_g"] = _weight_g(np.sqrt(np.square(v.astype(np.float64)).sum(axis=(1, 2))), 3)
+        sd[f"{base}.bias"] = _t(p["bias"])
+
+    _conv1d(sd, "input_conv", params["input_conv"])
+    for i, p in enumerate(params["upsamples"]):
+        conv_transpose(f"upsamples.{i}.1", p)
+    for k, blk in enumerate(params["blocks"]):
+        for j, p in enumerate(blk["convs1"]):
+            _conv1d(sd, f"blocks.{k}.convs1.{j}.1", p)
+        for j, p in enumerate(blk["convs2"] if cfg.use_additional_convs else ()):
+            _conv1d(sd, f"blocks.{k}.convs2.{j}.1", p)
+    _conv1d(sd, "output_conv.1", params["output_conv"])
+    if cfg.global_channels > 0:
+        _conv1d(sd, "global_conv", params["global_conv"])
     return sd
 
 
@@ -323,14 +434,14 @@ def train_state_from_jax(model, discriminator, jax_state, optimizer_g=None, opti
     device = next(model.parameters()).device
     rvq_state = jax_state.rvq_state
     model.load_state_dict(state_dict_from_jax(model, jax_state.params, rvq_state))
-    discriminator.load_state_dict(discriminator_state_dict_from_jax(jax_state.disc_params))
+    discriminator.load_state_dict(discriminator_state_dict_from_jax(jax_state.disc_params, discriminator))
 
     def gen_list(tree):
         sd = state_dict_from_jax(model, tree, rvq_state)
         return [sd[n].to(device) for n, _ in model.named_parameters()]
 
     def disc_list(tree):
-        sd = discriminator_state_dict_from_jax(tree)
+        sd = discriminator_state_dict_from_jax(tree, discriminator)
         return [sd[n].to(device) for n, _ in discriminator.named_parameters()]
 
     opt_g = (optimizer_g or make_optimizer()).init(list(model.parameters()))

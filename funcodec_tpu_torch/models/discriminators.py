@@ -18,8 +18,8 @@ after it), the layout of the reference's ModuleLists of NormConv2d modules.
 The JAX package's blocked-F tower (``BLOCKED_F``: groups of frequency bins
 folded into channels, so that the TPU's 128-lane matrix unit is filled) is
 not ported: its logits and losses equal the plain tower's, which cuDNN runs
-here. The extra HiFiGAN and SoundStream discriminators are ROADMAP.md
-slice C.
+here. The HiFiGAN and SoundStream discriminators live in
+models/discriminators_extra.py; the registry takes any mix.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from funcodec_tpu_torch.models.discriminators_extra import EXTRA_DISC_REGISTRY
 from funcodec_tpu_torch.ops.conv import add_weight_norm, layer_weight
 from funcodec_tpu_torch.ops.stft import stft
 
@@ -190,21 +191,6 @@ class MultiScaleSTFTDiscriminator(nn.Module):
         return outs
 
 
-def _not_ported(name: str):
-    def build(**_):
-        raise NotImplementedError(f"discriminator {name!r} is not ported yet (ROADMAP.md slice C, item 18)")
-
-    return build
-
-
-EXTRA_DISCRIMINATORS = (
-    "hifigan_period_discriminator", "hifigan_multi_period_discriminator",
-    "hifigan_scale_discriminator", "hifigan_multi_scale_discriminator",
-    "hifigan_multi_scale_multi_period_discriminator",
-    "soundstream_multi_scale_discriminator", "soundstream_complex_stft_discriminator",
-)
-
-
 class MultipleDiscriminator(nn.Module):
     """Name-registry container flattening all sub-discriminator outputs;
     the sub-discriminators sit at ``discriminators.{i}``."""
@@ -213,7 +199,7 @@ class MultipleDiscriminator(nn.Module):
     def registry():
         return {
             "encodec_multi_scale_stft_discriminator": MultiScaleSTFTDiscriminator,
-            **{name: _not_ported(name) for name in EXTRA_DISCRIMINATORS},
+            **EXTRA_DISC_REGISTRY,
         }
 
     def __init__(self, input_size: int = 1, disc_conf_list: Sequence[Dict[str, Any]] = (), *, device=None,

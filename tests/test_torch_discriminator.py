@@ -53,7 +53,7 @@ def _pair(conf=TINY, seed=0):
 
     params = jax.tree_util.tree_map_with_path(leaf, jax.eval_shape(jd.init, jax.random.PRNGKey(0)))
     td = tbuild_disc(conf, device="cpu", generator=torch.Generator().manual_seed(0))
-    td.load_state_dict(discriminator_state_dict_from_jax(_np(params)))
+    td.load_state_dict(discriminator_state_dict_from_jax(_np(params), td))
     return jd, params, td
 
 
@@ -121,7 +121,7 @@ def test_logits_losses_and_grads_match_jax(disc_pair, jax_runs, blocked):
                                    atol=1e-5, rtol=2e-4)
     for got, want in zip(losses, j_losses):
         np.testing.assert_allclose(got.item(), float(want), rtol=1e-4)
-    want = discriminator_state_dict_from_jax(_np(j_grads))
+    want = discriminator_state_dict_from_jax(_np(j_grads), td)
     assert set(grads) == set(want)
     for name, g in grads.items():
         w = want[name].numpy()
@@ -169,10 +169,21 @@ def test_state_dict_names():
     assert set(m.state_dict()) == {"conv.conv.weight_g", "conv.conv.weight_v", "conv.conv.bias"}
 
 
-def test_extra_discriminators_raise():
-    conf = {"disc_conf_list": [{"name": "hifigan_multi_period_discriminator"}]}
-    with pytest.raises(NotImplementedError, match="slice C"):
-        tbuild_disc(conf, device="cpu", generator=torch.Generator())
+@pytest.mark.parametrize("name", [
+    "hifigan_period_discriminator", "hifigan_multi_period_discriminator", "hifigan_scale_discriminator",
+    "hifigan_multi_scale_discriminator", "hifigan_multi_scale_multi_period_discriminator",
+    "soundstream_multi_scale_discriminator", "soundstream_complex_stft_discriminator"])
+def test_extra_discriminators_raise(name):
+    """None of the seven extra registry names raises any more: each builds at
+    its defaults through build_discriminator and runs on 0.5 s (parity with
+    JAX: tests/test_torch_extra_discriminators.py)."""
+    td = tbuild_disc({"disc_conf_list": [{"name": name}]}, device="cpu", generator=torch.Generator().manual_seed(0))
+    x = torch.from_numpy((0.1 * np.random.RandomState(0).randn(1, 8000)).astype(np.float32))
+    with torch.no_grad():
+        outs = td(x)
+    assert len(outs) >= 1
+    for logits, fmap in outs:
+        assert torch.isfinite(logits).all() and len(fmap) >= 1
 
 
 @pytest.mark.parametrize("transposed", [False, True], ids=["conv1d", "conv_transpose1d"])

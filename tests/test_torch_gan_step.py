@@ -100,7 +100,7 @@ class Pair:
         return {n: sd[n] for n, _ in self.tm.named_parameters()}
 
     def port_disc_params(self, jax_tree):
-        return discriminator_state_dict_from_jax(np_tree(jax_tree))
+        return discriminator_state_dict_from_jax(np_tree(jax_tree), self.tdisc)
 
 
 def build_pair(cfg, seed=0) -> Pair:
@@ -110,7 +110,7 @@ def build_pair(cfg, seed=0) -> Pair:
     disc_params = _values(jax.eval_shape(jdisc.init, jax.random.PRNGKey(1)), rs)
     tm, tdisc = tbuild(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
     tm.load_state_dict(state_dict_from_jax(tm, np_tree(params), np_tree(state)))
-    tdisc.load_state_dict(discriminator_state_dict_from_jax(np_tree(disc_params)))
+    tdisc.load_state_dict(discriminator_state_dict_from_jax(np_tree(disc_params), tdisc))
     return Pair(jm, jdisc, params, state, disc_params, tm, tdisc)
 
 
