@@ -21,8 +21,9 @@ training through ``cli/text2audio_train``, synthesis); data parallelism;
 then the LibriTTS codec recipe's tooling (wav arks, --stat_flops, n-best
 averaging, scoring) with the residual and identity quantizers, the context
 loss and the semantic codec; a streaming session on the causal EnCodec;
-and the HiFiGAN generator, the HiFiGAN and SoundStream discriminators, the
-Kaldi fbank frontend and the .ecdc coder.
+the HiFiGAN generator, the HiFiGAN and SoundStream discriminators, the
+Kaldi fbank frontend and the .ecdc coder; and the JAX package's .ckpt
+weights files served and averaged.
 In phases that each raise on failure:
 
 1. checks: a CUDA card is present; TF32 is turned off for fp32 matmuls and
@@ -233,14 +234,28 @@ In phases that each raise on failure:
    beside the MS-STFT step's; WavFrontend (80 mels, LFR 7/6, a seeded CMVN
    file) at B = 8 x 10 s on the card against the CPU; compress_tokens /
    decompress_tokens of the streamed tokens (bytes, host ms, equal).
+17. jax_ckpt: the JAX package's checkpoint files (flax msgpack .ckpt),
+   which no JAX writes here: compat/torch_import and compat/flax_msgpack
+   make them with JAX's bytes (tests/test_torch_jax_ckpt.py holds that on
+   the CPU). The seeded flagship (14,855,843 parameters) to flagship.ckpt
+   and back onto the card bit for bit; B = 8 x 10 s served through
+   Speech2Token from .ckpt and from .pth in fp32 (flags off) and in bf16
+   with the three flags, tokens and recon bit-equal; the shipped LauraTTS
+   yaml at full width (88,669,186 parameters) to laura.ckpt, one seeded
+   zero-shot request through Text2Audio from .ckpt and from .pth (the codec
+   in bf16 with the three flags), tokens and wavs equal; cli/average_nbest
+   over three seeded flagship epochs as .ckpt and as .pth, the two averages
+   equal bit for bit. Every count set to 0 before the phase and read after,
+   each kernel call held against its plain version; file bytes and load
+   seconds printed.
 
 The line before the last is the card's name and power limit (nvidia-smi),
 the one before it a JSON object of the kernels (with each one's launches in
 the fused training configuration, in the trainer phase's two-epoch run, in
 the TTS phase's zero-shot request, in the FreqCodec main-path requests, in
 the Laura recipe's stages 1 and 3, in the data-parallel phase, on the
-codec recipe's path, in the streaming session and in the extras phase's GAN
-steps, and the backwards' times); the last
+codec recipe's path, in the streaming session, in the extras phase's GAN
+steps and in the JAX checkpoint phase, and the backwards' times); the last
 line is
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
 """
@@ -4722,6 +4737,239 @@ def extras_phase(dev, card: str, stream_tokens: torch.Tensor) -> dict:
                 discriminators=discs, gan=gan, fbank=fbank, entropy=entropy, phase_s=time.perf_counter() - t_phase)
 
 
+# ---------------------------------------------------------------------------
+# JAX checkpoint phase: the JAX package's .ckpt files served and averaged
+# ---------------------------------------------------------------------------
+
+JAX_CKPT_DIR = OUT_DIR / "jax_ckpt"
+JAX_CKPT_B, JAX_CKPT_SECONDS = 8, 10.0
+JAX_CKPT_AVERAGED = 3  # seeded flagship epochs averaged by cli/average_nbest
+JAX_CKPT_GROUPS = 50  # the zero-shot request's token groups (random weights never emit eos)
+
+
+def _same_state(got: dict, want: dict, what: str) -> None:
+    """Every tensor of `want` in `got`, bit for bit."""
+    if set(got) != set(want):
+        raise RuntimeError(f"jax_ckpt {what}: names {sorted(set(got) ^ set(want))[:4]} differ")
+    for k, v in want.items():
+        if not torch.equal(got[k].cpu(), v.cpu()):
+            raise RuntimeError(f"jax_ckpt {what}: {k} is not the same bit for bit")
+
+
+def _timed_load(fn, dev) -> float:
+    _sync(dev)
+    t0 = time.perf_counter()
+    fn()
+    _sync(dev)
+    return time.perf_counter() - t0
+
+
+def jax_ckpt_flagship(dev, held: dict) -> dict:
+    """The seeded flagship as the JAX package's weights file (its tree by
+    compat/torch_import, its bytes by compat/flax_msgpack, as JAX's
+    save_weights writes them; tests/test_torch_jax_ckpt.py holds both
+    byte-equal to JAX's), back bit for bit, then served from .ckpt and from
+    .pth: B = 8 x 10 s in fp32 (flags off) and in bf16 with the three flags,
+    tokens and recon bit-equal between the two files."""
+    from funcodec_tpu_torch.compat import torch_import
+    from funcodec_tpu_torch.train.checkpoint import load_jax_checkpoint_params, save_jax_weights
+
+    config = _flagship_config()
+    model, _ = build_codec_model(config, device="cpu", generator=torch.Generator().manual_seed(21))
+    sd = model.state_dict()
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != GEN_PARAMS:
+        raise RuntimeError(f"jax_ckpt: the flagship has {n_params} parameters, expected {GEN_PARAMS}")
+    ckpt, pth = JAX_CKPT_DIR / "flagship.ckpt", JAX_CKPT_DIR / "flagship.pth"
+    t0 = time.perf_counter()
+    save_jax_weights(str(ckpt), *torch_import.import_encodec(sd, model))
+    write_s = time.perf_counter() - t0
+    torch.save(sd, pth)
+    back, _ = build_codec_model(config, device=dev, generator=torch.Generator(device=dev).manual_seed(22))
+    load_s = _timed_load(lambda: load_jax_checkpoint_params(str(ckpt), back), dev)
+    pth_load_s = _timed_load(lambda: back.load_state_dict(torch.load(pth, map_location="cpu", weights_only=True)),
+                             dev)
+    load_jax_checkpoint_params(str(ckpt), back)
+    _same_state(back.state_dict(), sd, "flagship .ckpt on the card")
+    del back
+    x = _speech(70, JAX_CKPT_B, JAX_CKPT_SECONDS)
+    served = {}
+    for dtype in ("float32", "bfloat16"):
+        if dtype == "float32":  # the fp32-exact path
+            conv_ops.FUSED_STRIDE1 = conv_ops.FUSED_RESBLOCK = rvq.FUSED_RVQ = False
+            expect = NO_LAUNCHES
+        else:
+            set_flags(MAIN_PATH)
+            expect = EXPECT[MAIN_PATH]
+        outs = {}
+        for kind, path in (("ckpt", ckpt), ("pth", pth)):
+            s2t = Speech2Token(config, str(path), dtype=dtype, device=dev)
+            outs[kind] = _held_part(f"serve {dtype} .{kind}", expect, lambda: s2t(x, bit_width=None), held,
+                                    tag="jax_ckpt")
+            del s2t
+        (c_ckpt, _, r_ckpt, _), (c_pth, _, r_pth, _) = outs["ckpt"], outs["pth"]
+        _check_output(f"jax_ckpt {dtype}", c_ckpt, r_ckpt, config["quantizer_conf"]["num_quantizers"])
+        if not (np.array_equal(c_ckpt[0], c_pth[0]) and np.array_equal(r_ckpt, r_pth)):
+            raise RuntimeError(f"jax_ckpt {dtype}: the .ckpt and .pth weights serve different tokens or recon")
+        served[dtype] = c_ckpt[0]
+    conv_ops.FUSED_STRIDE1 = conv_ops.FUSED_RESBLOCK = rvq.FUSED_RVQ = False
+    q0, all_ = _flips(served["bfloat16"], served["float32"])
+    out = dict(params=n_params, ckpt_bytes=os.path.getsize(ckpt), pth_bytes=os.path.getsize(pth), write_s=write_s,
+               load_s=load_s, pth_load_s=pth_load_s, bf16_vs_fp32_flips=dict(q0=q0, all=all_))
+    log(f"[jax_ckpt] flagship ({n_params} parameters) as a JAX weights file: {out['ckpt_bytes']} bytes (.pth "
+        f"{out['pth_bytes']}), written in {write_s:.3f} s, loaded onto the card in {load_s:.3f} s (.pth "
+        f"{pth_load_s:.3f} s), its state_dict bit for bit; B={JAX_CKPT_B} x {JAX_CKPT_SECONDS} s served from .ckpt "
+        f"and from .pth: fp32 (flags off) and bf16 (the three flags, launches {EXPECT[MAIN_PATH]} a request) tokens "
+        f"and recon bit-equal; bf16 vs fp32 flips q0 {q0:.5f} all {all_:.5f}")
+    return out
+
+
+def jax_ckpt_laura(dev, held: dict) -> dict:
+    """The shipped LauraTTS yaml at full width (seeded, the 256-word list,
+    the flagship's codebooks grafted) as a JAX weights file, and one seeded
+    zero-shot request through Text2Audio from .ckpt (the codec from
+    flagship.ckpt) and from .pth, the codec in bf16 with the three flags:
+    launches exact, the tokens and the wavs equal."""
+    import yaml
+
+    from funcodec_tpu_torch.cli.text2audio_inference import Text2Audio
+    from funcodec_tpu_torch.compat import torch_import
+    from funcodec_tpu_torch.tasks.text2audio import build_laura_model
+    from funcodec_tpu_torch.train.checkpoint import load_jax_params, save_jax_weights
+
+    d = JAX_CKPT_DIR
+    codec_config = _flagship_config()
+    (d / "codec.yaml").write_text(yaml.safe_dump(codec_config))
+    config = yaml.safe_load(TTS_YAML.read_text())
+    config["audio_max_duration"] = TTS_CLI_SECONDS
+    (d / "laura.yaml").write_text(yaml.safe_dump(config))
+    tokens = [f"w{i:03d}" for i in range(TTS_VOCAB)]
+    (d / "tokens.txt").write_text("".join(f"{t}\n" for t in tokens))
+    model = build_laura_model(config, token_list=tokens, device="cpu", generator=torch.Generator().manual_seed(23))
+    codec_sd = torch.load(d / "flagship.pth", map_location="cpu", weights_only=True)
+    with torch.no_grad():
+        model.quantizer_codebook.embed.copy_(codec_sd["quantizer.rq.model.embed"])
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != TTS_PARAMS:
+        raise RuntimeError(f"jax_ckpt: LauraTTS parameters {n_params}, expected {TTS_PARAMS}")
+    sd = model.state_dict()
+    t0 = time.perf_counter()
+    save_jax_weights(str(d / "laura.ckpt"), torch_import.import_laura(sd, model))
+    write_s = time.perf_counter() - t0
+    torch.save(sd, d / "laura.pth")
+    del model
+    rs = np.random.RandomState(54)
+    text = " ".join(tokens[i] for i in rs.randint(0, TTS_VOCAB, 20))
+    prompt = (0.1 * rs.randn(2 * SR)).astype(np.float32)
+    set_flags(MAIN_PATH)
+    outs, toks, load = {}, {}, {}
+    for kind, codec_file in (("ckpt", "flagship.ckpt"), ("pth", "flagship.pth")):
+        files = [str(d / n) for n in ("laura.yaml", f"laura.{kind}", "codec.yaml", codec_file)]
+        pipe = Text2Audio(*files, token_list=str(d / "tokens.txt"), token_type="word", device=dev)
+        pipe.codec = Speech2Token(str(d / "codec.yaml"), str(d / codec_file), dtype="bfloat16", device=dev)
+        if kind == "ckpt":
+            _same_state(pipe.model.state_dict(), sd, "laura .ckpt on the card")
+            load["ckpt"] = _timed_load(lambda: load_jax_params(str(d / "laura.ckpt"), pipe.model), dev)
+        else:
+            load["pth"] = _timed_load(lambda: pipe.model.load_state_dict(
+                torch.load(d / "laura.pth", map_location="cpu", weights_only=True)), dev)
+        decoded, inner = [], pipe.model.decode_codec
+
+        def recorded(*a, **kw):
+            decoded.append(inner(*a, **kw))
+            return decoded[-1]
+
+        pipe.model.decode_codec = recorded
+        outs[kind] = _held_part(f"zero-shot request .{kind}", TTS_EXPECT,
+                                lambda: pipe(text, prompt_audio=prompt, max_length=JAX_CKPT_GROUPS), held,
+                                tag="jax_ckpt")
+        toks[kind] = np.asarray(decoded[0])
+        del pipe
+    conv_ops.FUSED_STRIDE1 = conv_ops.FUSED_RESBLOCK = rvq.FUSED_RVQ = False
+    if toks["ckpt"].shape[-1] != config["model_conf"]["predict_nq"] or not np.array_equal(toks["ckpt"], toks["pth"]):
+        raise RuntimeError(f"jax_ckpt laura: tokens {toks['ckpt'].shape} from .ckpt differ from the .pth path's")
+    for tag in ("gen", "gen_only_lm"):
+        if outs["ckpt"][tag].shape != (JAX_CKPT_GROUPS * 320,) or not np.array_equal(outs["ckpt"][tag],
+                                                                                     outs["pth"][tag]):
+            raise RuntimeError(f"jax_ckpt laura: {tag} from .ckpt differs from the .pth path's")
+    out = dict(params=n_params, ckpt_bytes=os.path.getsize(d / "laura.ckpt"),
+               pth_bytes=os.path.getsize(d / "laura.pth"), write_s=write_s, load_s=load["ckpt"],
+               pth_load_s=load["pth"], token_shape=list(toks["ckpt"].shape))
+    log(f"[jax_ckpt] LauraTTS ({n_params} parameters) as a JAX weights file: {out['ckpt_bytes']} bytes (.pth "
+        f"{out['pth_bytes']}), written in {write_s:.3f} s, loaded onto the card in {load['ckpt']:.3f} s (.pth "
+        f"{load['pth']:.3f} s), bit for bit; one zero-shot request (20 words, a 2 s prompt, top-k 25 seeded, "
+        f"{JAX_CKPT_GROUPS} groups, the codec in bf16 with the three flags, launches {TTS_EXPECT}) from .ckpt "
+        f"and from .pth: tokens {tuple(toks['ckpt'].shape)} and both wavs equal")
+    return out
+
+
+def jax_ckpt_average(held: dict) -> dict:
+    """cli/average_nbest over JAX_CKPT_AVERAGED seeded flagship epochs as
+    .ckpt files and as .pth files: the averaged .ckpt, loaded, is the
+    averaged .pth bit for bit."""
+    import yaml
+
+    from funcodec_tpu_torch.cli import average_nbest
+    from funcodec_tpu_torch.compat import torch_import
+    from funcodec_tpu_torch.train.checkpoint import load_jax_checkpoint_params, save_jax_weights, save_weights
+
+    config = _flagship_config()
+    crit = [3.0, 1.0, 2.0, 4.0][:JAX_CKPT_AVERAGED]
+    report = {"stats": {str(e + 1): {"valid": {"generator_multi_spectral_recon_loss": c}} for e, c in enumerate(crit)},
+              "epoch": JAX_CKPT_AVERAGED}
+    exps = {k: JAX_CKPT_DIR / f"exp_{k}" for k in ("ckpt", "pth")}
+    for exp in exps.values():
+        exp.mkdir()
+        (exp / "config.yaml").write_text(yaml.safe_dump(config))
+        (exp / "reporter.json").write_text(json.dumps(report))
+    for e in range(1, JAX_CKPT_AVERAGED + 1):
+        model, _ = build_codec_model(config, device="cpu", generator=torch.Generator().manual_seed(30 + e))
+        save_jax_weights(str(exps["ckpt"] / f"{e}epoch.ckpt"), *torch_import.import_encodec(model.state_dict(), model))
+        save_weights(str(exps["pth"] / f"{e}epoch.pth"), model)
+    args = ["--nbest", str(JAX_CKPT_AVERAGED)]
+    t0 = time.perf_counter()
+    out_ckpt = _held_part("average_nbest .ckpt", NO_LAUNCHES,
+                          lambda: average_nbest.main(["--exp_dir", str(exps["ckpt"]), *args]), held, tag="jax_ckpt")
+    ckpt_s = time.perf_counter() - t0
+    out_pth = average_nbest.main(["--exp_dir", str(exps["pth"]), *args])
+    name = f"valid.generator_multi_spectral_recon_loss.ave_{JAX_CKPT_AVERAGED}best"
+    if (Path(out_ckpt).name, Path(out_pth).name) != (f"{name}.ckpt", f"{name}.pth"):
+        raise RuntimeError(f"jax_ckpt average_nbest wrote {out_ckpt}, {out_pth}")
+    model, _ = build_codec_model(config, device="cpu", generator=torch.Generator().manual_seed(39))
+    load_jax_checkpoint_params(out_ckpt, model)
+    _same_state(model.state_dict(), torch.load(out_pth, map_location="cpu", weights_only=True), "average")
+    log(f"[jax_ckpt] cli/average_nbest over {JAX_CKPT_AVERAGED} seeded flagship epochs: the averaged .ckpt "
+        f"({os.path.getsize(out_ckpt)} bytes, {ckpt_s:.3f} s on the host) loads to the averaged .pth bit for bit")
+    return dict(epochs=JAX_CKPT_AVERAGED, ckpt_bytes=os.path.getsize(out_ckpt), wall_s=ckpt_s)
+
+
+def jax_ckpt_phase(dev, card: str) -> dict:
+    """Phase 17: the JAX package's checkpoint format on the card: the
+    flagship served from .ckpt, the LauraTTS request from .ckpt, the n-best
+    average of .ckpt files; every count set to 0 before the phase and read
+    after, each kernel call held against its plain version."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(JAX_CKPT_DIR, ignore_errors=True)
+    JAX_CKPT_DIR.mkdir(parents=True)
+    held = dict(max_abs_err={}, calls=0, launches={})
+    _sync(dev)
+    reset_counts()
+    flagship = jax_ckpt_flagship(dev, held)
+    laura = jax_ckpt_laura(dev, held)
+    average = jax_ckpt_average(held)
+    _sync(dev)
+    counts = read_counts()
+    expect = {k: sum(part[k] for part in held["launches"].values()) for k in counts}
+    if counts != expect:
+        raise RuntimeError(f"jax_ckpt: launches {counts}, the parts' sum {expect}")
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    log(f"[jax_ckpt] launches {counts}, {held['calls']} kernel calls held against their plain versions (max|err| "
+        f"{held['max_abs_err']}); phase {phase_s:.2f} s ({card})")
+    return dict(launches=counts, max_abs_err=held["max_abs_err"], held_calls=held["calls"], flagship=flagship,
+                laura=laura, average=average, phase_s=phase_s)
+
+
 def main() -> int:
     dev = check_device()
     card = card_line(CARD)
@@ -4752,6 +5000,7 @@ def main() -> int:
     recipe = recipe_phase(dev, card)
     streaming = streaming_phase(dev, card)
     extras = extras_phase(dev, card, streaming.pop("tokens_fp32"))
+    jax_ckpt = jax_ckpt_phase(dev, card)
     if "funcodec_tpu" in sys.modules or ("jax" in sys.modules and not _JAX_PRELOADED):
         raise RuntimeError("the port imported JAX or the JAX package")
 
@@ -4763,7 +5012,7 @@ def main() -> int:
             configs=train_results, launches=train_counts, fused_gradients=fused_grads, backward=backward_rows,
             backward_max_relative_error=backward_errs, forward_max_abs_error=train_fwd_errs,
             card_vs_cpu=card_cpu, timing=train_rows), trainer=trainer, tts=tts, freqcodec=freq, laura=laura,
-        data_parallel=dp, recipe=recipe, streaming=streaming, extras=extras),
+        data_parallel=dp, recipe=recipe, streaming=streaming, extras=extras, jax_ckpt=jax_ckpt),
         indent=1))
     conv_main = _summed([r for r in conv_rows if r["main_path"]])
     conv_main["library_ms"] = sum(r["library_ms"] for r in conv_rows if r["main_path"])
@@ -4806,7 +5055,8 @@ def main() -> int:
     # the training phase's fused steps, the trainer phase's two-epoch run, a TTS request, the
     # FreqCodec main-path requests (gr8 and gr1), the Laura recipe's stages 1 and 3, the
     # data-parallel phase's NCCL world-1 steps and serving replicas, the recipe phase's path,
-    # the streaming session's bf16 stream and the extras phase's GAN steps
+    # the streaming session's bf16 stream, the extras phase's GAN steps and the JAX checkpoint phase's
+    # requests
     for k in kernels:
         k["training_launches"] = train_counts.get(k["name"], 0)
         k["trainer_launches"] = trainer["launches"].get(k["name"], 0)
@@ -4828,7 +5078,7 @@ def main() -> int:
         # the worst held call per kernel, null for a kernel that no held call reaches; a held
         # resblock_tgn call holds the block's output, so its finalizes too
         held_as = "resblock_tgn" if k["name"] == "resblock_tgn_finalize" else k["name"]
-        for phase, res in (("streaming", streaming), ("extras", extras)):
+        for phase, res in (("streaming", streaming), ("extras", extras), ("jax_ckpt", jax_ckpt)):
             k[f"{phase}_launches"] = res["launches"].get(k["name"], 0)
             k[f"{phase}_max_abs_err"] = res["max_abs_err"].get(held_as) if k[f"{phase}_launches"] else None
     print(json.dumps({"kernels": kernels}))

@@ -32,7 +32,6 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from funcodec_tpu_torch.compat.from_jax import load_torch_state_dict
 from funcodec_tpu_torch.data.kaldi_ark import ArkScpReader, ArkWriter
 from funcodec_tpu_torch.data.wav_io import (
     SoundScpReader,
@@ -44,6 +43,7 @@ from funcodec_tpu_torch.data.wav_io import (
     write_wav,
 )
 from funcodec_tpu_torch.tasks.codec import build_codec_model, load_config, resolve_device
+from funcodec_tpu_torch.train.checkpoint import load_codec_weights
 
 _UNSET = object()
 RUN_MODS = ("inference", "encode", "decode", "decode_emb")
@@ -62,8 +62,11 @@ class Speech2Token:
     """Codec model wrapper with run_mod in {inference, encode, decode, decode_emb}.
 
     `config_file` is a FunCodec config.yaml path or an already-loaded dict.
-    `model_file` is a FunCodec .pth or a weights file of the port's trainer
-    (cli/codec_train: {epoch}epoch.pth, latest.pth); without one the weights are random,
+    `model_file` is a FunCodec .pth, a weights file of the port's trainer
+    (cli/codec_train: {epoch}epoch.pth, latest.pth) or one of the JAX
+    package's (a flax msgpack .ckpt: {epoch}epoch.ckpt, latest.ckpt, an
+    average; read by the suffix, as the JAX CLI reads it: .pth, .pt and .bin
+    are PyTorch files); without one the weights are random,
     drawn from a torch.Generator seeded with INIT_SEED. dtype "bfloat16" casts
     the parameters but not the codebooks (fp32 buffers, as in the JAX
     package); "float32" also turns off TF32 in cuDNN and cuBLAS, which would
@@ -119,13 +122,7 @@ class Speech2Token:
         generator = torch.Generator(device=self.device).manual_seed(INIT_SEED)
         self.model, _ = build_codec_model(self.config, device=self.device, generator=generator)
         if model_file and os.path.exists(model_file):
-            if not model_file.endswith((".pth", ".pt", ".bin")):
-                raise NotImplementedError(
-                    f"{model_file}: only PyTorch state_dict files (.pth: FunCodec's, or the port "
-                    "trainer's {epoch}epoch.pth / latest.pth) load in the port; the JAX package's "
-                    "flax-msgpack .ckpt files need flax, which the port does not use"
-                )
-            self.model.load_state_dict(load_torch_state_dict(model_file))
+            load_codec_weights(model_file, self.model)
         else:
             logging.warning("no model file %s; random init (seed %d)", model_file, INIT_SEED)
         self.model.eval()

@@ -27,7 +27,10 @@ as its rank on cuda:LOCAL_RANK, which is also how several hosts train:
 It writes {epoch}epoch.pth weights, checkpoint.pth (the resumable train
 state), the latest.pth and valid.<key>.best.pth links, reporter.json and
 validation wav dumps (rank 0 alone); run again with a higher --max_epoch,
-it resumes.
+it resumes. Given the output directory of the JAX package's trainer
+(checkpoint.ckpt, reporter.json, no checkpoint.pth), it continues that
+run: the step, the epoch, both modules and the Adam moments come from the
+JAX files, and the port's files are written beside them.
 """
 
 from __future__ import annotations

@@ -32,12 +32,12 @@ import torch
 import yaml
 
 from funcodec_tpu_torch.cli.codec_inference import Speech2Token
-from funcodec_tpu_torch.compat.from_jax import load_torch_state_dict
 from funcodec_tpu_torch.data.text import TokenIDConverter, build_tokenizer
 from funcodec_tpu_torch.data.wav_io import read_2column_text, read_wav, resample, save_audio
 from funcodec_tpu_torch.models.laura import Sampling, pad_requests
 from funcodec_tpu_torch.models.tts_serving import LauraServingSession
 from funcodec_tpu_torch.tasks.text2audio import INIT_SEED, build_laura_model
+from funcodec_tpu_torch.train.checkpoint import load_laura_weights
 from funcodec_tpu_torch.utils.tts_quality import tts_metrics
 
 EMPTY = {"gen": np.zeros((0,), np.float32), "gen_only_lm": np.zeros((0,), np.float32)}
@@ -45,7 +45,9 @@ EMPTY = {"gen": np.zeros((0,), np.float32), "gen_only_lm": np.zeros((0,), np.flo
 
 class Text2Audio:
     """The composed TTS pipeline. `device` defaults to the card; without a
-    model file the LM's weights are random, drawn with seed INIT_SEED."""
+    model file the LM's weights are random, drawn with seed INIT_SEED. The
+    LM's and the codec's model files are PyTorch state_dicts (.pth, .pt,
+    .bin) or the JAX package's .ckpt files, by the suffix."""
 
     def __init__(
         self,
@@ -71,11 +73,7 @@ class Text2Audio:
         self.tokenizer = build_tokenizer(token_type) if token_type and tokens else None
         self.converter = TokenIDConverter(tokens) if tokens else None
         if model_file and os.path.exists(model_file):
-            if not model_file.endswith((".pth", ".pt", ".bin")):
-                raise NotImplementedError(
-                    f"{model_file}: only PyTorch state_dict files (.pth, .pt, .bin) load in the port; the JAX "
-                    "package's flax-msgpack .ckpt files need flax, which the port does not use")
-            self.model.load_state_dict(load_torch_state_dict(model_file))
+            load_laura_weights(model_file, self.model)
         else:
             logging.warning("no LM checkpoint %s; random init (seed %d)", model_file, INIT_SEED)
         self.codec = Speech2Token(codec_config_file, codec_model_file, dtype="float32", device=self.device)

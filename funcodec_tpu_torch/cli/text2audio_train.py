@@ -18,13 +18,18 @@ the CPU (a CUDA device without a card raises):
 It writes {epoch}epoch.pth (the model's state_dict), checkpoint.pth, the
 latest.pth and valid.loss.best.pth links and reporter.json;
 cli/text2audio_inference serves latest.pth. Run again with a higher
---max_epoch, it resumes.
+--max_epoch, it resumes: from its own checkpoint.pth, or, in an output
+directory of the JAX package's trainer, from that run's checkpoint.ckpt and
+reporter.json (train/laura_trainer.py). --codec_init_param also takes the
+JAX package's codec .ckpt, with --codec_config.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -35,23 +40,28 @@ from funcodec_tpu_torch.data.dataset import CodecDataset, collate_fn
 from funcodec_tpu_torch.data.loader import PrefetchLoader
 from funcodec_tpu_torch.data.sampler import length_batches, shuffle_batches_for_epoch
 from funcodec_tpu_torch.data.text import Text2AudioPreprocessor
-from funcodec_tpu_torch.tasks.codec import resolve_device
+from funcodec_tpu_torch.tasks.codec import build_codec_model, load_config, resolve_device
 from funcodec_tpu_torch.tasks.text2audio import build_laura_model
+from funcodec_tpu_torch.train.checkpoint import is_torch_file, load_jax_checkpoint_params
 from funcodec_tpu_torch.train.laura_trainer import LauraTrainer, LauraTrainerOptions
 
 CODEBOOK = "quantizer.rq.model.embed"  # the codec's RVQ codebooks (nq, bins, dim)
 
 
-def graft_codebooks(model, codec_model_file: str):
+def graft_codebooks(model, codec_model_file: str, codec_config_file: Optional[str] = None):
     """Copy a codec checkpoint's codebooks into the model's frozen
     ``quantizer_codebook`` (the first nq x bins x dim of them). The file is
-    a PyTorch state_dict: a released codec's model.pth or the port's codec
-    trainer's latest.pth. Returns the model."""
-    if not codec_model_file.endswith((".pth", ".pt", ".bin")):
-        raise NotImplementedError(
-            f"{codec_model_file}: only PyTorch state_dict files (.pth, .pt, .bin) load in the port; the JAX "
-            "package's flax-msgpack .ckpt files need flax, which the port does not use")
-    embed = load_torch_state_dict(codec_model_file)[CODEBOOK]
+    a PyTorch state_dict (.pth, .pt, .bin: a released codec's model.pth,
+    the port's codec trainer's latest.pth) or the JAX package's .ckpt (its
+    codec trainer's latest.ckpt), which loads into the codec of its config:
+    `codec_config_file`, else the config.yaml beside the file, as the JAX
+    CLI takes it. Returns the model."""
+    if is_torch_file(codec_model_file):
+        embed = load_torch_state_dict(codec_model_file)[CODEBOOK]
+    else:
+        cfg_path = codec_config_file or str(Path(codec_model_file).parent / "config.yaml")
+        codec, _ = build_codec_model(load_config(cfg_path), device="cpu")
+        embed = load_jax_checkpoint_params(codec_model_file, codec)[CODEBOOK]
     dst = model.quantizer_codebook.embed
     nq, bins, dim = dst.shape
     with torch.no_grad():
@@ -74,7 +84,8 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--codec_init_param", type=str, default=None,
                         help="codec checkpoint whose quantizer codebooks are grafted")
     parser.add_argument("--codec_config", type=str, default=None,
-                        help="the codec's config.yaml; the recipe passes it, a .pth needs none")
+                        help="the codec's config.yaml for a .ckpt codec_init_param (default: the "
+                             "config.yaml beside it); a .pth needs none")
     parser.add_argument("--resume", type=lambda s: s.lower() == "true", default=True)
     parser.add_argument("--max_epoch", type=int, default=None)
     parser.add_argument("--profile_dir", type=str, default=None,
@@ -130,7 +141,7 @@ def main(argv=None):
     model = build_laura_model(config, token_list=token_list, device=device,
                               generator=torch.Generator(device=device).manual_seed(options.seed))
     if args.codec_init_param:
-        graft_codebooks(model, args.codec_init_param)
+        graft_codebooks(model, args.codec_init_param, args.codec_config)
 
     def make_pre(train):
         return Text2AudioPreprocessor(

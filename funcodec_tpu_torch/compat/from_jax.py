@@ -16,6 +16,12 @@ do the same for the transformer/conformer stacks and a whole LauraGenModel,
 under the names funcodec_tpu/compat/torch_import.import_laura reads. The
 JAX params arrive as numpy arrays (``np.asarray`` of each
 leaf); this module never imports jax.
+
+Every walk also takes the tree of a JAX ``.ckpt`` file as
+compat/flax_msgpack.restore gives it: a JAX list or tuple is there a map
+keyed "0".."n-1", which ``seq`` reads where the walk expects a list, and a
+struct (RVQState, a train state, optax's ScaleByAdamState) is a map by
+field name, which ``field`` reads as it reads an attribute.
 """
 
 from __future__ import annotations
@@ -32,7 +38,26 @@ RVQ_BUFFERS = ("inited", "cluster_size", "embed", "embed_avg")
 
 
 def _t(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):  # a bf16 leaf of a .ckpt file
+        return a.detach().to(torch.float32, copy=True)
     return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+
+
+def seq(x) -> list:
+    """A JAX list or tuple, in memory or as a .ckpt file holds it (a map
+    keyed "0".."n-1"). Only where the walk expects a list: no list is
+    guessed from key names."""
+    if isinstance(x, Mapping):
+        if set(x) != {str(i) for i in range(len(x))}:
+            raise ValueError(f"a JAX list stored with keys {sorted(x)[:8]}")
+        return [x[str(i)] for i in range(len(x))]
+    return list(x)
+
+
+def field(node, name: str):
+    """A field of a JAX struct dataclass or namedtuple (RVQState, a train
+    state, optax's ScaleByAdamState), in memory or as a map of a .ckpt file."""
+    return node[name] if isinstance(node, Mapping) else getattr(node, name)
 
 
 def torch_conv_weight(kernel: np.ndarray, spec: ConvSpec) -> np.ndarray:
@@ -60,6 +85,11 @@ def _weight_g(g, rank: int) -> torch.Tensor:
     return _t(np.asarray(g).reshape(-1, *([1] * (rank - 1))))
 
 
+def _norm_dim0(v: np.ndarray) -> np.ndarray:
+    """torch weight norm's ||v|| per dim-0 slice, in float64."""
+    return np.sqrt(np.square(v.astype(np.float64)).sum(axis=tuple(range(1, v.ndim))))
+
+
 def _fused_jax_kernel(v: np.ndarray, g: np.ndarray) -> np.ndarray:
     """g * v / ||v||, the norm over the axes where g's keepdims shape is 1
     (funcodec_tpu ops/conv.fused_kernel), in fp32."""
@@ -71,7 +101,14 @@ def _fused_jax_kernel(v: np.ndarray, g: np.ndarray) -> np.ndarray:
 
 def _conv(sd: Dict[str, torch.Tensor], base: str, spec: ConvSpec, p: Mapping[str, Any]) -> None:
     inner = "convtr" if spec.transposed else "conv"
-    if "kernel" in p:
+    if "kernel" in p and spec.norm == "weight_norm":
+        # a fused kernel (compat/torch_import fuses weight norm) into a
+        # weight-normed conv: v the weight, g its torch norm (the same weight
+        # within rounding)
+        v = torch_conv_weight(p["kernel"], spec)
+        sd[f"{base}.{inner}.{inner}.weight_v"] = _t(v)
+        sd[f"{base}.{inner}.{inner}.weight_g"] = _weight_g(_norm_dim0(v), v.ndim)
+    elif "kernel" in p:
         sd[f"{base}.{inner}.{inner}.weight"] = _t(torch_conv_weight(p["kernel"], spec))
     else:
         v = torch_conv_weight(p["v"], spec)
@@ -81,7 +118,7 @@ def _conv(sd: Dict[str, torch.Tensor], base: str, spec: ConvSpec, p: Mapping[str
             # across the groups, torch's per input channel; carry the fused
             # weight as v, with its torch norm as g (the same weight)
             v = torch_conv_weight(_fused_jax_kernel(p["v"], g), spec)
-            g = np.sqrt(np.square(v.astype(np.float64)).sum(axis=tuple(range(1, v.ndim))))
+            g = _norm_dim0(v)
         sd[f"{base}.{inner}.{inner}.weight_v"] = _t(v)
         sd[f"{base}.{inner}.{inner}.weight_g"] = _weight_g(g, v.ndim)
     if "bias" in p:
@@ -92,7 +129,7 @@ def _conv(sd: Dict[str, torch.Tensor], base: str, spec: ConvSpec, p: Mapping[str
 
 
 def _layers(sd: Dict[str, torch.Tensor], prefix: str, layers: Sequence[Layer], params) -> None:
-    for i, ((kind, spec), p) in enumerate(zip(layers, params, strict=True)):
+    for i, ((kind, spec), p) in enumerate(zip(layers, seq(params), strict=True)):
         base = f"{prefix}.{i}"
         if kind == "conv":
             _conv(sd, base, spec, p)
@@ -118,7 +155,7 @@ def _layers(sd: Dict[str, torch.Tensor], prefix: str, layers: Sequence[Layer], p
 def _lstm(sd: Dict[str, torch.Tensor], base: str, layers) -> None:
     """A JAX stacked LSTM's per-layer {w_ih, w_hh, b_ih, b_hh} ((in, 4H)
     layouts) as nn.LSTM's tensors under `base`."""
-    for l, lp in enumerate(layers):
+    for l, lp in enumerate(seq(layers)):
         sd[f"{base}.weight_ih_l{l}"] = _t(np.asarray(lp["w_ih"]).T)
         sd[f"{base}.weight_hh_l{l}"] = _t(np.asarray(lp["w_hh"]).T)
         sd[f"{base}.bias_ih_l{l}"] = _t(lp["b_ih"])
@@ -146,7 +183,7 @@ def state_dict_from_jax(model, params: Mapping[str, Any], rvq_state) -> Dict[str
             sd[f"quantizer.{name}.bias"] = _t(qp[name]["bias"])
     empty = model.quantizer.state.embed.shape[0] == 0
     for name in RVQ_BUFFERS:
-        value = rvq_state[name] if isinstance(rvq_state, Mapping) else getattr(rvq_state, name)
+        value = field(rvq_state, name)
         sd[f"quantizer.rq.model.{name}"] = _t(np.asarray(value)[:0] if empty else value)
     context = getattr(model, "context", None)
     if context is not None:
@@ -188,7 +225,7 @@ def encoder_state_dict_from_jax(sd: Dict[str, torch.Tensor], prefix: str, cfg, p
     elif cfg.input_layer == "embed":
         sd[f"{pfx}embed.0.weight"] = _t(p["embed_table"])
     norm_mha, norm_ff = ("norm1", "norm2") if cfg.block_names == "transformer" else ("norm_mha", "norm_ff")
-    for i, lp in enumerate(p["layers"]):
+    for i, lp in enumerate(seq(p["layers"])):
         base = f"{pfx}encoders.{i}"
         a = lp["attn"]
         for name, key in (("linear_q", "q"), ("linear_k", "k"), ("linear_v", "v"), ("linear_out", "out")):
@@ -263,28 +300,29 @@ def _conv1d(sd: Dict[str, torch.Tensor], base: str, p: Mapping[str, Any]) -> Non
 
 
 def _msstft(sd, base, p) -> None:
-    for j, scale in enumerate(p):
+    for j, scale in enumerate(seq(p)):
         sbase = f"{base}.discriminators.{j}"
-        for k, cp in enumerate(scale["convs"]):
+        for k, cp in enumerate(seq(scale["convs"])):
             _conv2d(sd, f"{sbase}.convs.{k}.conv", cp)
         _conv2d(sd, f"{sbase}.conv_post.conv", scale["conv_post"])
 
 
 def _period(sd, base, p) -> None:
-    for k, cp in enumerate(p["convs"]):
+    for k, cp in enumerate(seq(p["convs"])):
         _conv2d(sd, f"{base}.convs.{k}.0", cp)
     _conv2d(sd, f"{base}.output_conv", p["out"])
 
 
 def _scale(sd, base, p) -> None:
-    for k, cp in enumerate(p["convs"]):
+    convs = seq(p["convs"])
+    for k, cp in enumerate(convs):
         _conv1d(sd, f"{base}.layers.{k}.0", cp)
-    _conv1d(sd, f"{base}.layers.{len(p['convs'])}", p["out"])
+    _conv1d(sd, f"{base}.layers.{len(convs)}", p["out"])
 
 
 def _each(fn):
     def walk(sd, base, p):
-        for k, q in enumerate(p):
+        for k, q in enumerate(seq(p)):
             fn(sd, f"{base}.discriminators.{k}", q)
 
     return walk
@@ -296,13 +334,14 @@ def _msmpd(sd, base, p) -> None:
 
 
 def _soundstream(sd, base, p) -> None:
-    for d, q in enumerate(p):
+    for d, q in enumerate(seq(p)):
         dbase = f"{base}.discriminators.{d}"
         _conv1d(sd, f"{dbase}.init_conv", q["init"])
-        for i, cp in enumerate(q["convs"]):
+        for i, cp in enumerate(seq(q["convs"])):
             _conv1d(sd, f"{dbase}.conv_layers.{i}.0", cp)
-        _conv1d(sd, f"{dbase}.final_conv.0", q["final"][0])
-        _conv1d(sd, f"{dbase}.final_conv.2", q["final"][1])
+        final = seq(q["final"])
+        _conv1d(sd, f"{dbase}.final_conv.0", final[0])
+        _conv1d(sd, f"{dbase}.final_conv.2", final[1])
 
 
 def _complex_stft(sd, base, p) -> None:
@@ -311,7 +350,7 @@ def _complex_stft(sd, base, p) -> None:
         _conv2d(sd, f"{cbase}.im", q["im"])
 
     complex_conv(f"{base}.init_conv", p["init"])
-    for i, u in enumerate(p["units"]):
+    for i, u in enumerate(seq(p["units"])):
         complex_conv(f"{base}.units.{i}.c1", u["c1"])
         sd[f"{base}.units.{i}.b"] = _t(u["b"])
         complex_conv(f"{base}.units.{i}.c2", u["c2"])
@@ -337,7 +376,7 @@ def discriminator_state_dict_from_jax(disc_params: Sequence[Any], discriminator)
     state_dict. Each entry is walked by the kind of the port's sub-module
     at the same index of `discriminator`."""
     sd: Dict[str, torch.Tensor] = {}
-    for i, p in enumerate(disc_params):
+    for i, p in enumerate(seq(disc_params)):
         _DISC_WALKS[type(discriminator.discriminators[i]).__name__](sd, f"discriminators.{i}", p)
     return sd
 
@@ -357,16 +396,16 @@ def hifigan_generator_state_dict_from_jax(model, params: Mapping[str, Any]) -> D
         else:
             v = np.transpose(_fused_jax_kernel(p["v"], p["g"]), (1, 2, 0))  # (K, Cin, Cout) -> (Cin, Cout, K)
             sd[f"{base}.weight_v"] = _t(v)
-            sd[f"{base}.weight_g"] = _weight_g(np.sqrt(np.square(v.astype(np.float64)).sum(axis=(1, 2))), 3)
+            sd[f"{base}.weight_g"] = _weight_g(_norm_dim0(v), 3)
         sd[f"{base}.bias"] = _t(p["bias"])
 
     _conv1d(sd, "input_conv", params["input_conv"])
-    for i, p in enumerate(params["upsamples"]):
+    for i, p in enumerate(seq(params["upsamples"])):
         conv_transpose(f"upsamples.{i}.1", p)
-    for k, blk in enumerate(params["blocks"]):
-        for j, p in enumerate(blk["convs1"]):
+    for k, blk in enumerate(seq(params["blocks"])):
+        for j, p in enumerate(seq(blk["convs1"])):
             _conv1d(sd, f"blocks.{k}.convs1.{j}.1", p)
-        for j, p in enumerate(blk["convs2"] if cfg.use_additional_convs else ()):
+        for j, p in enumerate(seq(blk["convs2"]) if cfg.use_additional_convs else ()):
             _conv1d(sd, f"blocks.{k}.convs2.{j}.1", p)
     _conv1d(sd, "output_conv.1", params["output_conv"])
     if cfg.global_channels > 0:
@@ -391,7 +430,13 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
 
 
 def _jax_adam_states(tree) -> list:
-    """The optax ScaleByAdamState nodes (count, mu, nu) of a JAX optimizer state."""
+    """The optax ScaleByAdamState nodes (count, mu, nu) of a JAX optimizer
+    state: in memory, or as a .ckpt file holds it (the chain's tuples as
+    maps keyed "0".."n-1", the Adam state as {"count", "mu", "nu"})."""
+    if isinstance(tree, Mapping):
+        if set(tree) == {"count", "mu", "nu"}:
+            return [tree]
+        return [s for t in tree.values() for s in _jax_adam_states(t)]
     if all(hasattr(tree, a) for a in ("count", "mu", "nu")):
         return [tree]
     if isinstance(tree, (list, tuple)):
@@ -407,11 +452,11 @@ def _optimizer_state_from_jax(template, jax_opt_state, to_port: Callable[[Any], 
     adams = _jax_adam_states(jax_opt_state)
     if len(adams) != 1:
         raise NotImplementedError(f"a JAX optimizer state with {len(adams)} Adam states does not carry across")
-    count = int(np.asarray(adams[0].count))
+    count = int(np.asarray(field(adams[0], "count")))
 
     def carry(node):
         if isinstance(node, dict) and set(node) == {"count", "mu", "nu"}:
-            return dict(count=count, mu=to_port(adams[0].mu), nu=to_port(adams[0].nu))
+            return dict(count=count, mu=to_port(field(adams[0], "mu")), nu=to_port(field(adams[0], "nu")))
         if isinstance(node, tuple):
             return tuple(carry(n) for n in node)
         if isinstance(node, int):  # scale_by_learning_rate's update count
@@ -422,7 +467,8 @@ def _optimizer_state_from_jax(template, jax_opt_state, to_port: Callable[[Any], 
 
 
 def train_state_from_jax(model, discriminator, jax_state, optimizer_g=None, optimizer_d=None):
-    """A funcodec_tpu GANTrainState (JAX arrays or numpy) as the port's.
+    """A funcodec_tpu GANTrainState (JAX arrays or numpy, or the maps of a
+    restored checkpoint.ckpt) as the port's.
 
     Loads the generator's parameters and RVQ buffers into `model` and the
     discriminator's parameters into `discriminator`, and returns the port's
@@ -432,9 +478,9 @@ def train_state_from_jax(model, discriminator, jax_state, optimizer_g=None, opti
     from funcodec_tpu_torch.train.step import GANTrainState, make_optimizer
 
     device = next(model.parameters()).device
-    rvq_state = jax_state.rvq_state
-    model.load_state_dict(state_dict_from_jax(model, jax_state.params, rvq_state))
-    discriminator.load_state_dict(discriminator_state_dict_from_jax(jax_state.disc_params, discriminator))
+    rvq_state = field(jax_state, "rvq_state")
+    model.load_state_dict(state_dict_from_jax(model, field(jax_state, "params"), rvq_state))
+    discriminator.load_state_dict(discriminator_state_dict_from_jax(field(jax_state, "disc_params"), discriminator))
 
     def gen_list(tree):
         sd = state_dict_from_jax(model, tree, rvq_state)
@@ -447,18 +493,18 @@ def train_state_from_jax(model, discriminator, jax_state, optimizer_g=None, opti
     opt_g = (optimizer_g or make_optimizer()).init(list(model.parameters()))
     opt_d = (optimizer_d or make_optimizer()).init(list(discriminator.parameters()))
     return GANTrainState(
-        step=int(np.asarray(jax_state.step)),
+        step=int(np.asarray(field(jax_state, "step"))),
         model=model,
         discriminator=discriminator,
-        opt_state_g=_optimizer_state_from_jax(opt_g, jax_state.opt_state_g, gen_list),
-        opt_state_d=_optimizer_state_from_jax(opt_d, jax_state.opt_state_d, disc_list),
-        gen_loss_carry=torch.tensor(float(np.asarray(jax_state.gen_loss_carry)), device=device),
+        opt_state_g=_optimizer_state_from_jax(opt_g, field(jax_state, "opt_state_g"), gen_list),
+        opt_state_d=_optimizer_state_from_jax(opt_d, field(jax_state, "opt_state_d"), disc_list),
+        gen_loss_carry=torch.tensor(float(np.asarray(field(jax_state, "gen_loss_carry"))), device=device),
     )
 
 
 def laura_train_state_from_jax(model, jax_state, optimizer=None):
-    """A funcodec_tpu Laura TrainState (JAX arrays or numpy) as the port's
-    LauraTrainState.
+    """A funcodec_tpu Laura TrainState (JAX arrays or numpy, or the maps of
+    a restored checkpoint.ckpt) as the port's LauraTrainState.
 
     Loads the parameters (the frozen codebook included) into `model`, the
     port's LauraGenModel, and returns the state over it with Adam's moments
@@ -469,7 +515,7 @@ def laura_train_state_from_jax(model, jax_state, optimizer=None):
     from funcodec_tpu_torch.train.step import make_optimizer
 
     device = model.device
-    model.load_state_dict(laura_state_dict_from_jax(model, jax_state.params))
+    model.load_state_dict(laura_state_dict_from_jax(model, field(jax_state, "params")))
     names = [n for n, p in model.named_parameters() if p.requires_grad]
 
     def to_list(tree):
@@ -477,5 +523,5 @@ def laura_train_state_from_jax(model, jax_state, optimizer=None):
         return [sd[n].to(device) for n in names]
 
     template = (optimizer or make_optimizer()).init(trainable(model))
-    return LauraTrainState(step=int(np.asarray(jax_state.step)), model=model,
-                           opt_state=_optimizer_state_from_jax(template, jax_state.opt_state, to_list))
+    return LauraTrainState(step=int(np.asarray(field(jax_state, "step"))), model=model,
+                           opt_state=_optimizer_state_from_jax(template, field(jax_state, "opt_state"), to_list))

@@ -5,7 +5,8 @@ Behavioral reference: funcodec/train/trainer.py:369-509 (checkpoint.pth with
 model+optimizers+reporter, {n}epoch.pth weights, latest.pth symlink,
 per-criterion best symlinks, n-best pruning + weight averaging via
 util_funcs/average_nbest_models.py:18). The port writes the reference's
-files and names; the JAX package writes flax msgpack ``.ckpt`` files instead.
+files and names; it also reads the JAX package's flax msgpack ``.ckpt``
+files and writes its weights files (the ``*_jax_*`` functions below).
 
 - A weights file (``{epoch}epoch.pth``) is the generator's ``state_dict()``
   on the CPU, under the reference FunCodec names, the RVQ codebook buffers
@@ -27,6 +28,23 @@ Under data parallelism the ranks hold the same state, so rank 0 alone
 writes (the trainers call the writers there and the other ranks wait at a
 barrier until the files are on disk); every rank resumes from the same
 ``checkpoint.pth``.
+
+The JAX package's files (funcodec_tpu/train/checkpoint.py), read through
+compat/flax_msgpack and carried by compat/from_jax:
+
+- a weights file (``{epoch}epoch.ckpt``, ``latest.ckpt``, an average) is
+  ``{"params": ..., "rvq_state": ...}`` (a Laura one ``{"params"}``):
+  ``load_jax_checkpoint_params`` / ``load_jax_params`` load it into a port
+  model built from the same config, ``save_jax_weights`` writes one from a
+  JAX-structured tree (compat/torch_import) with JAX's bytes, and
+  ``average_jax_checkpoints`` averages them as JAX does;
+- a train state (``checkpoint.ckpt``) is the JAX GANTrainState or Laura
+  TrainState by field; ``load_jax_train_state`` carries it into a port
+  train state (the Adam moments and counts, the step, the gate carry).
+
+``load_codec_weights`` / ``load_laura_weights`` dispatch on the suffix as
+the JAX CLIs do: ``.pth``, ``.pt`` and ``.bin`` are PyTorch state_dicts,
+any other file is a JAX checkpoint.
 """
 
 from __future__ import annotations
@@ -35,10 +53,20 @@ import os
 from pathlib import Path
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
-from funcodec_tpu_torch.compat.from_jax import load_torch_state_dict
+from funcodec_tpu_torch.compat import flax_msgpack
+from funcodec_tpu_torch.compat.from_jax import (
+    laura_state_dict_from_jax,
+    laura_train_state_from_jax,
+    load_torch_state_dict,
+    state_dict_from_jax,
+    train_state_from_jax,
+)
 from funcodec_tpu_torch.train.step import GANTrainState
+
+TORCH_SUFFIXES = (".pth", ".pt", ".bin")  # anything else is a JAX checkpoint, as the JAX CLIs read it
 
 _GENERATOR = "torch_generator_state"
 
@@ -159,3 +187,162 @@ def average_checkpoints(paths: List[str], model: torch.nn.Module) -> Dict[str, t
     for k, v in acc.items():
         avg[k] = (v / float(len(paths))).to(torch.float32)
     return avg
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's .ckpt files
+# ---------------------------------------------------------------------------
+
+
+def is_torch_file(path) -> bool:
+    return str(path).endswith(TORCH_SUFFIXES)
+
+
+def read_jax_file(path) -> Any:
+    """The tree of a JAX checkpoint (compat/flax_msgpack.restore: maps,
+    numpy arrays). Bytes that are not one raise a ValueError naming the file."""
+    data = Path(path).read_bytes()
+    try:
+        return flax_msgpack.restore(data)
+    except ValueError as e:
+        raise ValueError(f"{path}: not a JAX checkpoint (flax msgpack): {e}") from None
+
+
+def _jax_weights(path, tree, keys=("params", "rvq_state")) -> Dict[str, Any]:
+    if not isinstance(tree, dict) or not set(keys) <= set(tree):
+        have = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
+        raise ValueError(f"{path}: a JAX weights file holds {list(keys)}, this one {have}")
+    return tree
+
+
+def _write_bytes(path, data: bytes) -> None:
+    tmp = str(path) + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(data)
+    os.replace(tmp, path)
+
+
+def _jax_host(tree: Any) -> Any:
+    """funcodec_tpu's _to_host, jax.tree_util.tree_map(np.asarray, tree):
+    dicts rebuilt with their keys sorted, lists, tuples and namedtuples
+    kept, each leaf an array (a torch tensor stays one)."""
+    if isinstance(tree, dict):
+        return {k: _jax_host(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_jax_host(v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_jax_host(v) for v in tree)
+    if tree is None or isinstance(tree, torch.Tensor):
+        return tree
+    return np.asarray(tree)
+
+
+def save_jax_weights(path: str, params: Any, rvq_state: Any = None) -> None:
+    """funcodec_tpu save_weights: a JAX-structured params tree (and the
+    codebooks, an RVQState) as the JAX package writes them, byte for byte."""
+    payload = {"params": _jax_host(params)}
+    if rvq_state is not None:
+        payload["rvq_state"] = _jax_host(rvq_state)
+    _write_bytes(path, flax_msgpack.to_bytes(payload))
+
+
+def save_jax_tree(path: str, tree: Any) -> None:
+    """A restored tree (maps in their file's order) written back as it is."""
+    _write_bytes(path, flax_msgpack.to_bytes(tree))
+
+
+def load_jax_checkpoint_params(path: str, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """A JAX codec weights file ({"params", "rvq_state"}) loaded into `model`,
+    a port codec built from the same config; returns its state_dict (CPU)."""
+    return _carry_codec(path, _jax_weights(path, read_jax_file(path)), model)
+
+
+def _carry_codec(path, tree, model) -> Dict[str, torch.Tensor]:
+    try:
+        sd = state_dict_from_jax(model, tree["params"], tree["rvq_state"])
+        model.load_state_dict(sd)
+    except (KeyError, ValueError, RuntimeError) as e:
+        raise ValueError(f"{path}: the JAX weights do not fit the model of this config: {e}") from e
+    return sd
+
+
+def load_jax_params(path: str, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """A JAX params-only weights file (a Laura checkpoint) loaded into
+    `model`, the port's LauraGenModel of the same config; returns its state_dict."""
+    tree = _jax_weights(path, read_jax_file(path), keys=("params",))
+    try:
+        sd = laura_state_dict_from_jax(model, tree["params"])
+        model.load_state_dict(sd)
+    except (KeyError, ValueError, RuntimeError) as e:
+        raise ValueError(f"{path}: the JAX weights do not fit the model of this config: {e}") from e
+    return sd
+
+
+def load_codec_weights(path: str, model: torch.nn.Module) -> None:
+    """A codec weights file into `model`: a PyTorch state_dict (FunCodec's
+    .pth, the port trainer's files) or a JAX checkpoint, by the suffix."""
+    if is_torch_file(path):
+        model.load_state_dict(load_torch_state_dict(path))
+    else:
+        load_jax_checkpoint_params(path, model)
+
+
+def load_laura_weights(path: str, model: torch.nn.Module) -> None:
+    """A LauraGenModel weights file into `model`, by the suffix."""
+    if is_torch_file(path):
+        model.load_state_dict(load_torch_state_dict(path))
+    else:
+        load_jax_params(path, model)
+
+
+def load_jax_train_state(path: str, template, *optimizers):
+    """A JAX checkpoint.ckpt as a port train state over `template`'s
+    module(s) (a GANTrainState: pass the generator's and the
+    discriminator's optimizers; a LauraTrainState: its one optimizer),
+    through compat/from_jax.train_state_from_jax /
+    laura_train_state_from_jax."""
+    tree = read_jax_file(path)
+    try:
+        if isinstance(template, GANTrainState):
+            return train_state_from_jax(template.model, template.discriminator, tree, *optimizers)
+        return laura_train_state_from_jax(template.model, tree, *optimizers)
+    except (KeyError, ValueError, RuntimeError) as e:
+        raise ValueError(f"{path}: the JAX train state does not fit this trainer's models: {e}") from e
+
+
+def _f64(x) -> np.ndarray:
+    return x.double().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float64)
+
+
+def _leaf_shapes(tree, path: str = "") -> Dict[str, Any]:
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items() for k, v in _leaf_shapes(sub, f"{path}/{key}").items()}
+    return {path: None if tree is None else tuple(getattr(tree, "shape", ()))}
+
+
+def _tree_map(fn, *trees):
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return None if trees[0] is None else fn(*trees)
+
+
+def average_jax_checkpoints(paths: List[str], model: torch.nn.Module) -> Dict[str, Any]:
+    """funcodec_tpu average_checkpoints over JAX weights files: the float64
+    sum of every parameter, divided by the count and cast to fp32, with the
+    first file's rvq_state. Returns the tree {"params", "rvq_state"} in the
+    first file's order, which ``save_jax_tree`` writes with the JAX
+    average's bytes (the JAX package writes its dicts key-sorted and its
+    lists in index order, the order the JAX average writes). The first file
+    must load into `model`; every other must hold the same names and shapes."""
+    assert paths
+    first = _jax_weights(paths[0], read_jax_file(paths[0]))
+    _carry_codec(paths[0], first, model)
+    shapes = _leaf_shapes(first["params"])
+    acc = _tree_map(_f64, first["params"])
+    for p in paths[1:]:
+        params = _jax_weights(p, read_jax_file(p))["params"]
+        if _leaf_shapes(params) != shapes:
+            raise ValueError(f"{p}: its parameters are not those of {paths[0]}")
+        acc = _tree_map(lambda a, b: a + _f64(b), acc, params)
+    n = float(len(paths))
+    return {"params": _tree_map(lambda a: (a / n).astype(np.float32), acc), "rvq_state": first["rvq_state"]}

@@ -14,7 +14,8 @@ card from the device cache (data/device_cache.py). Each step draws from a
 ``torch.Generator`` seeded from (seed, step), so a resumed run draws what an
 uninterrupted one draws. Stats are fetched every ``stats_interval`` steps in
 one device-to-host copy. Checkpoints are PyTorch files under the reference's
-names (train/checkpoint.py).
+names (train/checkpoint.py); a run of the JAX package's trainer resumes
+from its checkpoint.ckpt.
 
 Under data parallelism (``group``, a ``parallel.dist.DataGroup``, the JAX
 trainer's ``mesh``) every rank runs this loop over the same batches and
@@ -61,6 +62,7 @@ from funcodec_tpu_torch.parallel.dist import (
     world_of,
 )
 from funcodec_tpu_torch.train.checkpoint import (
+    load_jax_train_state,
     load_train_state,
     save_train_state,
     save_weights,
@@ -457,12 +459,22 @@ class GANCodecTrainer:
                 p.unlink()
 
     def resume(self, state_template) -> Tuple[Any, int]:
+        """checkpoint.pth and reporter.json of output_dir, when resuming and
+        they exist; in a directory of the JAX package's trainer without a
+        checkpoint.pth, its checkpoint.ckpt (the JAX run goes on here, the
+        port's files written beside the JAX ones, which stay as they are).
+        Returns (the restored state, the next epoch)."""
         d = self._ckpt_dir()
         ckpt = d / "checkpoint.pth"
+        if not ckpt.exists() and (d / "checkpoint.ckpt").exists():
+            ckpt = d / "checkpoint.ckpt"
         start_epoch = 1
         state = state_template
         if self.opt.resume and ckpt.exists():
-            state = load_train_state(str(ckpt), state_template)
+            if ckpt.suffix == ".ckpt":
+                state = load_jax_train_state(str(ckpt), state_template, self.optimizer_g, self.optimizer_d)
+            else:
+                state = load_train_state(str(ckpt), state_template)
             rep_file = d / "reporter.json"
             if rep_file.exists():
                 with open(rep_file) as f:

@@ -22,7 +22,8 @@ at 0): two quirks of the reference loss (the regression loss's mask over
 the feature axis, the accuracy counting pads) depend on the padded length.
 Checkpoints are PyTorch files under the reference's names
 (train/checkpoint.py); ``{epoch}epoch.pth`` is the model's state_dict,
-which cli/text2audio_inference serves.
+which cli/text2audio_inference serves. A run of the JAX package's trainer
+resumes from its checkpoint.ckpt.
 
 Under data parallelism (``group``, a ``parallel.dist.DataGroup``, the JAX
 trainer's ``mesh``) every rank runs the loop over the same batches; a batch
@@ -50,7 +51,13 @@ import torch.nn as nn
 from torch.func import functional_call
 
 from funcodec_tpu_torch.parallel.dist import DataGroup, barrier, broadcast_value, is_writer, shard_rows
-from funcodec_tpu_torch.train.checkpoint import load_train_state, save_train_state, save_weights, update_symlink
+from funcodec_tpu_torch.train.checkpoint import (
+    load_jax_train_state,
+    load_train_state,
+    save_train_state,
+    save_weights,
+    update_symlink,
+)
 from funcodec_tpu_torch.train.gan_trainer import _sync, fetch_stats, step_generator
 from funcodec_tpu_torch.train.reporter import Reporter
 from funcodec_tpu_torch.train.schedulers import build_scheduler
@@ -260,12 +267,20 @@ class LauraTrainer:
 
     def resume(self, state: LauraTrainState) -> Tuple[LauraTrainState, int]:
         """checkpoint.pth and reporter.json of output_dir, when resuming and
-        they exist: (the restored state, the next epoch)."""
+        they exist; in a directory of the JAX package's trainer without a
+        checkpoint.pth, its checkpoint.ckpt (the JAX run goes on here, the
+        port's files written beside the JAX ones, which stay as they are):
+        (the restored state, the next epoch)."""
         d = Path(self.opt.output_dir)
         ckpt = d / "checkpoint.pth"
+        if not ckpt.exists() and (d / "checkpoint.ckpt").exists():
+            ckpt = d / "checkpoint.ckpt"
         if not (self.opt.resume and ckpt.exists()):
             return state, 1
-        state = load_train_state(str(ckpt), state)
+        if ckpt.suffix == ".ckpt":
+            state = load_jax_train_state(str(ckpt), state, self.optimizer)
+        else:
+            state = load_train_state(str(ckpt), state)
         start = 1
         rep = d / "reporter.json"
         if rep.exists():

@@ -180,7 +180,9 @@ def test_dispatch_pcm16_matches_jax(corpus, monkeypatch):
 
 def test_unported_options_raise(corpus, tmp_path, caplog):
     """--stat_flops raised until the tooling was ported: it now logs the
-    serving path's cost tree before serving. The flax .ckpt still raises."""
+    serving path's cost tree before serving. The JAX package's .ckpt raised
+    until its format was ported: an empty one now raises as a malformed
+    file, naming it."""
     import logging
 
     from funcodec_tpu_torch.utils.misc import codec_flops_tree
@@ -196,7 +198,7 @@ def test_unported_options_raise(corpus, tmp_path, caplog):
     assert (tmp_path / "codecs.txt").exists()
     ckpt = tmp_path / "model.ckpt"
     ckpt.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="flax-msgpack .ckpt"):
+    with pytest.raises(ValueError, match=f"{ckpt}: not a JAX checkpoint"):
         tcli.Speech2Token(str(corpus / "config.yaml"), str(ckpt), device="cpu")
 
 
