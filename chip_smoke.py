@@ -51,6 +51,12 @@ In phases that each raise on failure:
    served twice gives identical tokens. Token flip rates between the
    paths and against the fp32-exact path; the fp32 path on the card
    against the same model on the CPU for a short clip.
+   Then the sync check: one B = 64 x 5.825 s main-path request (int16 in,
+   PCM16 out, as the benchmark serves it) under
+   torch.cuda.set_sync_debug_mode("warn") with a profiler active; every
+   synchronising call must fall in a program span marked wait
+   (utils/profiling.py), and the spans must lie inside the trace's events
+   of their names, 0.1 ms from them in the median.
 5. probe: the HBM copy probes (csrc/copy_probe.cu, ops/copy_kernel.py).
    scale_copy (several tiles and row counts) and dma_copy (several chunk
    sizes, one too large for a ring of 4 slots) held bit for bit to x * 2 in bf16 and fp32 at
@@ -828,6 +834,125 @@ def serving_phase(config, s_bf, s_fp):
     if agree < 0.95:
         raise RuntimeError("fp32 tokens on the card disagree with the CPU path")
     return main_counts, flips
+
+
+# ---------------------------------------------------------------------------
+# sync phase
+# ---------------------------------------------------------------------------
+
+SYNC_B, SYNC_SECONDS = 64, 5.825  # the benchmark's batch: 64 utterances at LibriTTS's mean length
+SPAN_CLOCK_TOL_NS = 100_000  # a span's own stamps against the trace's event of the same name
+SYNC_WARNING = "called a synchronizing CUDA operation"  # torch.cuda.set_sync_debug_mode("warn")'s
+
+
+def sync_phase(dev, s_bf) -> dict:
+    """One bf16 B = 64 x 5.825 s main-path request, int16 in and PCM16 out as
+    the benchmark serves it, dispatched and collected under
+    ``torch.cuda.set_sync_debug_mode("warn")`` with a profiler active: each
+    synchronising call with the innermost program span it fell in (raises
+    if one falls outside a span marked ``wait``); each span against the
+    trace's ``funcodec::`` event of the same name (raises where a span is
+    more than SPAN_CLOCK_TOL_NS outside its event or, in the median, that
+    far from it: the spans and the trace must share a clock), and the
+    trace's device copies of those ranges flagged as annotations (the
+    benchmark counts no annotation as device work); each span's host, self
+    and device ms."""
+    import traceback
+    import warnings
+
+    from torch.profiler import ProfilerActivity
+
+    from funcodec_tpu_torch.utils import profiling
+
+    set_flags(MAIN_PATH)
+    pcm = np.round(_speech(17, SYNC_B, SYNC_SECONDS) * 32767).astype(np.int16)
+    ilens = [pcm.shape[1]] * SYNC_B
+
+    def request():
+        return s_bf.collect(s_bf.dispatch(pcm, bit_width=None, pcm16_ilens=ilens), need_sub_quants=False)
+
+    for _ in range(2):  # cuDNN plans and allocations made before the checked request
+        request()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU]):
+        with profiling.span("warm-up"):  # a process's first record_function is slow to enter
+            pass
+    torch.cuda.synchronize()
+    syncs = []
+    show = warnings.showwarning
+
+    def noted(message, category, filename, lineno, file=None, line=None):
+        if SYNC_WARNING not in str(message):
+            return show(message, category, filename, lineno, file, line)
+        s = profiling.current()
+        stack = [f"{Path(f.filename).name}:{f.lineno} {f.name}" for f in traceback.extract_stack(limit=8)[:-1]]
+        syncs.append(dict(span=s and s.name, wait=bool(s and s.wait), at=f"{Path(filename).name}:{lineno}",
+                          stack=stack))
+
+    profiling.clear()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = noted
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                codes, _, recon, _ = request()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    frames = -(-pcm.shape[1] // 320)
+    if codes[0].shape != (32, SYNC_B, frames) or recon.shape != pcm.shape or recon.dtype != np.int16:
+        raise RuntimeError(f"sync: tokens {codes[0].shape}, recon {recon.shape} {recon.dtype}")
+    got = profiling.spans()
+    host_events, device_events = {}, []
+    for ev in prof.profiler.kineto_results.events():
+        if not ev.name().startswith(profiling.SPAN_PREFIX):
+            continue
+        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+            device_events.append(ev)
+        else:
+            host_events.setdefault(ev.name()[len(profiling.SPAN_PREFIX):], []).append(ev)
+    offsets, out_of = [], 0
+    for name in host_events:
+        host_events[name].sort(key=lambda ev: ev.start_ns())
+    for s in sorted(got, key=lambda s: s.t0_ns):
+        ev = host_events[s.name].pop(0)
+        t0, t1 = ev.start_ns(), ev.start_ns() + ev.duration_ns()
+        offsets += [(abs(s.t0_ns - t0), s.name), (abs(s.t1_ns - t1), s.name)]
+        out_of = max(out_of, t0 - s.t0_ns, s.t1_ns - t1)  # the span's stamps are taken inside its event
+    worst, worst_name = max(offsets)
+    median = float(np.median([o for o, _ in offsets]))
+    unflagged = [ev.name() for ev in device_events if not getattr(ev, "is_user_annotation", lambda: False)()]
+    table = {}
+    for s in got:
+        row = table.setdefault(s.name, dict(n=0, host_ms=0.0, self_ms=0.0, device_ms=None, wait=s.wait))
+        row["n"] += 1
+        row["host_ms"] += s.host_ns * 1e-6
+        row["self_ms"] += s.self_ns * 1e-6
+        if s.events is not None:
+            row["device_ms"] = (row["device_ms"] or 0.0) + s.device_ms()
+    for name, row in table.items():
+        log(f"[sync] span {name}: n {row['n']}, host {row['host_ms']:.3f} ms, self {row['self_ms']:.3f} ms, "
+            f"device {row['device_ms'] if row['device_ms'] is None else round(row['device_ms'], 3)} ms"
+            f"{' (wait)' if row['wait'] else ''}")
+    for sync in syncs:
+        log(f"[sync] synchronising call at {sync['at']} in span {sync['span']} (wait {sync['wait']})"
+            + ("" if sync["wait"] else f"; stack {' <- '.join(reversed(sync['stack']))}"))
+    log(f"[sync] {len(syncs)} synchronising calls in one request; spans' stamps {median / 1e3:.1f} us from the "
+        f"trace's events in the median, {worst / 1e3:.1f} us at most ({worst_name}), {out_of / 1e3:.1f} us outside "
+        f"them at most; {len(device_events)} device copies of the spans' ranges, {len(unflagged)} not flagged "
+        f"as annotations")
+    outside = [x for x in syncs if not x["wait"]]
+    if outside:
+        raise RuntimeError(f"sync: synchronising calls outside a wait span: {outside}")
+    # a descheduled or collecting process widens a span's gap to its event, never reverses it
+    if median > SPAN_CLOCK_TOL_NS or out_of > SPAN_CLOCK_TOL_NS:
+        raise RuntimeError(f"sync: spans {median} ns off the trace's events of their names in the median; a span "
+                           f"is {out_of} ns outside its event")
+    if unflagged:
+        raise RuntimeError(f"sync: device copies of the spans' ranges not flagged as annotations: {unflagged[:4]}")
+    profiling.clear()
+    return dict(syncs=syncs, clock_median_ns=median, clock_worst_ns=worst, clock_outside_ns=out_of,
+                device_annotations=len(device_events), spans=table)
 
 
 # ---------------------------------------------------------------------------
@@ -4982,6 +5107,7 @@ def main() -> int:
     rvq_err = rvq_kernel_phase(dev)
     seanet_errs = seanet_kernel_phase(dev, calls)
     counts, flips = serving_phase(config, s_bf, s_fp)
+    sync = sync_phase(dev, s_bf)
     probe_rows, probe_launches, probe_plain, ceiling = probe_phase(dev, card)
     cli_stats = cli_phase(dev, config, s_fp, card)
     rvq_row, conv_rows, rb_rows, fin_row, serving = timing_phase(dev, s_bf, s_fp, calls, card, ceiling)
@@ -5007,7 +5133,7 @@ def main() -> int:
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "timings.json").write_text(json.dumps(dict(
         card=card, rvq=rvq_row, conv=conv_rows, resblock=rb_rows, resblock_finalize=fin_row, serving_seconds=serving,
-        flips=flips, launches=counts, probe=probe_rows, probe_launches=probe_launches,
+        flips=flips, launches=counts, sync=sync, probe=probe_rows, probe_launches=probe_launches,
         copy_ceiling_bytes_per_s=ceiling, cli=cli_stats, training=dict(
             configs=train_results, launches=train_counts, fused_gradients=fused_grads, backward=backward_rows,
             backward_max_relative_error=backward_errs, forward_max_abs_error=train_fwd_errs,

@@ -10,9 +10,12 @@ to run on the CPU), or with ``data_parallel`` N one model replica on each of
 N cards (or on an explicit ``devices`` list), each serving a contiguous
 block of every batch's rows. Utterances are length-sorted into wrap-padded buckets;
 CUDA work is queued asynchronously, so the main thread dispatches batch i+1
-before it collects batch i (``collect`` is the only synchronising copy),
-while a reader pool decodes the next batches and a writer thread and wav pool
-write the last ones.
+before it collects batch i, while a reader pool decodes the next batches and
+a writer thread and wav pool write the last ones. Two copies synchronise:
+``collect``'s to the host, and with ``pcm16_ilens`` the upload of the valid
+lengths in ``pcm16``, which waits for the batch's own encode and decode.
+Each layer is a span of ``utils/profiling.py``, seen in any
+``torch.profiler`` trace as ``funcodec::<layer>``.
 
     python -m funcodec_tpu_torch.cli.codec_inference --device cpu \\
         --config_file conf.yaml --model_file model.pth --output_dir out \\
@@ -44,6 +47,7 @@ from funcodec_tpu_torch.data.wav_io import (
 )
 from funcodec_tpu_torch.tasks.codec import build_codec_model, load_config, resolve_device
 from funcodec_tpu_torch.train.checkpoint import load_codec_weights
+from funcodec_tpu_torch.utils.profiling import span
 
 _UNSET = object()
 RUN_MODS = ("inference", "encode", "decode", "decode_emb")
@@ -98,44 +102,46 @@ class Speech2Token:
     ):
         if dtype not in ("float32", "bfloat16"):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
-        if isinstance(config_file, Mapping):
-            self.config = dict(config_file)
-        else:
-            self.config = load_config(config_file)
-        if devices is not None:
-            self.devices = [resolve_device(d) for d in devices]
-            if not self.devices:
-                raise ValueError("devices names no device")
-        else:
-            dev = resolve_device(device)
-            n = _clamp_data_parallel(data_parallel, dev)
-            self.devices = [dev] if n == 1 else [torch.device("cuda", i) for i in range(n)]
-        self.device = self.devices[0]
-        self.data_parallel = len(self.devices)
-        self.sampling_rate = sampling_rate
-        self.bit_width = bit_width
-        self.dtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
-        if self.dtype == torch.float32:
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+        with span("init", always=True):  # build, random init, load, cast
+            if isinstance(config_file, Mapping):
+                self.config = dict(config_file)
+            else:
+                self.config = load_config(config_file)
+            if devices is not None:
+                self.devices = [resolve_device(d) for d in devices]
+                if not self.devices:
+                    raise ValueError("devices names no device")
+            else:
+                dev = resolve_device(device)
+                n = _clamp_data_parallel(data_parallel, dev)
+                self.devices = [dev] if n == 1 else [torch.device("cuda", i) for i in range(n)]
+            self.device = self.devices[0]
+            self.data_parallel = len(self.devices)
+            self.sampling_rate = sampling_rate
+            self.bit_width = bit_width
+            self.dtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+            if self.dtype == torch.float32:
+                torch.backends.cuda.matmul.allow_tf32 = False
+                torch.backends.cudnn.allow_tf32 = False
 
-        generator = torch.Generator(device=self.device).manual_seed(INIT_SEED)
-        self.model, _ = build_codec_model(self.config, device=self.device, generator=generator)
-        if model_file and os.path.exists(model_file):
-            load_codec_weights(model_file, self.model)
-        else:
-            logging.warning("no model file %s; random init (seed %d)", model_file, INIT_SEED)
-        self.model.eval()
-        if self.dtype == torch.bfloat16:
-            # parameters only: the codebooks stay fp32 buffers. torch leaves
-            # bf16 LSTM weights unflattened (cudnn.is_acceptable excludes
-            # bf16), so cuDNN compacts them on each call and warns.
-            with torch.no_grad():
-                for p in self.model.parameters():
-                    p.data = p.data.to(torch.bfloat16)
-        # a copy of its own on every other device (on the same card too: the
-        # kernels' packed weights are cached on each replica's tensors)
-        self.replicas = [self.model] + [copy.deepcopy(self.model).to(d) for d in self.devices[1:]]
+            generator = torch.Generator(device=self.device).manual_seed(INIT_SEED)
+            self.model, _ = build_codec_model(self.config, device=self.device, generator=generator)
+            if model_file and os.path.exists(model_file):
+                load_codec_weights(model_file, self.model)
+            else:
+                logging.warning("no model file %s; random init (seed %d)", model_file, INIT_SEED)
+            self.model.eval()
+            if self.dtype == torch.bfloat16:
+                # parameters only: the codebooks stay fp32 buffers. torch leaves
+                # bf16 LSTM weights unflattened (cudnn.is_acceptable excludes
+                # bf16), so cuDNN compacts them on each call and warns.
+                with torch.no_grad():
+                    for p in self.model.parameters():
+                        p.data = p.data.to(torch.bfloat16)
+            # a copy of its own on every other device (on the same card too: the
+            # kernels' packed weights are cached on each replica's tensors)
+            self.replicas = [self.model] + [copy.deepcopy(self.model).to(d) for d in self.devices[1:]]
+        self._requests = 0  # dispatch()'s batch counter: the request id of its spans
 
     @property
     def hop_length(self) -> int:
@@ -187,23 +193,28 @@ class Speech2Token:
             raise ValueError(run_mod)
         if bit_width is _UNSET:
             bit_width = self.bit_width
-        if len(self.replicas) == 1:
-            return self._dispatch(self.model, self.device, speech, need_recon, bit_width, use_scale, run_mod,
-                                  pcm16_ilens)
-        n, rows = len(self.replicas), len(speech)
-        pad = (-rows) % n
-        if pad:
-            if isinstance(speech, torch.Tensor):
-                speech = torch.cat([speech, speech[-1:].expand(pad, *speech.shape[1:])])
+        self._requests += 1
+        with span("dispatch", request_id=self._requests):
+            if len(self.replicas) == 1:
+                out = self._dispatch(self.model, self.device, speech, need_recon, bit_width, use_scale, run_mod,
+                                     pcm16_ilens)
             else:
-                speech = np.concatenate([speech, np.repeat(np.asarray(speech)[-1:], pad, axis=0)])
-            if pcm16_ilens is not None:
-                pcm16_ilens = list(pcm16_ilens) + [pcm16_ilens[-1]] * pad
-        b = len(speech) // n
-        outs = [self._dispatch(m, d, speech[i * b:(i + 1) * b], need_recon, bit_width, use_scale, run_mod,
-                               None if pcm16_ilens is None else pcm16_ilens[i * b:(i + 1) * b])
-                for i, (m, d) in enumerate(zip(self.replicas, self.devices))]
-        return {"_replicas": outs, "_row_pad": pad, "_rows": rows}
+                n, rows = len(self.replicas), len(speech)
+                pad = (-rows) % n
+                if pad:
+                    if isinstance(speech, torch.Tensor):
+                        speech = torch.cat([speech, speech[-1:].expand(pad, *speech.shape[1:])])
+                    else:
+                        speech = np.concatenate([speech, np.repeat(np.asarray(speech)[-1:], pad, axis=0)])
+                    if pcm16_ilens is not None:
+                        pcm16_ilens = list(pcm16_ilens) + [pcm16_ilens[-1]] * pad
+                b = len(speech) // n
+                outs = [self._dispatch(m, d, speech[i * b:(i + 1) * b], need_recon, bit_width, use_scale, run_mod,
+                                       None if pcm16_ilens is None else pcm16_ilens[i * b:(i + 1) * b])
+                        for i, (m, d) in enumerate(zip(self.replicas, self.devices))]
+                out = {"_replicas": outs, "_row_pad": pad, "_rows": rows}
+        out["_request_id"] = self._requests  # collect()'s spans carry it
+        return out
 
     def _dispatch(self, model, device, speech, need_recon, bit_width, use_scale, run_mod, pcm16_ilens):
         """One replica's share of dispatch()."""
@@ -212,14 +223,19 @@ class Speech2Token:
                 nq = None
                 if bit_width is not None:
                     nq = int(max(bit_width // self.bits_per_quant, 1))
-                out = model.inference_decoding(self._to_device(speech, device, torch.int64)[:, :, :nq])
+                with span("h2d", device=device):
+                    tokens = self._to_device(speech, device, torch.int64)[:, :, :nq]
+                out = model.inference_decoding(tokens)
             elif run_mod == "decode_emb":
-                out = model.inference_decoding_emb(self._to_device(speech, device))
+                with span("h2d", device=device):
+                    emb = self._to_device(speech, device)
+                out = model.inference_decoding_emb(emb)
             else:
-                x = self._to_device(speech, device)
-                if x.dtype == torch.int16:
-                    x = x.float() * (1.0 / 32768.0)
-                x = x.to(self.dtype)
+                with span("h2d", device=device):
+                    x = self._to_device(speech, device)
+                    if x.dtype == torch.int16:
+                        x = x.float() * (1.0 / 32768.0)
+                    x = x.to(self.dtype)
                 if run_mod == "inference":
                     out = model.inference(x, need_recon=need_recon, bit_width=bit_width, use_scale=use_scale)
                 else:
@@ -238,19 +254,28 @@ class Speech2Token:
         PCM if the batch was dispatched with pcm16_ilens, else float32 (B, T).
         The replicas' blocks are joined in row order (the code embeddings on
         the first replica's device) and the pad rows stripped."""
+        with span("collect", request_id=out.get("_request_id")):
+            return Speech2Token._collect(out, need_sub_quants)
+
+    @staticmethod
+    def _collect(out: Dict[str, Any], need_sub_quants: bool):
         if "_replicas" in out:
-            return _joined([Speech2Token.collect(o, need_sub_quants) for o in out["_replicas"]], out["_rows"])
+            return _joined([Speech2Token._collect(o, need_sub_quants) for o in out["_replicas"]], out["_rows"])
         codes = out.get("code_indices")
         if codes is not None and codes[0] is not None:
-            codes = [c.cpu().numpy().astype(np.int32) for c in codes]
+            with span("d2h", wait=True):  # each copy waits for the batch's work on the device
+                codes = [c.cpu().numpy().astype(np.int32) for c in codes]
         recon = out.get("recon_pcm16")
         if recon is not None:
-            recon = recon.cpu().numpy()
+            with span("d2h", wait=True):
+                recon = recon.cpu().numpy()
         elif out.get("recon_speech") is not None:
-            recon = out["recon_speech"].float().cpu().numpy()
+            with span("d2h", wait=True):
+                recon = out["recon_speech"].float().cpu().numpy()
         sub_quants = out.get("sub_quants") if need_sub_quants else None
         if sub_quants is not None and sub_quants[0] is not None:
-            sub_quants = [s.float().cpu().numpy() for s in sub_quants]
+            with span("d2h", wait=True):
+                sub_quants = [s.float().cpu().numpy() for s in sub_quants]
         return codes, out.get("code_embeddings"), recon, sub_quants
 
     def __call__(
@@ -307,13 +332,15 @@ def _joined(parts, n: int):
 def pcm16(recon: torch.Tensor, ilens) -> torch.Tensor:
     """save_audio(rescale=True) on the device: per-utterance peak over the
     valid samples only, scaled down to |x| <= 0.99, rounded to int16."""
-    r = recon.float()
-    n = torch.as_tensor(np.asarray(ilens, np.int64), device=r.device)
-    mask = torch.arange(r.shape[1], device=r.device)[None, :] < n[:, None]
-    peak = (r.abs() * mask).amax(dim=1, keepdim=True)
-    scale = torch.where(peak > 0.99, 0.99 / peak.clamp_min(1e-12), torch.ones_like(peak))
-    q = torch.round(r * scale * 32767.0)
-    return q.clamp(-32768, 32767).to(torch.int16)
+    with span("pcm16", device=recon.device):
+        r = recon.float()
+        with span("pcm16.lengths", wait=True):  # a blocking copy from pageable memory
+            n = torch.as_tensor(np.asarray(ilens, np.int64), device=r.device)
+        mask = torch.arange(r.shape[1], device=r.device)[None, :] < n[:, None]
+        peak = (r.abs() * mask).amax(dim=1, keepdim=True)
+        scale = torch.where(peak > 0.99, 0.99 / peak.clamp_min(1e-12), torch.ones_like(peak))
+        q = torch.round(r * scale * 32767.0)
+        return q.clamp(-32768, 32767).to(torch.int16)
 
 
 def _bucket_length(t: int, hop: int, quantum: int = 16) -> int:

@@ -26,6 +26,8 @@ import time
 from pathlib import Path
 from typing import Dict, Optional
 
+from funcodec_tpu_torch.utils.profiling import span
+
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
@@ -129,10 +131,11 @@ def load() -> ctypes.CDLL:
     """The kernels' shared library, built at first use."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, (restype, argtypes) in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.restype, fn.argtypes = restype, argtypes
+        with span("kernels.load", always=True):  # nvcc unless cached, then dlopen
+            lib = ctypes.CDLL(str(build()))
+            for name, (restype, argtypes) in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.restype, fn.argtypes = restype, argtypes
         _lib = lib
     return _lib
 

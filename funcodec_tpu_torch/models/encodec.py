@@ -36,6 +36,7 @@ from funcodec_tpu_torch.models.seanet import SEANetDecoder, SEANetEncoder
 from funcodec_tpu_torch.ops.stft import audio_to_mel, phase_aug
 from funcodec_tpu_torch.parallel.dist import DataGroup, global_mean
 from funcodec_tpu_torch.quant.rvq import RVQTensors
+from funcodec_tpu_torch.utils.profiling import span
 
 Discriminator = Union[nn.Module, Callable[[torch.Tensor], List[Tuple[torch.Tensor, List[torch.Tensor]]]]]
 
@@ -176,17 +177,22 @@ class Encodec(nn.Module):
     ) -> Dict[str, Any]:
         """Full encode -> quantize -> decode."""
         codes, code_idxs, all_sub_quants = [], [], []
-        for emb, scale in self._encode(speech):
+        with span("encode", device=speech.device):
+            frames = self._encode(speech)
+        for emb, scale in frames:
             if self.cfg.bypass_quantizer:
                 code_embs, indices, sub_quants = emb, None, None
             else:
-                code_embs, indices, sub_quants = self.quantizer.inference(emb, bandwidth=bit_width)
+                with span("quantize", device=speech.device):
+                    code_embs, indices, sub_quants = self.quantizer.inference(emb, bandwidth=bit_width)
             codes.append((code_embs, scale if use_scale else None))
             code_idxs.append(indices)
             all_sub_quants.append(sub_quants)
         recon = None
         if need_recon:
-            recon = self._decode(codes)[..., : speech.shape[-1]]
+            with span("decode", device=speech.device):
+                recon = self._decode(codes)
+            recon = recon[..., : speech.shape[-1]]
         return dict(
             recon_speech=recon,
             code_indices=code_idxs,
@@ -203,26 +209,36 @@ class Encodec(nn.Module):
     ) -> Dict[str, Any]:
         """Encode to token ids with the greedy fp32 encode path."""
         codes, code_idxs = [], []
-        for emb, scale in self._encode(speech):
-            indices = self.quantizer.encode(emb, bandwidth=bit_width)
+        with span("encode", device=speech.device):
+            frames = self._encode(speech)
+        for emb, scale in frames:
+            with span("quantize", device=speech.device):
+                indices = self.quantizer.encode(emb, bandwidth=bit_width)
+                if need_recon:
+                    codes.append((self.quantizer.decode(indices), scale if use_scale else None))
             code_idxs.append(indices)
-            if need_recon:
-                codes.append((self.quantizer.decode(indices), scale if use_scale else None))
         recon = None
         if need_recon:
-            recon = self._decode(codes)[..., : speech.shape[-1]]
+            with span("decode", device=speech.device):
+                recon = self._decode(codes)
+            recon = recon[..., : speech.shape[-1]]
         return dict(recon_speech=recon, code_indices=code_idxs, code_embeddings=codes)
 
     def inference_decoding(self, token_idx: torch.Tensor, need_recon: bool = True) -> Dict[str, Any]:
         """Token ids (B, T, n_q) -> waveform; no scale at decode."""
         tokens = token_idx.permute(2, 0, 1)  # (n_q, B, T)
-        codes = [(self.quantizer.decode(tokens), None)]
-        recon = self._decode(codes) if need_recon else None
+        with span("quantize", device=token_idx.device):
+            codes = [(self.quantizer.decode(tokens), None)]
+        recon = None
+        if need_recon:
+            with span("decode", device=token_idx.device):
+                recon = self._decode(codes)
         return dict(recon_speech=recon, code_indices=None, code_embeddings=codes)
 
     def inference_decoding_emb(self, emb: torch.Tensor) -> Dict[str, Any]:
         """Dense code embeddings (B, T, D) -> waveform."""
-        recon = self._decode([(emb, None)])
+        with span("decode", device=emb.device):
+            recon = self._decode([(emb, None)])
         return dict(recon_speech=recon, code_indices=None, code_embeddings=[(emb, None)])
 
     # -- training forwards ----------------------------------------------------
