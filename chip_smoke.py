@@ -51,6 +51,12 @@ In phases that each raise on failure:
    served twice gives identical tokens. Token flip rates between the
    paths and against the fp32-exact path; the fp32 path on the card
    against the same model on the CPU for a short clip.
+   Then the post-norm check (ops/tgn_kernel.py): one B = 64 x 97,280-sample
+   main-path request (the benchmark cell's batch) counts 12 time_group_norms
+   outside the blocks, a forward with grad none; each of the 12 calls' inputs,
+   in bf16 and fp32, against the plain version (bf16 within one bf16 ulp of
+   the output's scale), timed against its bytes bound and against the ATen
+   chain it replaces; two FreqCodec gr8 2D norms against the plain version.
    Then the sync check: one B = 64 x 5.825 s main-path request (int16 in,
    PCM16 out, as the benchmark serves it) under
    torch.cuda.set_sync_debug_mode("warn") with a profiler active; every
@@ -95,7 +101,9 @@ In phases that each raise on failure:
    version at every flagship training shape (the four head convs, the
    eight residual blocks) in fp32 and bf16, timed; one fp32 two-forward
    step at B = 2 on the card against the CPU from the same weights (stats
-   and per-module gradient norms); and ms a step, training audio-s/s and
+   and per-module gradient norms; the CPU's codebook searches take the
+   card's codes, its own choices differing only at near-ties); and ms a
+   step, training audio-s/s and
    peak memory of the four configurations at B = 16 and of the bf16 shared
    step at B = 64, steady state (initialized codebooks).
 9. trainer: the training entry point, cli/codec_train.main, on the flagship
@@ -299,7 +307,7 @@ from funcodec_tpu_torch.models.seanet import (  # noqa: E402
     make_layer,
 )
 from funcodec_tpu_torch.models.streaming import StreamingCodecSession  # noqa: E402
-from funcodec_tpu_torch.ops import conv_kernel, copy_kernel, resblock_kernel  # noqa: E402
+from funcodec_tpu_torch.ops import conv_kernel, copy_kernel, resblock_kernel, tgn_kernel  # noqa: E402
 from funcodec_tpu_torch.ops.fbank import WavFrontend  # noqa: E402
 from funcodec_tpu_torch.ops.pad import conv_padding_total, pad1d_time, split_padding  # noqa: E402
 from funcodec_tpu_torch.quant import rvq_kernel  # noqa: E402
@@ -331,16 +339,20 @@ MAX_FLIP_ALL = 0.5
 PEAK_BF16, PEAK_FP32 = 989e12, 67e12  # PEAK_BYTES (3.35 TB/s) comes from tools/benchlib
 CARD = torch.device("cuda", 0)
 # kernel launches per request with the gates of ops/conv_kernel and ops/resblock_kernel:
-# 4 head convs + 8 resblock k3 convs; or the 4 head convs and 8 blocks x (3 passes + 2 finalizes)
+# 4 head convs + 8 resblock k3 convs; or the 4 head convs and 8 blocks x (3 passes + 2 finalizes);
+# and the time_group_norms outside the fused blocks (ops/tgn_kernel, taken whatever the flags
+# wherever no grad is needed): the 12 convs outside the blocks, + 8 blocks x 3 when unfused
 EXPECT = {
-    "unfused": {"conv1d_s1": 0, "resblock_tgn": 0, "resblock_tgn_finalize": 0, "rvq_encode": 1},
-    "stride1": {"conv1d_s1": 12, "resblock_tgn": 0, "resblock_tgn_finalize": 0, "rvq_encode": 1},
-    "stride1+resblock": {"conv1d_s1": 4, "resblock_tgn": 24, "resblock_tgn_finalize": 16, "rvq_encode": 1},
+    "unfused": {"conv1d_s1": 0, "resblock_tgn": 0, "resblock_tgn_finalize": 0, "rvq_encode": 1, "tgn_norm": 36},
+    "stride1": {"conv1d_s1": 12, "resblock_tgn": 0, "resblock_tgn_finalize": 0, "rvq_encode": 1, "tgn_norm": 36},
+    "stride1+resblock": {"conv1d_s1": 4, "resblock_tgn": 24, "resblock_tgn_finalize": 16, "rvq_encode": 1,
+                         "tgn_norm": 12},
 }
 FLAGS = {"unfused": (False, False), "stride1": (True, False), "stride1+resblock": (True, True)}
 MAIN_PATH = "stride1+resblock"
 COUNTERS = {"conv1d_s1": (conv_kernel, "LAUNCHES"), "resblock_tgn": (resblock_kernel, "LAUNCHES"),
-            "resblock_tgn_finalize": (resblock_kernel, "FINALIZE_LAUNCHES"), "rvq_encode": (rvq_kernel, "LAUNCHES")}
+            "resblock_tgn_finalize": (resblock_kernel, "FINALIZE_LAUNCHES"), "rvq_encode": (rvq_kernel, "LAUNCHES"),
+            "tgn_norm": (tgn_kernel, "LAUNCHES")}
 
 
 def log(*args) -> None:
@@ -837,6 +849,130 @@ def serving_phase(config, s_bf, s_fp):
 
 
 # ---------------------------------------------------------------------------
+# post-norm phase
+# ---------------------------------------------------------------------------
+
+POSTNORM_B, POSTNORM_SAMPLES = 64, 97_280  # the benchmark cell's batch: 64 x 5.825 s in the 16-frame bucket
+POSTNORM_ITERS = 20
+FP32_NORM_REL = 2.0**-20  # fp32 kernel vs plain version, of the output's scale: the statistics' rounding only
+
+
+@contextlib.contextmanager
+def _recorded_norms():
+    """Record every tgn kernel call made inside the block (ops/conv.py calls
+    time_group_norm by name): [(x, gamma, beta, trim)], the tensors held."""
+    calls, inner = [], conv_ops.time_group_norm
+
+    def wrapper(x, gamma, beta, trim=(0, 0)):
+        calls.append((x, gamma, beta, tuple(trim)))
+        return inner(x, gamma, beta, trim)
+
+    conv_ops.time_group_norm = wrapper
+    try:
+        yield calls
+    finally:
+        conv_ops.time_group_norm = inner
+
+
+def _aten_norm(x, gamma, beta, trim):
+    """The chain the kernels replace, as the serving path ran it: an fp32
+    copy, the affine cast, ATen's group norm, the cast back, and a trimmed
+    output's copy to contiguous (the next resblock kernel made it)."""
+    y = F.group_norm(x.float(), 1, gamma.float(), beta.float(), eps=1e-5).to(x.dtype)
+    return y[..., trim[0]: y.shape[-1] - trim[1]].contiguous() if any(trim) else y
+
+
+def _held_norm(what: str, x, gamma, beta, trim) -> float:
+    """The kernels against the plain version on one call's inputs: bf16
+    within one bf16 ulp of the output's scale, fp32 within FP32_NORM_REL;
+    returns max|err|."""
+    y = tgn_kernel.time_group_norm(x, gamma, beta, trim)
+    ref = tgn_kernel.time_group_norm_reference(x, gamma, beta, trim)
+    err = float((y.float() - ref.float()).abs().max())
+    scale = float(ref.float().abs().max())
+    tol = 2.0 ** (math.floor(math.log2(scale)) - 7) if x.dtype == torch.bfloat16 else FP32_NORM_REL * scale
+    if y.shape != ref.shape or not y.is_contiguous() or not err <= tol:
+        raise RuntimeError(f"post-norm {what}: {tuple(y.shape)} against {tuple(ref.shape)}, max|err| {err:.3e} "
+                           f"(limit {tol:.3e})")
+    return err
+
+
+def postnorm_phase(dev, s_bf, card: str) -> dict:
+    """The time_group_norms outside the residual blocks (ops/tgn_kernel.py)
+    at the benchmark cell's shapes: one B = 64 x 97,280-sample request on the
+    main path (12 norms, 6 in encode, 6 in decode, by the launch counter;
+    none on the grad path), each norm's inputs in bf16 and in fp32 against the
+    plain version, timed against its bound (bytes: x read twice, y written
+    once) and against the ATen chain it replaces; two FreqCodec gr8 2D norms
+    against the plain version."""
+    set_flags(MAIN_PATH)
+    x = _speech(90, POSTNORM_B, POSTNORM_SAMPLES / SR)
+    _sync(dev)
+    reset_counts()
+    with _recorded_norms() as calls:
+        s_bf(x, bit_width=None)
+    _sync(dev)
+    counts = read_counts()
+    if counts != EXPECT[MAIN_PATH] or len(calls) != EXPECT[MAIN_PATH]["tgn_norm"]:
+        raise RuntimeError(f"post-norm: a B = {POSTNORM_B} request launched {counts} over {len(calls)} norm calls, "
+                           f"expected {EXPECT[MAIN_PATH]}")
+    enc = s_bf.model.encoder.model[0]
+    with torch.no_grad():
+        wav = torch.from_numpy(x[:2]).to(dev, torch.bfloat16)[:, None, :]
+        reset_counts()
+        enc(wav)
+        no_grad_launches = tgn_kernel.LAUNCHES
+    with torch.enable_grad():
+        reset_counts()
+        enc(wav.float().requires_grad_(True).to(torch.bfloat16))
+        grad_launches = tgn_kernel.LAUNCHES
+    if no_grad_launches != 1 or grad_launches != 0:
+        raise RuntimeError(f"post-norm: the head conv launched {no_grad_launches} norms without grad, "
+                           f"{grad_launches} with grad (expected 1 and 0)")
+    rows, worst = [], {}
+    for i, (y, gamma, beta, trim) in enumerate(calls):
+        for dtype in (torch.bfloat16, torch.float32):
+            xd = y.to(dtype)
+            g, b = gamma.to(dtype), beta.to(dtype)
+            tag = f"{i} {tuple(y.shape)} trim {trim} {str(dtype)[6:]}"
+            err = _held_norm(tag, xd, g, b, trim)
+            worst[str(dtype)[6:]] = max(worst.get(str(dtype)[6:], 0.0), err)
+            ab = _ab_ms(lambda: tgn_kernel.time_group_norm(xd, g, b, trim), lambda: _aten_norm(xd, g, b, trim),
+                        POSTNORM_ITERS)
+            ms, aten_ms = ab[0], ab[1]
+            plain_ms = _cuda_ms(lambda: tgn_kernel.time_group_norm_reference(xd, g, b, trim), 2)
+            n_out = xd.numel() // xd.shape[-1] * (xd.shape[-1] - sum(trim))
+            bound = _bound((2 * xd.numel() + n_out) * xd.element_size(), 0.0, PEAK_BF16)
+            rows.append(_row(f"tgn_norm {tag}", ms, plain_ms, bound, library_ms=aten_ms, max_abs_err=err,
+                             dtype=str(dtype)[6:], shape=list(y.shape), trim=list(trim)))
+            log(f"[postnorm] {tag}: {ms:.4f} ms (bound {bound[0]:.4f}, {bound[0] / ms:.3f} of it), ATen chain "
+                f"{aten_ms:.4f} ms (turns {_ab_text(ab)}), plain {plain_ms:.3f} ms, max|err| {err:.3e}")
+    del calls
+    totals = {}
+    for dtype in ("bfloat16", "float32"):
+        sel = [r for r in rows if r["dtype"] == dtype]
+        totals[dtype] = {k: sum(r[k] for r in sel) for k in ("ms", "bound_ms", "library_ms", "plain_ms")}
+        t = totals[dtype]
+        log(f"[postnorm] the cell's 12 norms at B = {POSTNORM_B} x {POSTNORM_SAMPLES} samples, {dtype}: "
+            f"{t['ms']:.3f} ms a batch (bound {t['bound_ms']:.3f}, {t['bound_ms'] / t['ms']:.3f} of it), ATen chain "
+            f"{t['library_ms']:.3f} ms, plain {t['plain_ms']:.3f} ms ({card})")
+    freq = build_freq(dev, 8, "bfloat16")
+    _freq_flags(FREQ_MAIN)
+    with _recorded_norms() as fcalls:
+        freq(_speech(91, 2, 2.0), bit_width=None)
+    two_d = [c for c in fcalls if c[0].dim() == 4]
+    picked = [two_d[0], max(two_d, key=lambda c: c[0].numel())]
+    freq_errs = [_held_norm(f"freq gr8 {tuple(c[0].shape)}", *c) for c in picked]
+    _freq_flags("none")
+    del freq, fcalls, two_d
+    log(f"[postnorm] freq gr8: 2D norms {[tuple(c[0].shape) for c in picked]} against the plain version, max|err| "
+        f"{freq_errs}; launches a B = {POSTNORM_B} request {counts['tgn_norm']}, a grad forward 0")
+    torch.cuda.empty_cache()
+    return dict(rows=rows, totals=totals, max_abs_err=worst, freq_max_abs_err=max(freq_errs),
+                launches=counts["tgn_norm"])
+
+
+# ---------------------------------------------------------------------------
 # sync phase
 # ---------------------------------------------------------------------------
 
@@ -1028,7 +1164,8 @@ REPLACES = {
 CLI_DIR = OUT_DIR / "cli"
 CLI_BATCH, CLI_BIT_WIDTH = 16, 16_000  # 32 quantizers
 CLI_UTTS, CLI_SECONDS = 32, (1.0, 12.0)  # the corpus: utterances of uniformly drawn length
-DECODE_PER_BATCH = {"conv1d_s1": 2, "resblock_tgn": 12, "resblock_tgn_finalize": 8, "rvq_encode": 0}  # the decoder's half of EXPECT
+DECODE_PER_BATCH = {"conv1d_s1": 2, "resblock_tgn": 12, "resblock_tgn_finalize": 8, "rvq_encode": 0,
+                    "tgn_norm": 6}  # the decoder's half of EXPECT
 MIN_FP32_AGREE = 0.999
 
 
@@ -1200,9 +1337,12 @@ TRAIN_CONFIGS = {
 TRAIN_FUSED = "bf16 shared_train_step fused"
 # launches of one shared step (or one generator turn) with both SEANet flags:
 # the generator's encode and decode once, forward only (the backwards launch
-# none; training searches codebooks with the plain fp32 scan, not rvq_encode)
-TRAIN_EXPECT = {**EXPECT[MAIN_PATH], "rvq_encode": 0}
+# none; training searches codebooks with the plain fp32 scan, not rvq_encode;
+# its norms need grad, so ATen's group norm runs them)
+TRAIN_EXPECT = {**EXPECT[MAIN_PATH], "rvq_encode": 0, "tgn_norm": 0}
 TRAIN_NONE = dict.fromkeys(TRAIN_EXPECT, 0)
+# the two-forward step's discriminator turn runs the (unfused) generator without grad
+TWO_FORWARD_EXTRA = {"tgn_norm": EXPECT["unfused"]["tgn_norm"]}
 GEN_PARAMS = 14_855_843  # the flagship's generator in both packages (tests/test_torch_encodec.py)
 # the generator's gradients with both SEANet flags against without, relative L2
 # over all of them. In fp32 the forwards agree to rounding, so a token flips only
@@ -1216,6 +1356,7 @@ FUSED_GRAD_FP32_REL, FUSED_GRAD_BF16_FACTOR, FUSED_GRAD_BF16_MIN = 1e-2, 1.5, 0.
 # branches', which at init cancel to about 1/460 of either (CPU, fp32 against fp64:
 # 3e-6), so rounding at 1e-5 of a branch is about 0.5% of it
 CARD_CPU_REL, CARD_CPU_DISC_REL = 1e-3, 2e-2
+CARD_CPU_NEAR_TIE = 1e-4  # a code the CPU would choose otherwise: the two distances' gap, of |x|^2
 # the fused backwards against autograd through their plain versions, relative to the
 # largest gradient: fp32 summation order; bf16 the plain version's bf16 casts
 BACKWARD_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -1285,8 +1426,9 @@ def training_phase(dev):
             before = read_counts()
             state, stats = step(state, {"speech": speech}, gen)
             launched = {k: v - before[k] for k, v in read_counts().items()}
-            if launched != (TRAIN_EXPECT if fused else TRAIN_NONE):
-                raise RuntimeError(f"training {name} step {i}: launches {launched}")
+            expect = {**(TRAIN_EXPECT if fused else TRAIN_NONE), **({} if shared else TWO_FORWARD_EXTRA)}
+            if launched != expect:
+                raise RuntimeError(f"training {name} step {i}: launches {launched}, expected {expect}")
             per_step.append(_floats(stats))
             if i == 0:
                 # only the layers below the depth drawn for this step initialize
@@ -1378,21 +1520,65 @@ def _module_norms(model, disc, speech, gen):
     return {k: v ** 0.5 for k, v in norms.items()}, out["stats"]
 
 
+@contextlib.contextmanager
+def _codebook_searches(forced=None):
+    """Record each codebook search inside the block (quant/rvq.py calls
+    nearest_codebook_indices by name): [(x, embed, its own codes)]. With
+    `forced`, the i-th search returns forced[i]'s codes in place of its own."""
+    calls, inner = [], rvq.nearest_codebook_indices
+
+    def wrapper(x, embed):
+        own = inner(x, embed)
+        calls.append((x.detach().float().clone(), embed.detach().float().clone(), own))  # the caller may update both in place
+        return own if forced is None else forced[len(calls) - 1][2].to(own.device)
+
+    rvq.nearest_codebook_indices = wrapper
+    try:
+        yield calls
+    finally:
+        rvq.nearest_codebook_indices = inner
+
+
+def _forced_flips(forced, own_calls):
+    """(codes where a search's own choice differs from the forced one, the
+    largest distance gap |d(x, e_own) - d(x, e_forced)| / |x|^2 between them, fp64)."""
+    flips, gap = 0, 0.0
+    for (_, _, want), (x, embed, own) in zip(forced, own_calls):
+        want = want.to(own.device)
+        for j in (own != want).nonzero().flatten().tolist():
+            r = x[j].double()
+            d = [float(((r - embed[int(c[j])].double()) ** 2).sum()) for c in (own, want)]
+            flips, gap = flips + 1, max(gap, abs(d[0] - d[1]) / max(float((r * r).sum()), 1e-30))
+    return flips, gap
+
+
 def card_cpu_phase(dev):
     """One fp32 two-forward step (no draws) at B = 2 x 2.56 s on the card and
-    on the CPU from the same weights: stats and per-module gradient norms."""
+    on the CPU from the same weights: stats and per-module gradient norms.
+    The CPU's codebook searches return the card's codes (a code that flips at
+    a near-tie moves the step's losses by far more than rounding), and each
+    search's own choice may differ from the card's only at a near-tie."""
     states = {"cuda": build_trainer(dev, False, None, **NO_DRAWS)}
     states["cpu"] = build_trainer(torch.device("cpu"), False, None, **NO_DRAWS)
     for m in ("model", "discriminator"):
         getattr(states["cpu"][0], m).load_state_dict(getattr(states["cuda"][0], m).state_dict())
     speech = _train_speech(torch.device("cpu"), 2, seed=42)
-    got = {}
+    got, searches = {}, {}
     for tag, (state, step) in states.items():
         x = speech.to(state.gen_loss_carry.device)
         t0 = time.perf_counter()
-        norms, _ = _module_norms(state.model, state.discriminator, x, torch.Generator(device=x.device))
-        _, stats = step(state, {"speech": x}, torch.Generator(device=x.device))
+        with _codebook_searches(forced=searches.get("cuda")) as searches[tag]:
+            norms, _ = _module_norms(state.model, state.discriminator, x, torch.Generator(device=x.device))
+            _, stats = step(state, {"speech": x}, torch.Generator(device=x.device))
         got[tag] = (norms, _floats(stats), time.perf_counter() - t0)
+    if len(searches["cpu"]) != len(searches["cuda"]):
+        raise RuntimeError(f"fp32 step card vs CPU: {len(searches['cuda'])} codebook searches on the card, "
+                           f"{len(searches['cpu'])} on the CPU")
+    flips, gap = _forced_flips(searches["cuda"], searches["cpu"])
+    n_codes = sum(c[2].numel() for c in searches["cpu"])
+    if gap > CARD_CPU_NEAR_TIE:
+        raise RuntimeError(f"fp32 step card vs CPU: {flips} of {n_codes} codes differ, the largest distance gap "
+                           f"{gap:.3e} is past {CARD_CPU_NEAR_TIE:.0e}")
     worst = {"generator": 0.0, "discriminator": 0.0}
     for key in list(got["cpu"][0]) + list(got["cpu"][1]):
         a = got["cuda"][0].get(key, got["cuda"][1].get(key))
@@ -1402,11 +1588,14 @@ def card_cpu_phase(dev):
         worst["discriminator" if disc else "generator"] = max(worst["discriminator" if disc else "generator"], rel)
         if rel > (CARD_CPU_DISC_REL if disc else CARD_CPU_REL):
             raise RuntimeError(f"fp32 step card vs CPU: {key} {a} against {b}")
-    log(f"[train] fp32 step card vs CPU (B=2 x {TRAIN_SECONDS} s, no draws): losses, stats and generator gradient "
+    log(f"[train] fp32 step card vs CPU (B=2 x {TRAIN_SECONDS} s, no draws; the CPU on the card's codes, its own "
+        f"choice differing at {flips} of {n_codes}, largest distance gap {gap:.3e}, limit {CARD_CPU_NEAR_TIE:.0e}): "
+        f"losses, stats and generator gradient "
         f"norms agree within {worst['generator']:.3e} relative (limit {CARD_CPU_REL}), the discriminator's gradient "
         f"norms within {worst['discriminator']:.3e} (limit {CARD_CPU_DISC_REL}); norms card {got['cuda'][0]}, "
         f"CPU {got['cpu'][0]}; the CPU took {got['cpu'][2]:.1f} s")
-    return dict(worst_relative=worst, card=got["cuda"][:2], cpu=got["cpu"][:2])
+    return dict(worst_relative=worst, card=got["cuda"][:2], cpu=got["cpu"][:2], code_flips=flips, codes=n_codes,
+                near_tie_gap=gap)
 
 
 def _training_calls(model, dtype, dev):
@@ -2461,7 +2650,7 @@ LAURA_EPOCHS = 2
 LAURA_ENCODE_B = 8  # run.sh stage 1: --batch_size 8 --bit_width 16000
 # one batch of stage 1 (--run_mod encode): the encoder's kernels; the encode mode's RVQ search is the exact
 # fp32 scan in both packages, so no rvq_encode
-LAURA_ENCODE = {"conv1d_s1": 2, "resblock_tgn": 12, "resblock_tgn_finalize": 8, "rvq_encode": 0}
+LAURA_ENCODE = {"conv1d_s1": 2, "resblock_tgn": 12, "resblock_tgn_finalize": 8, "rvq_encode": 0, "tgn_norm": 6}
 LAURA_SYN_LINES = 4  # stage 3: text lines, the second with a zero-shot prompt from the valid corpus
 LAURA_CPU_UTTS = 2  # the card-against-CPU step's batch
 # card against CPU, fp32 with TF32 off, one forward and backward from the same weights and batch: the loss
@@ -2920,14 +3109,16 @@ FREQ_FRAMES = 501  # 10 s: the center 512 / 160 STFT's 1,001 frames, the encoder
 FREQ_PATHS = {"none": (False, False), "rvq": (False, True), "rvq+stride1+resblock": (True, True)}
 FREQ_MAIN = "rvq+stride1+resblock"
 # per request: the fused conv takes the 1D tail only (the encoder's ELU + 512 -> 128 k7, the
-# decoder's 128 -> 512 k7); the 2D resblocks never reach the resblock kernel
+# decoder's 128 -> 512 k7); the 2D resblocks never reach the resblock kernel; every one of
+# the 18 + 18 time_group_norms of the encoder and the decoder runs the tgn kernels
+FREQ_NORMS = 18  # each side's
 FREQ_EXPECT = {
-    "none": {"conv1d_s1": 0, "resblock_tgn": 0, "resblock_tgn_finalize": 0, "rvq_encode": 0},
-    "rvq": {"conv1d_s1": 0, "resblock_tgn": 0, "resblock_tgn_finalize": 0, "rvq_encode": 1},
-    FREQ_MAIN: {"conv1d_s1": 2, "resblock_tgn": 0, "resblock_tgn_finalize": 0, "rvq_encode": 1},
+    "none": {"conv1d_s1": 0, "resblock_tgn": 0, "resblock_tgn_finalize": 0, "rvq_encode": 0, "tgn_norm": 36},
+    "rvq": {"conv1d_s1": 0, "resblock_tgn": 0, "resblock_tgn_finalize": 0, "rvq_encode": 1, "tgn_norm": 36},
+    FREQ_MAIN: {"conv1d_s1": 2, "resblock_tgn": 0, "resblock_tgn_finalize": 0, "rvq_encode": 1, "tgn_norm": 36},
 }
-# one shared training step with both SEANet flags: the generator's encode and decode once
-FREQ_TRAIN_EXPECT = {**FREQ_EXPECT[FREQ_MAIN], "rvq_encode": 0}
+# one shared training step with both SEANet flags: the generator's encode and decode once (with grad)
+FREQ_TRAIN_EXPECT = {**FREQ_EXPECT[FREQ_MAIN], "rvq_encode": 0, "tgn_norm": 0}
 FREQ_TRAIN_B, FREQ_TRAIN_STEPS, FREQ_TIMED_STEPS = 16, 2, 2
 # fp32 card against CPU: a differing code only where its two codewords' distances to the
 # residual differ by at most this share of the residual's squared norm; the reconstruction
@@ -3226,7 +3417,8 @@ def freq_cli(dev, s_fp) -> dict:
     dec_counts = read_counts()
     _freq_flags("none")
     batches = 2
-    expect = {"conv1d_s1": batches, "resblock_tgn": 0, "resblock_tgn_finalize": 0, "rvq_encode": 0}
+    expect = {"conv1d_s1": batches, "resblock_tgn": 0, "resblock_tgn_finalize": 0, "rvq_encode": 0,
+              "tgn_norm": FREQ_NORMS * batches}
     if enc_counts != expect or dec_counts != expect:
         raise RuntimeError(f"freq cli: launches encode {enc_counts}, decode {dec_counts}")
     codes = _codecs(FREQ_DIR / "enc" / "codecs.txt")
@@ -4017,7 +4209,8 @@ PPG_DIM, PPG_DS_RATE, PPG_FRAMES_PER_S = 86, 2, 100
 PPG_MODES = ("residual", "addition", "concat", "supervision", "ptts")
 # the PPG layers' stride-1 convs with K > 1, which FUSED_STRIDE1 runs in conv1d_s1: the
 # downsampling stack's first conv in every mode, the concat fusion's conv, and (training
-# only: inference runs no classifier) the supervision classifier's first two convs
+# only: inference runs no classifier) the supervision classifier's first two convs; in
+# inference the downsampling stack's first conv also takes the tgn kernels (its time_group_norm)
 PPG_CONVS = {"train": {"residual": 1, "addition": 1, "concat": 2, "supervision": 3, "ptts": 1},
              "infer": {"residual": 1, "addition": 1, "concat": 2, "supervision": 1, "ptts": 1}}
 PPG_INFER_B, PPG_INFER_SECONDS = 8, 10.0
@@ -4295,7 +4488,7 @@ def recipe_semantic(dev, held: dict) -> dict:
             raise RuntimeError(f"recipe semantic {mode}: the loss, a gradient or the PPG's gradient is wrong")
         with torch.inference_mode():
             res = _held_part(f"semantic {mode} inference",
-                               _launches(EXPECT[MAIN_PATH], conv1d_s1=PPG_CONVS["infer"][mode]),
+                               _launches(EXPECT[MAIN_PATH], conv1d_s1=PPG_CONVS["infer"][mode], tgn_norm=1),
                                lambda: functional_call(model, c_params, ("inference_ppg", x_inf, ppg_inf)), held)
         idx, recon = res["code_indices"][0], res["recon_speech"]
         frames = round(PPG_INFER_SECONDS * SR / 320)
@@ -4920,9 +5113,9 @@ def jax_ckpt_flagship(dev, held: dict) -> dict:
     x = _speech(70, JAX_CKPT_B, JAX_CKPT_SECONDS)
     served = {}
     for dtype in ("float32", "bfloat16"):
-        if dtype == "float32":  # the fp32-exact path
+        if dtype == "float32":  # the fp32-exact path (its norms run the tgn kernels)
             conv_ops.FUSED_STRIDE1 = conv_ops.FUSED_RESBLOCK = rvq.FUSED_RVQ = False
-            expect = NO_LAUNCHES
+            expect = dict(NO_LAUNCHES, tgn_norm=EXPECT["unfused"]["tgn_norm"])
         else:
             set_flags(MAIN_PATH)
             expect = EXPECT[MAIN_PATH]
@@ -5107,6 +5300,7 @@ def main() -> int:
     rvq_err = rvq_kernel_phase(dev)
     seanet_errs = seanet_kernel_phase(dev, calls)
     counts, flips = serving_phase(config, s_bf, s_fp)
+    postnorm = postnorm_phase(dev, s_bf, card)
     sync = sync_phase(dev, s_bf)
     probe_rows, probe_launches, probe_plain, ceiling = probe_phase(dev, card)
     cli_stats = cli_phase(dev, config, s_fp, card)
@@ -5133,7 +5327,7 @@ def main() -> int:
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "timings.json").write_text(json.dumps(dict(
         card=card, rvq=rvq_row, conv=conv_rows, resblock=rb_rows, resblock_finalize=fin_row, serving_seconds=serving,
-        flips=flips, launches=counts, sync=sync, probe=probe_rows, probe_launches=probe_launches,
+        flips=flips, launches=counts, postnorm=postnorm, sync=sync, probe=probe_rows, probe_launches=probe_launches,
         copy_ceiling_bytes_per_s=ceiling, cli=cli_stats, training=dict(
             configs=train_results, launches=train_counts, fused_gradients=fused_grads, backward=backward_rows,
             backward_max_relative_error=backward_errs, forward_max_abs_error=train_fwd_errs,
@@ -5170,6 +5364,10 @@ def main() -> int:
              replaces="funcodec_tpu/ops/resblock_pallas.py:232", launches=counts["resblock_tgn_finalize"],
              max_abs_err=seanet_errs["resblock_tgn_finalize"],
              **{k: fin_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
+        # no TPU kernel: the JAX norm is plain XLA; the cell's 12 norms in bf16, the ATen chain as library_ms
+        dict(name="tgn_norm", route="cuda", source="funcodec_tpu_torch/csrc/tgn_norm.cu", replaces=None,
+             launches=counts["tgn_norm"], max_abs_err=postnorm["max_abs_err"]["bfloat16"], bound_by="bytes",
+             **{k: postnorm["totals"]["bfloat16"][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")}),
     ]
     for name, variant in (("scale_copy", "A tile=4000"), ("dma_copy", "D dma_copy")):
         row = next(r for r in probe_rows if r["name"] == variant)  # bf16 at the probe shape

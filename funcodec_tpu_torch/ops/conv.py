@@ -26,6 +26,14 @@ kernel of ops/conv_kernel.py; ``FUSED_RESBLOCK`` routes each qualifying
 SEANet residual block to ops/resblock_kernel.py (models/seanet.py). Both are
 off by default, as their JAX counterparts ``PALLAS_STRIDE1`` and
 ``PALLAS_RESBLOCK`` are.
+
+A ``time_group_norm`` takes the hand-written kernels of ops/tgn_kernel.py
+by what its input shows, with no flag (the JAX norm has no Pallas kernel to
+mirror): a CUDA tensor whose result autograd does not need (serving,
+inference, validation; grad mode off, or neither y nor the norm's affine
+requires grad). A transposed 1D conv's trim is then written by the kernel,
+which returns the kept window contiguous. Where grad is needed (training),
+and for every CPU tensor, the norm stays ATen's fp32 ``F.group_norm`` chain.
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ from funcodec_tpu_torch.ops.pad import (
     unpad1d_time,
     unpad2d_freq_time,
 )
+from funcodec_tpu_torch.ops.tgn_kernel import time_group_norm
 
 CONV_NORMS = ("none", "weight_norm", "time_group_norm", "layer_norm")
 
@@ -106,6 +115,14 @@ def weight_norm_fuse(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return (v.float() * (g.float().reshape(norm.shape) / norm.clamp_min(1e-12))).to(v.dtype)
 
 
+def _tgn_on_card(spec: ConvSpec, y: torch.Tensor, norm_scale, norm_bias) -> bool:
+    """A time_group_norm that the kernels of ops/tgn_kernel.py compute: y on
+    a card and a result that autograd does not need."""
+    if spec.norm != "time_group_norm" or y.device.type != "cuda":
+        return False
+    return not (torch.is_grad_enabled() and (y.requires_grad or norm_scale.requires_grad or norm_bias.requires_grad))
+
+
 def apply_post_norm(
     spec: ConvSpec,
     y: torch.Tensor,
@@ -114,8 +131,12 @@ def apply_post_norm(
 ) -> torch.Tensor:
     """time_group_norm is GroupNorm(1, C) over the channels and every
     spatial axis per sample; layer_norm a LayerNorm over the channels (dim 1)
-    at each position. Both take their statistics in fp32 and cast the
-    result back to y's dtype."""
+    at each position. The result is in y's dtype. On a card, where autograd
+    does not need the result, time_group_norm runs the kernels of
+    ops/tgn_kernel.py (fp64 statistics, one fp32 fma an element); otherwise,
+    and for layer_norm, the statistics are ATen's in fp32 on an fp32 copy."""
+    if _tgn_on_card(spec, y, norm_scale, norm_bias):
+        return time_group_norm(y, norm_scale, norm_bias)
     if spec.norm == "time_group_norm":
         yn = F.group_norm(
             y.float(), 1, norm_scale.float(), norm_bias.float(), eps=1e-5
@@ -184,8 +205,9 @@ def apply_sconv_transpose1d(
     norm_scale: Optional[torch.Tensor] = None,
     norm_bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """SConvTranspose1d on (B, C, T): output length (T-1)*s + K, then the
-    fixed padding K - s is trimmed per causal / trim_right_ratio."""
+    """SConvTranspose1d on (B, C, T): output length (T-1)*s + K, normed,
+    then the fixed padding K - s is trimmed per causal / trim_right_ratio
+    (by the norm kernel where ops/tgn_kernel.py takes it; a view otherwise)."""
     assert spec.transposed
     k, s = spec.kernel_size, spec.stride
     padding_total = k - s
@@ -196,13 +218,16 @@ def apply_sconv_transpose1d(
         stride=s,
         groups=spec.groups,
     )
-    y = apply_post_norm(spec, y, norm_scale, norm_bias)
     if spec.causal:
         padding_right = math.ceil(padding_total * spec.trim_right_ratio)
         padding_left = padding_total - padding_right
     else:
         padding_right = padding_total // 2
         padding_left = padding_total - padding_right
+    if _tgn_on_card(spec, y, norm_scale, norm_bias):
+        # statistics over the whole output, only the kept window written (contiguous)
+        return time_group_norm(y, norm_scale, norm_bias, (padding_left, padding_right))
+    y = apply_post_norm(spec, y, norm_scale, norm_bias)
     return unpad1d_time(y, (padding_left, padding_right))
 
 

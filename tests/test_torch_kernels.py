@@ -12,7 +12,7 @@ import torch
 
 from funcodec_tpu_torch.kernels import build
 from funcodec_tpu_torch.ops import conv as tconv
-from funcodec_tpu_torch.ops import conv_kernel, resblock_kernel
+from funcodec_tpu_torch.ops import conv_kernel, resblock_kernel, tgn_kernel
 from funcodec_tpu_torch.ops.pad import conv_padding_total, split_padding
 from funcodec_tpu_torch.quant import rvq_kernel
 
@@ -58,7 +58,20 @@ def test_library_name_tracks_the_sources():
     assert path.parent == build.BUILD_DIR and path.name.startswith("libfuncodec_kernels-")
     names = {s.name for s in build._sources()}
     assert {"rvq_encode.cu", "conv1d_s1.cu", "resblock_tgn.cu", "resblock_tgn_streamed.cu", "resblock_tgn_legacy.cu",
-            "resblock_tgn.cuh", "common.cuh", "conv1d_s1_legacy.cu", "conv1d_s1.cuh", "copy_probe.cu"} <= names
+            "resblock_tgn.cuh", "common.cuh", "conv1d_s1_legacy.cu", "conv1d_s1.cuh", "copy_probe.cu",
+            "tgn_norm.cu"} <= names
+
+
+def test_signatures_match_the_sources():
+    """Every ctypes signature has as many arguments as its extern "C" entry in csrc/."""
+    import re
+
+    text = "".join(src.read_text() for src in build._sources())
+    for name, (_, argtypes) in build.SIGNATURES.items():
+        m = re.search(r'extern "C"[^(]*\b' + name + r"\(([^)]*)\)", text)
+        assert m is not None, name
+        params = [a for a in m.group(1).split(",") if a.strip() and a.strip() != "void"]
+        assert len(params) == len(argtypes), (name, len(params), len(argtypes))
 
 
 def ulps2(ref: torch.Tensor) -> float:
@@ -410,6 +423,77 @@ def test_cuda_copy_kernels_reject_bad_inputs(cuda):
         copy_kernel.dma_copy(torch.zeros(4096, 128, device=cuda), chunk_rows=1024)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         copy_kernel.scale_copy(x.half(), 4)
+
+
+TGN_CASES = {  # (shape, trim, dtype, gamma's dtype, mean): every path of csrc/tgn_norm.cu
+    "scalar_fp32": ((2, 5, 37), (0, 0), torch.float32, torch.float32, 0.0),
+    "scalar_c1_bf16": ((3, 1, 97), (0, 0), torch.bfloat16, torch.bfloat16, 0.0),
+    "vector_bf16": ((2, 32, 20_000), (0, 0), torch.bfloat16, torch.bfloat16, 0.0),
+    "vector_tiles_fp32": ((2, 3, 12_000), (0, 0), torch.float32, torch.float32, 0.0),
+    "mean8_fp32": ((2, 16, 8000), (0, 0), torch.float32, torch.float32, 8.0),
+    "mean8_bf16": ((2, 16, 8000), (0, 0), torch.bfloat16, torch.bfloat16, 8.0),
+    "fp32_bf16_affine": ((2, 6, 4096), (0, 0), torch.float32, torch.bfloat16, 0.0),
+    "trim_shifted_bf16": ((2, 128, 12_165), (3, 2), torch.bfloat16, torch.bfloat16, 0.0),
+    "trim_shifted_fp32": ((2, 64, 4_100), (2, 2), torch.float32, torch.float32, 0.0),
+    "trim_aligned_bf16": ((2, 8, 1_032), (8, 0), torch.bfloat16, torch.bfloat16, 0.0),
+    "trim_scalar_bf16": ((2, 4, 45), (1, 1), torch.bfloat16, torch.bfloat16, 0.0),
+    "2d_scalar_bf16": ((2, 4, 33, 501), (0, 0), torch.bfloat16, torch.bfloat16, 0.0),
+    "2d_vector_bf16": ((2, 8, 16, 64), (0, 0), torch.bfloat16, torch.bfloat16, 0.0),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(TGN_CASES))
+def test_cuda_tgn_norm_matches_reference(cuda, case):
+    shape, trim, dtype, pdtype, mean = TGN_CASES[case]
+    rs = np.random.RandomState(len(case))
+    x = torch.from_numpy((mean + rs.randn(*shape)).astype(np.float32)).to(cuda, dtype)
+    gamma = torch.from_numpy(1 + rs.uniform(-0.5, 0.5, shape[1]).astype(np.float32)).to(cuda, pdtype)
+    beta = torch.from_numpy(rs.uniform(-0.1, 0.1, shape[1]).astype(np.float32)).to(cuda, pdtype)
+    before = tgn_kernel.LAUNCHES
+    y = tgn_kernel.time_group_norm(x, gamma, beta, trim)
+    torch.cuda.synchronize()
+    assert tgn_kernel.LAUNCHES == before + 1
+    assert torch.equal(tgn_kernel.time_group_norm(x, gamma, beta, trim), y)  # the same from run to run
+    ref = tgn_kernel.time_group_norm_reference(x, gamma, beta, trim)
+    assert y.dtype == dtype and y.shape == ref.shape and y.is_contiguous()
+    err = float((y.float() - ref.float()).abs().max())
+    tol = ulps2(ref) / 2 if dtype == torch.bfloat16 else 2.0 ** -20 * float(ref.abs().max())
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.gpu
+def test_cuda_tgn_norm_routing(cuda):
+    """No grad: ops/conv.py's norms run the kernels (a transposed conv's trim
+    written contiguous); grad needed: the fp32 F.group_norm chain and its graph."""
+    spec = tconv.ConvSpec(16, 8, 8, stride=4, norm="time_group_norm", transposed=True)
+    conv = tconv.make_conv(spec, device=cuda, generator=torch.Generator(cuda).manual_seed(0))
+    x = torch.randn(2, 16, 301, device=cuda)
+    before = tgn_kernel.LAUNCHES
+    with torch.no_grad():
+        y = conv(x)
+        full = torch.nn.functional.conv_transpose1d(x, conv.convtr.convtr.weight, conv.convtr.convtr.bias, stride=4)
+        ref = tgn_kernel.time_group_norm_reference(full, *conv.convtr.norm_params(), (2, 2))
+    assert tgn_kernel.LAUNCHES == before + 1 and y.is_contiguous()
+    assert float((y - ref).abs().max()) <= 2.0 ** -20 * float(ref.abs().max())
+    y_grad = conv(x.requires_grad_(True))
+    assert tgn_kernel.LAUNCHES == before + 1 and y_grad.grad_fn is not None
+    norm = conv.convtr.norm
+    chain = torch.nn.functional.group_norm(full, 1, norm.weight, norm.bias, eps=1e-5)[..., 2:-2]
+    assert torch.equal(y_grad.detach(), chain)
+
+
+@pytest.mark.gpu
+def test_cuda_tgn_norm_rejects_bad_inputs(cuda):
+    x = torch.zeros(2, 4, 64, device=cuda)
+    g = torch.ones(4, device=cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tgn_kernel.time_group_norm(x.half(), g, g)
+    with pytest.raises(ValueError, match="one type"):
+        tgn_kernel.time_group_norm(x, g, g.bfloat16())
+    with pytest.raises(ValueError, match="range"):
+        tgn_kernel.time_group_norm(torch.zeros(1, 8192, 2, device=cuda), torch.ones(8192, device=cuda),
+                                   torch.ones(8192, device=cuda))
 
 
 # ---------------------------------------------------------------------------
