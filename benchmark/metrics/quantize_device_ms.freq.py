@@ -1,0 +1,10 @@
+"""Device milliseconds a batch between the two CUDA events of the program's
+``quantize`` span in the FreqCodec cell (the RVQ search and codeword
+gather); mean over the traced slice's batches. None where the program
+records no such span (a program without it, or the CPU)."""
+
+from benchmark.harness.freqcodec import span_device_ms
+
+
+def read(run):
+    return span_device_ms(run, "quantize")

@@ -1,6 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port (funcodec_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py             # the smoke run below
+    python3 chip_smoke.py --freq      # checks, build, then the FreqCodec phase alone
     python3 chip_smoke.py --profile   # checks, build, then a torch.profiler table of
                                       # one B = 64 x 10 s request per serving path,
                                       # of one bf16 shared training step (B = 16), of
@@ -154,7 +155,11 @@ In phases that each raise on failure:
    plain version on its own inputs, the first request served again equal;
    flips against the fp32-exact path; fp32 on the card against the CPU
    (tokens equal but at near-ties, the decode of the same tokens within
-   1e-4); conv1d_s1 at its two T = 501 shapes against its plain version and
+   1e-4); gr8's PCM16 request at the benchmark cell's shape (B = 64 x
+   5.825 s, ragged in one bucket, through dispatch / collect / pcm16) with
+   exact launches, 2D convs by kind and norms by route, the bucket's k + 1
+   token frames, and the stft / istft spans inside encode / decode with
+   their device ms; conv1d_s1 at its two T = 501 shapes against its plain version and
    cuDNN; the CLI (encode, then decode) on 4 seeded utterances; encode +
    decode of B = 64 x 10 s, fp32-exact and the three bf16 paths, with peak
    memory; istft alone; 2 bf16 shared GAN steps with phase-invariant
@@ -3435,9 +3440,82 @@ def freq_cli(dev, s_fp) -> dict:
     return dict(encode_launches=enc_counts, decode_launches=dec_counts)
 
 
+FREQ_PCM_B, FREQ_PCM_SECONDS = 64, 5.825  # the benchmark cell's batch (freqcodec_gr8.serve_batch)
+# per request: cuDNN's 2D convs by kind, and the time_group_norms by route (34 2D, 2 1D; none on ATen)
+FREQ_CONV2D = {"grouped": 24, "ungrouped": 6, "transposed": 4}
+FREQ_TGN = {"kernel_1d": 2, "kernel_2d": 34, "aten_1d": 0, "aten_2d": 0}
+FREQ_SPANS = ("stft", "encode", "quantize", "decode", "istft")
+
+
+def _reset_conv_counts() -> None:
+    for d in (conv_ops.CONV2D_CALLS, conv_ops.TGN_CALLS):
+        d.update(dict.fromkeys(d, 0))
+
+
+def freq_pcm16(dev, gr: int, s_bf, card: str) -> dict:
+    """The benchmark cell's request on the main path: B = 64 rows of int16 PCM,
+    ragged inside one 16-frame bucket (5.825 s the longest, 93,200 samples ->
+    97,280), through dispatch (run_mod inference, pcm16_ilens) and collect as
+    the CLI serves them. Per request: the kernels' exact launches, cuDNN's 2D
+    convs by kind, the norms by route; the bucket's k + 1 token frames (the
+    center STFT's 2k + 1 frames through the encoder's time stride 2) and a
+    PCM16 row for every valid sample; then one request under torch.profiler,
+    whose stft and istft spans nest inside encode and decode, with the
+    spans' device ms."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from funcodec_tpu_torch.utils import profiling
+
+    longest = int(FREQ_PCM_SECONDS * SR)
+    T = cli._bucket_length(longest, 320)
+    ilens = [longest - 16 * i for i in range(FREQ_PCM_B)]  # all inside the bucket (> T - 16 x 320)
+    if cli._bucket_length(min(ilens), 320) != T:
+        raise RuntimeError("freq pcm16: the rows span two buckets")
+    rs = np.random.RandomState(91)
+    rows = [(rs.randn(n) * 3000).clip(-32768, 32767).astype(np.int16) for n in ilens]
+    pcm = cli._wrap_pad(rows, T)
+    _freq_flags(FREQ_MAIN)
+    frames = T // 320 + 1
+    for i in range(2):  # the first builds cuDNN's plans
+        torch.cuda.synchronize()
+        reset_counts()
+        _reset_conv_counts()
+        out = s_bf.dispatch(pcm, bit_width=None, run_mod="inference", pcm16_ilens=ilens)
+        codes, _, recon, _ = s_bf.collect(out, need_sub_quants=False)
+        launches, conv2d, tgn = read_counts(), dict(conv_ops.CONV2D_CALLS), dict(conv_ops.TGN_CALLS)
+        if launches != FREQ_EXPECT[FREQ_MAIN] or conv2d != FREQ_CONV2D or tgn != FREQ_TGN:
+            raise RuntimeError(f"freq gr{gr} pcm16 request {i}: launches {launches}, 2D convs {conv2d}, norms {tgn}; "
+                               f"expected {FREQ_EXPECT[FREQ_MAIN]}, {FREQ_CONV2D}, {FREQ_TGN}")
+        if codes[0].shape != (32, FREQ_PCM_B, frames) or recon.shape != (FREQ_PCM_B, T) or recon.dtype != np.int16:
+            raise RuntimeError(f"freq gr{gr} pcm16: tokens {codes[0].shape}, recon {recon.shape} {recon.dtype}; "
+                               f"expected (32, {FREQ_PCM_B}, {frames}) and ({FREQ_PCM_B}, {T}) int16")
+        if codes[0].min() < 0 or codes[0].max() >= 1024 or any(
+                np.abs(recon[r, :n].astype(np.int32)).max() > 32767 * 0.99 + 1 for r, n in enumerate(ilens)):
+            raise RuntimeError(f"freq gr{gr} pcm16: out-of-range tokens, or a row past its peak of 0.99")
+    profiling.clear()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        s_bf.collect(s_bf.dispatch(pcm, bit_width=None, run_mod="inference", pcm16_ilens=ilens),
+                     need_sub_quants=False)
+        torch.cuda.synchronize()
+    got = {s.name: s for s in profiling.spans() if s.name in FREQ_SPANS}
+    if sorted(got) != sorted(FREQ_SPANS) or got["stft"].parent != "encode" or got["istft"].parent != "decode" \
+            or got["stft"].request_id != got["encode"].request_id:
+        raise RuntimeError(f"freq gr{gr} pcm16: spans {[(s.name, s.parent) for s in profiling.spans()]}")
+    ms = {name: profiling.device_ms(name) for name in FREQ_SPANS}
+    profiling.clear()
+    _freq_flags("none")
+    log(f"[freq] gr{gr} pcm16 B={FREQ_PCM_B} x {FREQ_PCM_SECONDS} s (ragged {min(ilens)}-{longest} samples in a "
+        f"{T}-sample bucket) through dispatch / collect: tokens (32, {FREQ_PCM_B}, {frames}), PCM16 "
+        f"({FREQ_PCM_B}, {T}); per request launches {launches}, 2D convs {conv2d}, norms {tgn}; device ms under "
+        f"the profiler " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()) + f" ({card})")
+    return dict(launches=launches, conv2d=conv2d, tgn=tgn, span_device_ms=ms, frames=frames)
+
+
 def freq_phase(dev, card: str) -> dict:
     """FreqCodec gr8 and gr1 at full width, seeded weights: serving, fp32 card
-    against CPU, timing, conv1d_s1 at T = 501, istft, training, the CLI."""
+    against CPU, gr8's PCM16 request at the benchmark cell's shape, timing,
+    conv1d_s1 at T = 501, istft, training, the CLI."""
     t0 = time.perf_counter()
     res = {"serving": {}, "card_vs_cpu": {}, "timing": {}}
     for gr in (8, 1):
@@ -3448,6 +3526,7 @@ def freq_phase(dev, card: str) -> dict:
         res["serving"][gr] = freq_serving(dev, gr, s_bf, s_fp)
         res["card_vs_cpu"][gr] = freq_card_cpu(dev, gr, s_fp)
         if gr == 8:
+            res["pcm16"] = freq_pcm16(dev, gr, s_bf, card)
             res["conv_rows"] = freq_conv_rows(dev, s_bf, card)
             res["cli"] = freq_cli(dev, s_fp)
         res["timing"][gr] = freq_timing(dev, gr, s_bf, s_fp, card)
@@ -5294,6 +5373,9 @@ def main() -> int:
     build_phase()
     if "--profile" in sys.argv[1:]:
         profile(dev)
+        return 0
+    if "--freq" in sys.argv[1:]:
+        freq_phase(dev, card)
         return 0
     config, s_bf, s_fp = build_models(dev)
     calls = flagship_calls(s_bf, dev)

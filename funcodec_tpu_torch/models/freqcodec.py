@@ -8,7 +8,9 @@ waveform. The domains: time, stft, mag, mag_phase, mag_angle,
 mag_oracle_phase and mel (encode only). Spectral features are built in the
 2D SEANet's (B, C, F, T) layout. The STFT and the decode math (softplus,
 the complex spectrum, istft) run in fp32 whatever the compute type; the
-encoder sees the features in the input's type.
+encoder sees the features in the input's type. The feature build is the
+``stft`` span (inside ``encode``), the way back to a waveform the ``istft``
+span (inside ``decode``), as utils/profiling.py records them.
 
 Phase-invariant training (``phase_invariant_training``) is in
 models/encodec.py's discriminator losses, as in the JAX package.
@@ -25,6 +27,7 @@ import torch.nn.functional as F
 
 from funcodec_tpu_torch.models.encodec import Encodec, EncodecConfig
 from funcodec_tpu_torch.ops.stft import istft, mel_filterbank, stft
+from funcodec_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,10 +62,17 @@ class FreqCodec(Encodec):
         else:
             scale = None
 
-        domain = cfg.codec_domain[0]
-        if domain == "time":
+        if cfg.codec_domain[0] == "time":
             return self.encoder(x), scale
+        with span("stft", device=x.device):
+            feats, scale = self._features(x, scale)
+        return self.encoder(feats), scale
 
+    def _features(self, x: torch.Tensor, scale):
+        """The (normalised) waveform (B, T) -> the encoder's input (B, C, F, T')
+        in x's type, and the scale (with the phase for mag_oracle_phase)."""
+        cfg = self.cfg
+        domain = cfg.codec_domain[0]
         spec = self._enc_spec(x)  # (B, F, T') complex64
         if domain == "stft":
             feats = torch.stack([spec.real, spec.imag], dim=1)
@@ -84,33 +94,40 @@ class FreqCodec(Encodec):
             feats = torch.einsum("mf,bft->bmt", basis, power)[:, None]
         else:
             raise ValueError(domain)
-        return self.encoder(feats.to(x.dtype)), scale
+        return feats.to(x.dtype), scale
 
     def _decode_frame(self, emb: torch.Tensor, scale) -> torch.Tensor:
-        cfg = self.cfg
         out = self.decoder(emb)
-        domain = cfg.codec_domain[1]
-        if domain == "time":
+        if self.cfg.codec_domain[1] == "time":
             wav = out[..., 0]
-            if cfg.codec_domain[0] != "time":
+            if self.cfg.codec_domain[0] != "time":
                 # a time decoder over spectral tokens: trim the transform's padding
-                hop = cfg.domain_hop_length
+                hop = self.cfg.domain_hop_length
                 wav = wav[:, hop // 2 : -(hop // 2)]
-        elif domain == "stft":
-            wav = self._dec_spec(torch.complex(out[:, 0].float(), out[:, 1].float()))
-        elif domain == "mag_phase":
-            mag = F.softplus(out[:, 0].float())
-            wav = self._dec_spec(mag * torch.complex(out[:, 1].float(), out[:, 2].float()))
-        elif domain == "mag_angle":
-            mag = F.softplus(out[:, 0].float())
-            angle = torch.sin(out[:, 1].float()) * math.pi
-            wav = self._dec_spec(torch.complex(torch.cos(angle) * mag, torch.sin(angle) * mag))
-        elif domain == "mag_oracle_phase":
-            scale, angle = scale
-            mag = out[:, 0].float()
-            wav = self._dec_spec(torch.complex(torch.cos(angle) * mag, torch.sin(angle) * mag))
         else:
-            raise ValueError(domain)
+            with span("istft", device=out.device):
+                wav = self._waveform(out, scale)
+            if self.cfg.codec_domain[1] == "mag_oracle_phase":
+                scale = scale[0]
         if scale is not None:
             wav = wav * scale.to(wav.dtype)
         return wav
+
+    def _waveform(self, out: torch.Tensor, scale) -> torch.Tensor:
+        """The decoder's output (B, C, F, T') -> the waveform (B, T), fp32,
+        before the scale."""
+        domain = self.cfg.codec_domain[1]
+        if domain == "stft":
+            return self._dec_spec(torch.complex(out[:, 0].float(), out[:, 1].float()))
+        if domain == "mag_phase":
+            mag = F.softplus(out[:, 0].float())
+            return self._dec_spec(mag * torch.complex(out[:, 1].float(), out[:, 2].float()))
+        if domain == "mag_angle":
+            mag = F.softplus(out[:, 0].float())
+            angle = torch.sin(out[:, 1].float()) * math.pi
+            return self._dec_spec(torch.complex(torch.cos(angle) * mag, torch.sin(angle) * mag))
+        if domain == "mag_oracle_phase":
+            angle = scale[1]
+            mag = out[:, 0].float()
+            return self._dec_spec(torch.complex(torch.cos(angle) * mag, torch.sin(angle) * mag))
+        raise ValueError(domain)

@@ -34,6 +34,12 @@ inference, validation; grad mode off, or neither y nor the norm's affine
 requires grad). A transposed 1D conv's trim is then written by the kernel,
 which returns the kept window contiguous. Where grad is needed (training),
 and for every CPU tensor, the norm stays ATen's fp32 ``F.group_norm`` chain.
+
+Two counters say what a run's path took, as the kernels' ``LAUNCHES`` do
+(a run sets the values to 0 and reads them back): ``CONV2D_CALLS``, the 2D
+convs by kind (cuDNN's), and ``TGN_CALLS``, the time_group_norms by route
+(``kernel``: ops/tgn_kernel.py; ``aten``: ``F.group_norm``) and rank (1D
+or 2D); the norms inside the fused resblock kernel are not among them.
 """
 
 from __future__ import annotations
@@ -67,6 +73,10 @@ FUSED_STRIDE1 = False
 # The whole-resblock kernel (csrc/resblock_tgn.cu): three streaming passes
 # over x replace the unfused ELU / conv / time_group_norm chain.
 FUSED_RESBLOCK = False
+
+# Calls since the last reset: 2D convs by kind, time_group_norms by route and rank.
+CONV2D_CALLS = {"grouped": 0, "ungrouped": 0, "transposed": 0}
+TGN_CALLS = {"kernel_1d": 0, "kernel_2d": 0, "aten_1d": 0, "aten_2d": 0}
 
 
 def as_pair(x) -> Tuple[int, int]:
@@ -123,6 +133,10 @@ def _tgn_on_card(spec: ConvSpec, y: torch.Tensor, norm_scale, norm_bias) -> bool
     return not (torch.is_grad_enabled() and (y.requires_grad or norm_scale.requires_grad or norm_bias.requires_grad))
 
 
+def _count_norm(route: str, y: torch.Tensor) -> None:
+    TGN_CALLS[f"{route}_{y.dim() - 2}d"] += 1
+
+
 def apply_post_norm(
     spec: ConvSpec,
     y: torch.Tensor,
@@ -136,8 +150,10 @@ def apply_post_norm(
     ops/tgn_kernel.py (fp64 statistics, one fp32 fma an element); otherwise,
     and for layer_norm, the statistics are ATen's in fp32 on an fp32 copy."""
     if _tgn_on_card(spec, y, norm_scale, norm_bias):
+        _count_norm("kernel", y)
         return time_group_norm(y, norm_scale, norm_bias)
     if spec.norm == "time_group_norm":
+        _count_norm("aten", y)
         yn = F.group_norm(
             y.float(), 1, norm_scale.float(), norm_bias.float(), eps=1e-5
         )
@@ -226,6 +242,7 @@ def apply_sconv_transpose1d(
         padding_left = padding_total - padding_right
     if _tgn_on_card(spec, y, norm_scale, norm_bias):
         # statistics over the whole output, only the kept window written (contiguous)
+        _count_norm("kernel", y)
         return time_group_norm(y, norm_scale, norm_bias, (padding_left, padding_right))
     y = apply_post_norm(spec, y, norm_scale, norm_bias)
     return unpad1d_time(y, (padding_left, padding_right))
@@ -255,6 +272,7 @@ def apply_sconv2d(
         time_after = pt_t // 2
         time_before = pt_t - time_after + extra_t
     x = pad2d_freq_time(x, (time_before, time_after), (pt_f - freq_after, freq_after), mode=spec.pad_mode)
+    CONV2D_CALLS["grouped" if spec.groups > 1 else "ungrouped"] += 1
     y = F.conv2d(
         x,
         weight.to(x.dtype),
@@ -281,6 +299,7 @@ def apply_sconv_transpose2d(
     assert spec.transposed
     (kf, kt), (sf, st) = as_pair(spec.kernel_size), as_pair(spec.stride)
     pt_f, pt_t = kf - sf, kt - st
+    CONV2D_CALLS["transposed"] += 1
     y = F.conv_transpose2d(
         x,
         weight.to(x.dtype),

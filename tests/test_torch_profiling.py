@@ -216,3 +216,76 @@ def test_spans_within_a_window():
             pass
     assert [s.name for s in rec.spans(within=(mid, time.time_ns()))] == ["b"]
     assert rec.spans("a", within=(mid, time.time_ns())) == []
+
+
+# a small FreqCodec (tests/test_torch_freqcodec_reference.py's gr8 shape: grouped
+# 2D convs, two (4, .) stages, n_fft 32 / hop 16, a 32-sample codec hop)
+FREQ_SEANET = {"ratios": [[4, 1], [4, 2]], "norm": "time_group_norm", "causal": False, "dilation_base": 1,
+               "n_filters": 8, "conv_group_ratio": 2}
+FREQ_CONFIG = {
+    "input_size": 3,
+    "encoder": "encodec_seanet_encoder_2d", "encoder_conf": FREQ_SEANET,
+    "decoder": "encodec_seanet_decoder_2d", "decoder_conf": dict(FREQ_SEANET, channels=3, tr_conv_group_ratio=2),
+    "quantizer": "costume_quantizer",
+    "quantizer_conf": {"codebook_size": 32, "num_quantizers": 4, "kmeans_init": False, "sampling_rate": 16000,
+                       "encoder_hop_length": 32},
+    "model": "freq_codec",
+    "model_conf": {"odim": 16, "target_sample_hz": 16000, "audio_normalize": True, "segment_dur": None,
+                   "overlap_ratio": None, "codec_domain": ["mag_phase", "mag_phase"], "domain_n_fft": 32,
+                   "domain_hop_length": 16},
+}
+FREQ_ILENS = [1024, 1000, 900, 800]
+# the stft span closes inside encode, the istft span inside decode
+FREQ_INFERENCE = INFERENCE[:1] + [("stft", "encode")] + INFERENCE[1:3] + [("istft", "decode")] + INFERENCE[3:]
+# one request of the small FreqCodec: encoder 1 + 2 x 3 (resblocks) + 2 (downsampling) 2D convs, decoder
+# 2 x 3 + 1 and 2 transposed; groups of n // 2 // 2, so the 8-channel resblocks' two convs and the
+# outer 3 <-> 8 convs are the ungrouped ones; the 18 2D and 2 1D (the LSTM's neighbours) norms
+FREQ_CONV2D = {"grouped": 10, "ungrouped": 6, "transposed": 2}
+FREQ_NORMS = {"1d": 2, "2d": 18}
+
+
+@pytest.fixture(scope="module")
+def freq_model():
+    return Speech2Token(FREQ_CONFIG, None, bit_width=None, devices=["cpu"])
+
+
+def _freq_request(s2t: Speech2Token):
+    x = (np.random.RandomState(4).randn(len(FREQ_ILENS), max(FREQ_ILENS)) * 3000).astype(np.int16)
+    return s2t.collect(s2t.dispatch(x, pcm16_ilens=FREQ_ILENS), need_sub_quants=False)
+
+
+def test_freqcodec_stft_and_istft_spans(freq_model):
+    _profiled(lambda: _freq_request(freq_model))
+    got = profiling.spans()
+    assert [(s.name, s.parent) for s in got] == FREQ_INFERENCE
+    ids = {s.request_id for s in got}
+    assert len(ids) == 1 and ids.pop() is not None  # stft and istft carry the batch's id
+    stft, encode = profiling.spans("stft")[0], profiling.spans("encode")[0]
+    istft, decode = profiling.spans("istft")[0], profiling.spans("decode")[0]
+    assert encode.t0_ns <= stft.t0_ns <= stft.t1_ns <= encode.t1_ns and stft.events is None
+    assert decode.t0_ns <= istft.t0_ns <= istft.t1_ns <= decode.t1_ns and not istft.wait
+
+
+def test_freqcodec_spans_cost_nothing_without_a_profiler(freq_model):
+    profiling.clear()
+    codes, _, recon, _ = _freq_request(freq_model)
+    assert profiling.spans() == []
+    assert codes[0].shape == (4, len(FREQ_ILENS), 1024 // 32 + 1) and recon.shape == (len(FREQ_ILENS), 1024)
+
+
+@pytest.mark.parametrize("route", ["aten", "kernel"])
+def test_counters_count_2d_convs_by_kind_and_norms_by_route(freq_model, monkeypatch, route):
+    """On the CPU the norms take ATen's chain; with the card's route forced
+    (ops/tgn_kernel.py's plain version stands in for the kernels on the CPU)
+    they count as the kernels'."""
+    from funcodec_tpu_torch.ops import conv
+
+    if route == "kernel":
+        monkeypatch.setattr(conv, "_tgn_on_card", lambda spec, y, scale, bias: spec.norm == "time_group_norm")
+    monkeypatch.setattr(conv, "CONV2D_CALLS", dict.fromkeys(conv.CONV2D_CALLS, 0))
+    monkeypatch.setattr(conv, "TGN_CALLS", dict.fromkeys(conv.TGN_CALLS, 0))
+    _freq_request(freq_model)
+    assert conv.CONV2D_CALLS == FREQ_CONV2D
+    other = "kernel" if route == "aten" else "aten"
+    assert conv.TGN_CALLS == {**{f"{route}_{k}": v for k, v in FREQ_NORMS.items()},
+                              **{f"{other}_{k}": 0 for k in FREQ_NORMS}}
