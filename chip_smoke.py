@@ -152,15 +152,20 @@ In phases that each raise on failure:
    FUSED_RESBLOCK) with exact launches (the main path: rvq_encode 1,
    conv1d_s1 2, the resblock kernels 0 a request: FreqCodec's residual
    blocks are 2D), each kernel call of the main path's requests against its
-   plain version on its own inputs, the first request served again equal;
+   plain version on its own inputs, the first request served again equal
+   (the recon bit for bit: the four grouped transposed 2D convs run the
+   convtr2d kernel, 4 launches a bf16 request, gr1's 2 -> 1 channels a
+   group eight to a block; training and fp32 keep cuDNN, 0);
    flips against the fp32-exact path; fp32 on the card against the CPU
    (tokens equal but at near-ties, the decode of the same tokens within
    1e-4); gr8's PCM16 request at the benchmark cell's shape (B = 64 x
    5.825 s, ragged in one bucket, through dispatch / collect / pcm16) with
    exact launches, 2D convs by kind and norms by route, the bucket's k + 1
-   token frames, and the stft / istft spans inside encode / decode with
+   token frames, the request served again with the same tokens and recon
+   bit for bit, and the stft / istft spans inside encode / decode with
    their device ms; conv1d_s1 at its two T = 501 shapes against its plain version and
-   cuDNN; the CLI (encode, then decode) on 4 seeded utterances; encode +
+   cuDNN; convtr2d at the cell's four shapes (gr8's and gr1's) against its
+   bytes bound, its plain version and cuDNN's F.conv_transpose2d; the CLI (encode, then decode) on 4 seeded utterances; encode +
    decode of B = 64 x 10 s, fp32-exact and the three bf16 paths, with peak
    memory; istft alone; 2 bf16 shared GAN steps with phase-invariant
    training at B = 16 x 2.56 s (exact launches), then ms a step.
@@ -312,7 +317,7 @@ from funcodec_tpu_torch.models.seanet import (  # noqa: E402
     make_layer,
 )
 from funcodec_tpu_torch.models.streaming import StreamingCodecSession  # noqa: E402
-from funcodec_tpu_torch.ops import conv_kernel, copy_kernel, resblock_kernel, tgn_kernel  # noqa: E402
+from funcodec_tpu_torch.ops import conv_kernel, convtr2d_kernel, copy_kernel, resblock_kernel, tgn_kernel  # noqa: E402
 from funcodec_tpu_torch.ops.fbank import WavFrontend  # noqa: E402
 from funcodec_tpu_torch.ops.pad import conv_padding_total, pad1d_time, split_padding  # noqa: E402
 from funcodec_tpu_torch.quant import rvq_kernel  # noqa: E402
@@ -346,18 +351,21 @@ CARD = torch.device("cuda", 0)
 # kernel launches per request with the gates of ops/conv_kernel and ops/resblock_kernel:
 # 4 head convs + 8 resblock k3 convs; or the 4 head convs and 8 blocks x (3 passes + 2 finalizes);
 # and the time_group_norms outside the fused blocks (ops/tgn_kernel, taken whatever the flags
-# wherever no grad is needed): the 12 convs outside the blocks, + 8 blocks x 3 when unfused
+# wherever no grad is needed): the 12 convs outside the blocks, + 8 blocks x 3 when unfused;
+# no grouped transposed 2D conv (ops/convtr2d_kernel: FreqCodec's decoder only) on any EnCodec path
 EXPECT = {
-    "unfused": {"conv1d_s1": 0, "resblock_tgn": 0, "resblock_tgn_finalize": 0, "rvq_encode": 1, "tgn_norm": 36},
-    "stride1": {"conv1d_s1": 12, "resblock_tgn": 0, "resblock_tgn_finalize": 0, "rvq_encode": 1, "tgn_norm": 36},
+    "unfused": {"conv1d_s1": 0, "resblock_tgn": 0, "resblock_tgn_finalize": 0, "rvq_encode": 1, "tgn_norm": 36,
+                "convtr2d": 0},
+    "stride1": {"conv1d_s1": 12, "resblock_tgn": 0, "resblock_tgn_finalize": 0, "rvq_encode": 1, "tgn_norm": 36,
+                "convtr2d": 0},
     "stride1+resblock": {"conv1d_s1": 4, "resblock_tgn": 24, "resblock_tgn_finalize": 16, "rvq_encode": 1,
-                         "tgn_norm": 12},
+                         "tgn_norm": 12, "convtr2d": 0},
 }
 FLAGS = {"unfused": (False, False), "stride1": (True, False), "stride1+resblock": (True, True)}
 MAIN_PATH = "stride1+resblock"
 COUNTERS = {"conv1d_s1": (conv_kernel, "LAUNCHES"), "resblock_tgn": (resblock_kernel, "LAUNCHES"),
             "resblock_tgn_finalize": (resblock_kernel, "FINALIZE_LAUNCHES"), "rvq_encode": (rvq_kernel, "LAUNCHES"),
-            "tgn_norm": (tgn_kernel, "LAUNCHES")}
+            "tgn_norm": (tgn_kernel, "LAUNCHES"), "convtr2d": (convtr2d_kernel, "LAUNCHES")}
 
 
 def log(*args) -> None:
@@ -1170,7 +1178,7 @@ CLI_DIR = OUT_DIR / "cli"
 CLI_BATCH, CLI_BIT_WIDTH = 16, 16_000  # 32 quantizers
 CLI_UTTS, CLI_SECONDS = 32, (1.0, 12.0)  # the corpus: utterances of uniformly drawn length
 DECODE_PER_BATCH = {"conv1d_s1": 2, "resblock_tgn": 12, "resblock_tgn_finalize": 8, "rvq_encode": 0,
-                    "tgn_norm": 6}  # the decoder's half of EXPECT
+                    "tgn_norm": 6, "convtr2d": 0}  # the decoder's half of EXPECT
 MIN_FP32_AGREE = 0.999
 
 
@@ -2655,7 +2663,8 @@ LAURA_EPOCHS = 2
 LAURA_ENCODE_B = 8  # run.sh stage 1: --batch_size 8 --bit_width 16000
 # one batch of stage 1 (--run_mod encode): the encoder's kernels; the encode mode's RVQ search is the exact
 # fp32 scan in both packages, so no rvq_encode
-LAURA_ENCODE = {"conv1d_s1": 2, "resblock_tgn": 12, "resblock_tgn_finalize": 8, "rvq_encode": 0, "tgn_norm": 6}
+LAURA_ENCODE = {"conv1d_s1": 2, "resblock_tgn": 12, "resblock_tgn_finalize": 8, "rvq_encode": 0, "tgn_norm": 6,
+                "convtr2d": 0}
 LAURA_SYN_LINES = 4  # stage 3: text lines, the second with a zero-shot prompt from the valid corpus
 LAURA_CPU_UTTS = 2  # the card-against-CPU step's batch
 # card against CPU, fp32 with TF32 off, one forward and backward from the same weights and batch: the loss
@@ -3115,15 +3124,20 @@ FREQ_PATHS = {"none": (False, False), "rvq": (False, True), "rvq+stride1+resbloc
 FREQ_MAIN = "rvq+stride1+resblock"
 # per request: the fused conv takes the 1D tail only (the encoder's ELU + 512 -> 128 k7, the
 # decoder's 128 -> 512 k7); the 2D resblocks never reach the resblock kernel; every one of
-# the 18 + 18 time_group_norms of the encoder and the decoder runs the tgn kernels
+# the 18 + 18 time_group_norms of the encoder and the decoder runs the tgn kernels; the four
+# grouped transposed 2D convs run convtr2d on every bf16 path (gr1's too: C / 2 groups of 2 -> 1)
 FREQ_NORMS = 18  # each side's
 FREQ_EXPECT = {
-    "none": {"conv1d_s1": 0, "resblock_tgn": 0, "resblock_tgn_finalize": 0, "rvq_encode": 0, "tgn_norm": 36},
-    "rvq": {"conv1d_s1": 0, "resblock_tgn": 0, "resblock_tgn_finalize": 0, "rvq_encode": 1, "tgn_norm": 36},
-    FREQ_MAIN: {"conv1d_s1": 2, "resblock_tgn": 0, "resblock_tgn_finalize": 0, "rvq_encode": 1, "tgn_norm": 36},
+    "none": {"conv1d_s1": 0, "resblock_tgn": 0, "resblock_tgn_finalize": 0, "rvq_encode": 0, "tgn_norm": 36,
+             "convtr2d": 4},
+    "rvq": {"conv1d_s1": 0, "resblock_tgn": 0, "resblock_tgn_finalize": 0, "rvq_encode": 1, "tgn_norm": 36,
+            "convtr2d": 4},
+    FREQ_MAIN: {"conv1d_s1": 2, "resblock_tgn": 0, "resblock_tgn_finalize": 0, "rvq_encode": 1, "tgn_norm": 36,
+                "convtr2d": 4},
 }
 # one shared training step with both SEANet flags: the generator's encode and decode once (with grad)
-FREQ_TRAIN_EXPECT = {**FREQ_EXPECT[FREQ_MAIN], "rvq_encode": 0, "tgn_norm": 0}
+FREQ_TRAIN_EXPECT = {**FREQ_EXPECT[FREQ_MAIN], "rvq_encode": 0, "tgn_norm": 0, "convtr2d": 0}
+
 FREQ_TRAIN_B, FREQ_TRAIN_STEPS, FREQ_TIMED_STEPS = 16, 2, 2
 # fp32 card against CPU: a differing code only where its two codewords' distances to the
 # residual differ by at most this share of the residual's squared norm; the reconstruction
@@ -3194,9 +3208,9 @@ def freq_serving(dev, gr: int, s_bf, s_fp) -> dict:
     """B = 8 x 10 s requests on the three bf16 paths with exact launch counts;
     on the main path every kernel call of the requests against its plain
     version on its own inputs, and the first request served again: the same
-    tokens, and a reconstruction that moves less than bf16 moves it from
-    fp32 (cuDNN's transposed 2D convs may sum in another order from run to
-    run); the flip rates against the fp32-exact path."""
+    tokens and the same reconstruction bit for bit (the grouped transposed
+    2D convs run the convtr2d kernel, which sums in a fixed order; cuDNN's
+    did not); the flip rates against the fp32-exact path."""
     requests = [_speech(70 + i, FREQ_B, FREQ_SECONDS) for i in range(2)]
     _freq_flags("none")
     codes_fp, _, recon_fp, _ = s_fp(requests[0], bit_width=None)
@@ -3229,7 +3243,7 @@ def freq_serving(dev, gr: int, s_bf, s_fp) -> dict:
             rerun, yard = _rel(again[2], outs[0][2]), _rel(outs[0][2], recon_fp)
             log(f"[freq] gr{gr} {path}: the first request served again: {token_diff} tokens differ; recon relative "
                 f"L2 {rerun:.3e} from the first serving (bf16 vs fp32 {yard:.3e})")
-            if token_diff or rerun > yard:
+            if token_diff or rerun != 0:
                 raise RuntimeError(f"freq gr{gr}: the main path served the same request twice with different results")
             res.update(launches=counts, held_calls=len(seanet_calls) + len(rvq_calls), rerun_recon_rel_l2=rerun,
                        recon_bf16_vs_fp32_rel_l2=yard, max_abs_err={k: held[k] for k in ("conv1d_s1", "rvq_encode")})
@@ -3288,12 +3302,59 @@ def _peak_seconds(fn, dev) -> tuple:
     return t, torch.cuda.max_memory_allocated() / 2**30
 
 
+def _convtr2d_kept(spec, f: int, t: int) -> tuple:
+    """(F, T) a transposed 2D conv keeps of (f, t) after its trim (ops/conv.apply_sconv_transpose2d)."""
+    (kf, kt), (sf, st) = conv_ops.as_pair(spec.kernel_size), conv_ops.as_pair(spec.stride)
+    (fo_l, fo_r), (to_l, to_r) = spec.out_padding
+    pt_f, pt_t = kf - sf, kt - st
+    right_t = math.ceil(pt_t * spec.trim_right_ratio) if spec.causal else pt_t // 2
+    trim_f = max(pt_f - pt_f // 2 - fo_l, 0) + max(pt_f // 2 - fo_r, 0)
+    trim_t = max(pt_t - right_t - to_l, 0) + max(right_t - to_r, 0)
+    return (f - 1) * sf + kf - trim_f, (t - 1) * st + kt - trim_t
+
+
+def freq_convtr2d_rows(dev, s_bf, card: str, gr: int = 8) -> list:
+    """convtr2d at the benchmark cell's four shapes (B = 64, 305 frames, the
+    served model's own weights, seeded bf16 inputs): held against the plain
+    version, then timed against it and against cuDNN's F.conv_transpose2d,
+    beside the bound (x, the weights and the kept output moved once)."""
+    frames = cli._bucket_length(int(FREQ_PCM_SECONDS * SR), 320) // 320 + 1
+    gen = torch.Generator(device=dev).manual_seed(17)
+    layers = [m for m in s_bf.model.decoder.modules() if isinstance(m, conv_ops.SConvTranspose2d)]
+    rows, (f, t) = [], (1, frames)
+    with torch.inference_mode():
+        for i, m in enumerate(layers):
+            spec, stride = m.spec, conv_ops.as_pair(m.spec.stride)
+            x = torch.randn(FREQ_PCM_B, spec.in_channels, f, t, device=dev, generator=gen).to(torch.bfloat16)
+            w, b = m.convtr.weight().to(torch.bfloat16), m.convtr.layer.bias.to(torch.bfloat16)
+            name = f"freq gr{gr} dec convtr2d {i + 1} {tuple(x.shape)} groups {spec.groups} stride {stride}"
+            kernel = lambda: convtr2d_kernel.convtr2d(x, w, b, stride, spec.groups)  # noqa: E731
+            plain = lambda: convtr2d_kernel.convtr2d_reference(x, w, b, stride, spec.groups)  # noqa: E731
+            library = lambda: F.conv_transpose2d(x, w, b, stride=stride, groups=spec.groups)  # noqa: E731
+            err = _held("convtr2d", name, kernel(), plain())
+            kept = _convtr2d_kept(spec, f, t)
+            nbytes = 2 * (x.numel() + w.numel() + b.numel() + FREQ_PCM_B * spec.out_channels * kept[0] * kept[1])
+            flops = 2.0 * x.numel() * (spec.out_channels // spec.groups) * w.shape[2] * w.shape[3]
+            row = _row(name, _cuda_ms(kernel, 20), _cuda_ms(plain, 3), _bound(nbytes, flops, PEAK_BF16),
+                       library_ms=_cuda_ms(library, 5), max_abs_err=err)
+            rows.append(row)
+            log(f"[freq] convtr2d {name} -> kept {kept}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, "
+                f"F.conv_transpose2d {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
+                f"{100 * row['bound_ms'] / row['ms']:.1f} %) ({card})")
+            f, t = kept
+    total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    log(f"[freq] gr{gr} convtr2d, the four a request: kernel {total['ms']:.4f} ms, F.conv_transpose2d "
+        f"{total['library_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms ({100 * total['bound_ms'] / total['ms']:.1f} "
+        f"%) ({card})")
+    return rows
+
+
 def freq_conv_rows(dev, s_bf, card: str) -> list:
     """conv1d_s1 at the two FreqCodec shapes (B = 64, T = 501, the served
     model's own weights): held against the plain version, then timed
     against it and against cuDNN, beside the bound, and at T = 500 (rows
     16-byte aligned, where T = 501's are 2-byte aligned on every other
-    channel) in the same call."""
+    channel) in the same call; then convtr2d's rows (freq_convtr2d_rows)."""
     enc, dec = s_bf.model.encoder.model, s_bf.model.decoder.model
     layers = [ConvLayer("freq enc_last elu 512->128 k7", enc[len(enc) - 1], FREQ_TIME_B, FREQ_FRAMES, "elu",
                         torch.bfloat16, dev, 14),
@@ -3313,7 +3374,7 @@ def freq_conv_rows(dev, s_bf, card: str) -> list:
                 f"({row['regime']}; at T={FREQ_FRAMES - 1} {row['t_minus_1_ms']:.4f} ms), plain "
                 f"{row['plain_ms']:.3f} ms, cuDNN {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
                 f"({row['bound_by']}) ({card})")
-    return rows
+    return rows + freq_convtr2d_rows(dev, s_bf, card)
 
 
 def freq_timing(dev, gr: int, s_bf, s_fp, card: str) -> dict:
@@ -3422,8 +3483,10 @@ def freq_cli(dev, s_fp) -> dict:
     dec_counts = read_counts()
     _freq_flags("none")
     batches = 2
+    # no convtr2d: the encode mode never decodes, and the decode mode's latents are the fp32
+    # codewords, so its decoder runs in fp32 and its transposed convs on cuDNN
     expect = {"conv1d_s1": batches, "resblock_tgn": 0, "resblock_tgn_finalize": 0, "rvq_encode": 0,
-              "tgn_norm": FREQ_NORMS * batches}
+              "tgn_norm": FREQ_NORMS * batches, "convtr2d": 0}
     if enc_counts != expect or dec_counts != expect:
         raise RuntimeError(f"freq cli: launches encode {enc_counts}, decode {dec_counts}")
     codes = _codecs(FREQ_DIR / "enc" / "codecs.txt")
@@ -3459,7 +3522,9 @@ def freq_pcm16(dev, gr: int, s_bf, card: str) -> dict:
     the CLI serves them. Per request: the kernels' exact launches, cuDNN's 2D
     convs by kind, the norms by route; the bucket's k + 1 token frames (the
     center STFT's 2k + 1 frames through the encoder's time stride 2) and a
-    PCM16 row for every valid sample; then one request under torch.profiler,
+    PCM16 row for every valid sample; the second serving's tokens and PCM16
+    the first's bit for bit (the transposed convs on convtr2d, which sums in
+    a fixed order); then one request under torch.profiler,
     whose stft and istft spans nest inside encode and decode, with the
     spans' device ms."""
     from torch.profiler import ProfilerActivity
@@ -3477,6 +3542,7 @@ def freq_pcm16(dev, gr: int, s_bf, card: str) -> dict:
     pcm = cli._wrap_pad(rows, T)
     _freq_flags(FREQ_MAIN)
     frames = T // 320 + 1
+    first = None
     for i in range(2):  # the first builds cuDNN's plans
         torch.cuda.synchronize()
         reset_counts()
@@ -3493,6 +3559,11 @@ def freq_pcm16(dev, gr: int, s_bf, card: str) -> dict:
         if codes[0].min() < 0 or codes[0].max() >= 1024 or any(
                 np.abs(recon[r, :n].astype(np.int32)).max() > 32767 * 0.99 + 1 for r, n in enumerate(ilens)):
             raise RuntimeError(f"freq gr{gr} pcm16: out-of-range tokens, or a row past its peak of 0.99")
+        if first is None:
+            first = (codes[0], recon)
+        elif not (np.array_equal(codes[0], first[0]) and np.array_equal(recon, first[1])):
+            raise RuntimeError(f"freq gr{gr} pcm16: the request served again gave other tokens or another PCM16 "
+                               f"({int((recon != first[1]).sum())} samples differ)")
     profiling.clear()
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         s_bf.collect(s_bf.dispatch(pcm, bit_width=None, run_mod="inference", pcm16_ilens=ilens),
@@ -3507,7 +3578,8 @@ def freq_pcm16(dev, gr: int, s_bf, card: str) -> dict:
     _freq_flags("none")
     log(f"[freq] gr{gr} pcm16 B={FREQ_PCM_B} x {FREQ_PCM_SECONDS} s (ragged {min(ilens)}-{longest} samples in a "
         f"{T}-sample bucket) through dispatch / collect: tokens (32, {FREQ_PCM_B}, {frames}), PCM16 "
-        f"({FREQ_PCM_B}, {T}); per request launches {launches}, 2D convs {conv2d}, norms {tgn}; device ms under "
+        f"({FREQ_PCM_B}, {T}), served twice bit for bit; per request launches {launches}, 2D convs {conv2d}, "
+        f"norms {tgn}; device ms under "
         f"the profiler " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()) + f" ({card})")
     return dict(launches=launches, conv2d=conv2d, tgn=tgn, span_device_ms=ms, frames=frames)
 
@@ -3529,6 +3601,8 @@ def freq_phase(dev, card: str) -> dict:
             res["pcm16"] = freq_pcm16(dev, gr, s_bf, card)
             res["conv_rows"] = freq_conv_rows(dev, s_bf, card)
             res["cli"] = freq_cli(dev, s_fp)
+        else:
+            res["convtr2d_rows_gr1"] = freq_convtr2d_rows(dev, s_bf, card, gr)
         res["timing"][gr] = freq_timing(dev, gr, s_bf, s_fp, card)
         del s_bf, s_fp
         torch.cuda.empty_cache()
@@ -3538,6 +3612,9 @@ def freq_phase(dev, card: str) -> dict:
     res["launches"] = {k: sum(r["launches"][k] for r in res["serving"].values()) for k in COUNTERS}
     res["max_abs_err"] = {k: max(r["max_abs_err"][k] for r in res["serving"].values())
                           for k in ("conv1d_s1", "rvq_encode")}
+    convtr = [r for r in res["conv_rows"] if "convtr2d" in r["name"]]
+    res["max_abs_err"]["convtr2d"] = max(r["max_abs_err"] for r in convtr)
+    res["convtr2d"] = {k: sum(r[k] for r in convtr) for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
     log(f"[freq] phase wall {time.perf_counter() - t0:.1f} s; main-path launches over both models' requests "
         f"{res['launches']}")
     return res
@@ -5450,6 +5527,11 @@ def main() -> int:
         dict(name="tgn_norm", route="cuda", source="funcodec_tpu_torch/csrc/tgn_norm.cu", replaces=None,
              launches=counts["tgn_norm"], max_abs_err=postnorm["max_abs_err"]["bfloat16"], bound_by="bytes",
              **{k: postnorm["totals"]["bfloat16"][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")}),
+        # no TPU kernel: JAX leaves the conv to XLA; FreqCodec gr8's four at the benchmark cell's shapes,
+        # cuDNN's F.conv_transpose2d as library_ms (no EnCodec path reaches it)
+        dict(name="convtr2d", route="cuda", source="funcodec_tpu_torch/csrc/convtr2d.cu", replaces=None,
+             launches=counts["convtr2d"], max_abs_err=freq["max_abs_err"]["convtr2d"], bound_by="bytes",
+             **freq["convtr2d"]),
     ]
     for name, variant in (("scale_copy", "A tile=4000"), ("dma_copy", "D dma_copy")):
         row = next(r for r in probe_rows if r["name"] == variant)  # bf16 at the probe shape

@@ -57,6 +57,7 @@ SIGNATURES = {
     "resblock_tgn_smem_bytes": (_I, [_I] * 7),
     "resblock_tgn_finalize_launch": (_I, [_P, _I, _P] + [_I] * 4 + [_P, _P, _I, _I] * 2 + [_P]),
     "tgn_norm_launch": (_I, [_P, _P, _P, _I, _P, _P] + [_I] * 7 + [_P]),
+    "convtr2d_launch": (_I, [_P] * 4 + [_I] * 8 + [_P]),
     "scale_copy_launch": (_I, [_P, _P, _I, _L] + [_I] * 4 + [_P]),
     "dma_copy_launch": (_I, [_P, _P, _L] + [_I] * 3 + [_P]),
     "dma_copy_smem_bytes": (_I, [_I] * 2),

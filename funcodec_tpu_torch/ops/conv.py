@@ -17,8 +17,9 @@ C and every spatial axis) and ``layer_norm`` (a LayerNorm over the channels
 at each position). A weight-normed layer holds the reference
 ``weight_g``/``weight_v`` and computes its weight with ``weight_norm_fuse``,
 the one fusion the discriminator's 2D convs share. The 2D convs run on
-cuDNN (``F.conv2d`` / ``F.conv_transpose2d``): their JAX counterparts are
-XLA convs, outside any Pallas kernel.
+cuDNN (``F.conv2d`` / ``F.conv_transpose2d``; the grouped transposed ones
+on a card as below): their JAX counterparts are XLA convs, outside any
+Pallas kernel.
 
 ``FUSED_STRIDE1`` routes each stride-1 conv with K > 1 (and, through
 ``apply_sconv1d_act``, an ELU right before it) to the fused pad + conv
@@ -35,11 +36,18 @@ requires grad). A transposed 1D conv's trim is then written by the kernel,
 which returns the kept window contiguous. Where grad is needed (training),
 and for every CPU tensor, the norm stays ATen's fp32 ``F.group_norm`` chain.
 
+A grouped transposed 2D conv takes the hand-written kernel of
+ops/convtr2d_kernel.py the same way, with no flag: a bf16 x on a card,
+groups > 1, and a result that autograd does not need; the kernel writes the
+untrimmed output, and the norm and the trim after it are unchanged.
+Training, the CPU, fp32 and groups = 1 keep ``F.conv_transpose2d``.
+
 Two counters say what a run's path took, as the kernels' ``LAUNCHES`` do
 (a run sets the values to 0 and reads them back): ``CONV2D_CALLS``, the 2D
-convs by kind (cuDNN's), and ``TGN_CALLS``, the time_group_norms by route
-(``kernel``: ops/tgn_kernel.py; ``aten``: ``F.group_norm``) and rank (1D
-or 2D); the norms inside the fused resblock kernel are not among them.
+convs by kind (the transposed ones on either route), and ``TGN_CALLS``, the
+time_group_norms by route (``kernel``: ops/tgn_kernel.py; ``aten``:
+``F.group_norm``) and rank (1D or 2D); the norms inside the fused resblock
+kernel are not among them.
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from funcodec_tpu_torch.ops.conv_kernel import fused_conv1d_s1
+from funcodec_tpu_torch.ops.convtr2d_kernel import convtr2d
 from funcodec_tpu_torch.ops.pad import (
     conv_padding_total,
     extra_padding_for_conv1d,
@@ -131,6 +140,16 @@ def _tgn_on_card(spec: ConvSpec, y: torch.Tensor, norm_scale, norm_bias) -> bool
     if spec.norm != "time_group_norm" or y.device.type != "cuda":
         return False
     return not (torch.is_grad_enabled() and (y.requires_grad or norm_scale.requires_grad or norm_bias.requires_grad))
+
+
+def _convtr2d_on_card(spec: ConvSpec, x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor]) -> bool:
+    """A grouped transposed 2D conv that the kernel of ops/convtr2d_kernel.py
+    computes: a bf16 x on a card, groups > 1 and a result that autograd does
+    not need. The kernel raises on a geometry it does not take."""
+    if x.device.type != "cuda" or x.dtype != torch.bfloat16 or spec.groups == 1:
+        return False
+    params = (weight,) if bias is None else (weight, bias)
+    return not (torch.is_grad_enabled() and (x.requires_grad or any(p.requires_grad for p in params)))
 
 
 def _count_norm(route: str, y: torch.Tensor) -> None:
@@ -300,13 +319,16 @@ def apply_sconv_transpose2d(
     (kf, kt), (sf, st) = as_pair(spec.kernel_size), as_pair(spec.stride)
     pt_f, pt_t = kf - sf, kt - st
     CONV2D_CALLS["transposed"] += 1
-    y = F.conv_transpose2d(
-        x,
-        weight.to(x.dtype),
-        None if bias is None else bias.to(x.dtype),
-        stride=(sf, st),
-        groups=spec.groups,
-    )
+    if _convtr2d_on_card(spec, x, weight, bias):
+        y = convtr2d(x, weight, bias, (sf, st), spec.groups)
+    else:
+        y = F.conv_transpose2d(
+            x,
+            weight.to(x.dtype),
+            None if bias is None else bias.to(x.dtype),
+            stride=(sf, st),
+            groups=spec.groups,
+        )
     y = apply_post_norm(spec, y, norm_scale, norm_bias)
     (f_out_l, f_out_r), (t_out_l, t_out_r) = spec.out_padding
     pad_f_right = pt_f // 2

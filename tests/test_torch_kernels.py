@@ -59,7 +59,7 @@ def test_library_name_tracks_the_sources():
     names = {s.name for s in build._sources()}
     assert {"rvq_encode.cu", "conv1d_s1.cu", "resblock_tgn.cu", "resblock_tgn_streamed.cu", "resblock_tgn_legacy.cu",
             "resblock_tgn.cuh", "common.cuh", "conv1d_s1_legacy.cu", "conv1d_s1.cuh", "copy_probe.cu",
-            "tgn_norm.cu"} <= names
+            "tgn_norm.cu", "convtr2d.cu"} <= names
 
 
 def test_signatures_match_the_sources():
