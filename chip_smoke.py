@@ -38,13 +38,15 @@ In phases that each raise on failure:
    ragged N, n_q = 16, bins = 1000, N = 1 and n_q = 1, each launched twice
    (equal results; 51 times at the flagship shape). The fused conv at every flagship layer it serves
    (B = 64 x 10 s), a dilated causal replicate case, ragged T on every
-   kernel, a T shorter than one tile and one step longer, B = 1 and 2, 24 ->
-   40 channels (the first kernel) and an fp32 case, each launched twice
-   (equal results). The fused resblock at the four flagship widths (B = 64 x 10 s), a
-   ragged T, an fp32 case, B = 16 and B = 1 (grids smaller than the card), a
-   T shorter than one tile and T = tile + 1, a capped grid, each launched
-   twice (equal results); the finalize kernel against finalize_affine. bf16
-   outputs are held to 2 bf16 ulps of the output's largest value.
+   kernel, a T shorter than one tile and one step longer, B = 1 and 2, each
+   launched twice (equal results). The fused resblock at the four flagship
+   widths (B = 64 x 10 s), a ragged T, B = 16 and B = 1 (grids smaller than
+   the card), a T shorter than one tile and T = tile + 1, a capped grid,
+   each launched twice (equal results); the finalize kernel against
+   finalize_affine. Outputs are held to 2 bf16 ulps of the output's largest
+   value. Calls no kernel takes (an fp32 conv and block, a 24 -> 40 conv, a
+   C = 48 block) are declined: None, no launch, and the module with its
+   flag on gives the flag-off output bit for bit.
 4. serving: B = 8 x 10 s requests on three bf16 paths, each with FUSED_RVQ:
    unfused SEANet; FUSED_STRIDE1; FUSED_STRIDE1 + FUSED_RESBLOCK (the main
    path of this slice). Every kernel's launch count is read around each
@@ -79,9 +81,7 @@ In phases that each raise on failure:
    trip, two 24 kHz files through --file_sampling_rate, and fp32
    codecs.txt on the card against the CPU; end-to-end audio-s/s.
 7. timing: each kernel against its plain version (and cuDNN / the unfused
-   block) at each flagship shape, beside its bound; conv1d_s1, resblock_tgn
-   and rvq_encode also against their first versions (the legacy device code,
-   in turns new, old, old, new), with each bytes-bound
+   block) at each flagship shape, beside its bound, with each bytes-bound
    row's share of the published peak and of the measured copy ceiling; the
    B = 64 x 10 s serving rate of fp32-exact, bf16 + RVQ kernel,
    + FUSED_STRIDE1 and + both SEANet flags. The per-shape rows also go to
@@ -98,9 +98,10 @@ In phases that each raise on failure:
    configuration's forward launches (4 convs, 24 resblock passes, 16
    finalizes; the backwards launch none, the others none at all). Then the
    generator's gradients with both SEANet flags against without (fp32 and
-   bf16, no draws); each fused backward against autograd through its plain
-   version at every flagship training shape (the four head convs, the
-   eight residual blocks) in fp32 and bf16, timed; one fp32 two-forward
+   bf16, no draws; in fp32, which no kernel takes, the flags launch nothing);
+   each fused backward against autograd through its plain version at every
+   flagship training shape (the four head convs, the eight residual blocks)
+   in bf16, timed, and the same calls in fp32 declined; one fp32 two-forward
    step at B = 2 on the card against the CPU from the same weights (stats
    and per-module gradient norms; the CPU's codebook searches take the
    card's codes, its own choices differing only at near-ties); and ms a
@@ -113,12 +114,14 @@ In phases that each raise on failure:
    pad and the crop to 2.56 s happen; 8 valid utterances of 1.5-2.5 s):
    bf16, the three kernels on, batch 16, 2 epochs x 4 steps with exact
    launch counts (8 steps x the fused step's, and each validation batch's
-   one encode + decode with rvq_encode); the checkpoint contract's files and
+   one encode + decode with rvq_encode, on the fp32 masters, which no SEANet
+   kernel takes); the checkpoint contract's files and
    finite stats; resumed to epoch 3 (the loaded state equal to
    checkpoint.pth bit for bit, step 12, epochs 1-2 unchanged); after each
-   of 4 more in-place updates, validation with the fused SEANet kernels
-   against without, on the same RVQ codes (no stale packed weights; codes
-   of the unfused scan differ only at near-ties); one epoch from the device cache with
+   of 4 more in-place updates, a bf16 copy of the encoder and decoder
+   loaded in place with the SEANet flags on: no stale packs, the output
+   moved, flags on against off within twice bf16's distance from fp32;
+   one epoch from the device cache with
    stats_interval 2 (its crops equal to the host gather of the same
    offsets); latest.pth served by cli/codec_inference (tokens equal to a
    direct Speech2Token.dispatch, every codebook initialized); the loop's
@@ -192,7 +195,8 @@ In phases that each raise on failure:
    steady epoch against it, the checkpoint write, the validation wall.
    Stage 3: cli/text2audio_inference --model_file exp/latest.pth on 4 lines,
    one with a zero-shot prompt from the corpus, the three flags on: launches
-   exact, each codec kernel call held against its plain version.
+   exact (the CLI's codec is fp32, which no SEANet kernel takes: its calls
+   are declined, and only rvq_encode and the norms launch).
    ``--profile`` adds one bf16 training step at about batch_bins 10240.
 
 13. dp: data parallelism (parallel/dist.py). The flagship's bf16 shared
@@ -202,12 +206,13 @@ In phases that each raise on failure:
    launches exact; then, with the default algorithms, steady ms a step
    with and without the group and the gradient all_reduce's ms. World 2
    through gloo on the one card (two spawned processes on cuda:0: NCCL
-   refuses two ranks on one device), fp32 with TF32 off, global B = 16,
+   refuses two ranks on one device), fp32 with TF32 off and deterministic
+   algorithms (world 1's reference too), global B = 16,
    SGD and initialized codebooks: the ranks' parameters and codebooks bit
    for bit equal and within rtol 2e-4 / atol 2e-5 of world 1's (JAX's
    data-parallel tolerance; world 1 takes the ranks' codes, each of its
-   own that differs a near-tie), each rank's kernel calls against their
-   plain versions, ms a step; the Laura trainer at full width, 2 steps at
+   own that differs a near-tie), each rank's fused calls declined (no
+   kernel takes fp32) and no launch, ms a step; the Laura trainer at full width, 2 steps at
    world 2 against world 1 (the ranks holding unequal token counts).
    Speech2Token with two replicas on the card: fp32-exact tokens equal to
    one replica's, bf16 main-path launches exact per replica, the first
@@ -287,6 +292,7 @@ line is
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import logging
 import math
@@ -341,8 +347,6 @@ SR = 16_000
 PARAMS_M = 14.85  # the flagship's published generator size
 # kernel vs plain version: ties broken by summation order only
 MIN_AGREE_Q0, MIN_AGREE_ALL, MAX_QUANT_ERR = 0.999, 0.99, 1e-5
-# fp32 outputs of the SEANet kernels: summation order only, relative to the output's scale
-FP32_REL_TOL = {"conv1d_s1": 1e-5, "resblock_tgn": 1e-4}
 # a sanity bound on token flips between two bf16 paths (a broken kernel flips ~all)
 MAX_FLIP_ALL = 0.5
 # the card's published peaks (H100 SXM data sheet, dense)
@@ -408,22 +412,21 @@ def build_phase() -> None:
     for line in str(rep["ptxas"]).splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             log(f"[build] ptxas: {line.strip()}")
-    log(f"[build] dynamic shared memory per block: rvq_encode {lib.rvq_encode_smem_bytes(0)} B "
-        f"(384 threads, 1 block an SM; legacy {lib.rvq_encode_smem_bytes(1)} B)")
+    log(f"[build] dynamic shared memory per block: rvq_encode {lib.rvq_encode_smem_bytes()} B "
+        f"(384 threads, 1 block an SM)")
     for ci, co, k in ((1, 32, 7), (512, 128, 7), (128, 512, 7), (32, 1, 7), (32, 16, 3), (64, 32, 3), (128, 64, 3),
                       (256, 128, 3)):
-        geo = (ci, co, k, 1, (k - 1) - (k - 1) // 2, 1)  # Cin, Cout, K, dilation, left, bf16
-        log(f"[build] conv1d_s1 {ci}->{co} k{k} bf16: {conv_kernel.REGIMES[lib.conv1d_s1_regime(*geo, 0)]}, "
-            f"{lib.conv1d_s1_out_tile(*geo, 0)} output / {lib.conv1d_s1_chunk(*geo, 0)} input channels a tile / chunk, "
-            f"{lib.conv1d_s1_smem_bytes(*geo, 0)} B shared memory, {lib.conv1d_s1_blocks_per_sm(*geo, 0)} blocks an SM "
-            f"(0: not persistent); legacy {lib.conv1d_s1_smem_bytes(*geo, 1)} B")
-    kinds = {0: "legacy", 1: "persistent, resident weights", 2: "persistent, streamed weights"}
+        geo = (ci, co, k, 1, (k - 1) - (k - 1) // 2)  # Cin, Cout, K, dilation, left (bf16)
+        log(f"[build] conv1d_s1 {ci}->{co} k{k} bf16: {conv_kernel.REGIMES[lib.conv1d_s1_regime(*geo)]}, "
+            f"{lib.conv1d_s1_out_tile(*geo)} output / {lib.conv1d_s1_chunk(*geo)} input channels a tile / chunk, "
+            f"{lib.conv1d_s1_smem_bytes(*geo)} B shared memory, {lib.conv1d_s1_blocks_per_sm(*geo)} blocks an SM "
+            f"(0: not persistent)")
+    kinds = {0: "no kernel", 1: "persistent, resident weights", 2: "persistent, streamed weights"}
     for c in (32, 64, 128, 256):
-        geo = (c, c // 2, 3, 1, 1, 1)  # C, H, K, dilation, left, bf16
-        log(f"[build] resblock_tgn C={c} bf16: {kinds[lib.resblock_tgn_kind(*geo, 0)]}, tile {lib.resblock_tgn_tile(*geo, 0)}, "
-            f"{lib.resblock_tgn_smem_bytes(*geo, 0)} B shared memory, blocks an SM per pass "
-            f"{[lib.resblock_tgn_blocks_per_sm(m, *geo, 0) for m in range(3)]}; legacy tile "
-            f"{lib.resblock_tgn_tile(*geo, 1)}, {lib.resblock_tgn_smem_bytes(*geo, 1)} B")
+        geo = (c, c // 2, 3, 1, 1)  # C, H, K, dilation, left (bf16)
+        log(f"[build] resblock_tgn C={c} bf16: {kinds[lib.resblock_tgn_kind(*geo)]}, tile {lib.resblock_tgn_tile(*geo)}, "
+            f"{lib.resblock_tgn_smem_bytes(*geo)} B shared memory, blocks an SM per pass "
+            f"{[lib.resblock_tgn_blocks_per_sm(m, *geo) for m in range(3)]}")
 
 
 # ---------------------------------------------------------------------------
@@ -478,12 +481,10 @@ def rvq_kernel_phase(dev) -> float:
     return worst
 
 
-def _tolerance(kernel: str, ref: torch.Tensor) -> float:
-    """2 bf16 ulps of the output's largest value; fp32: FP32_REL_TOL of it."""
+def _tolerance(ref: torch.Tensor) -> float:
+    """2 bf16 ulps of the output's largest value (the kernels take bf16 only)."""
     scale = float(ref.float().abs().max())
-    if ref.dtype == torch.bfloat16:
-        return 2.0 * 2.0 ** (math.floor(math.log2(scale)) - 7) if scale > 0 else 0.0
-    return FP32_REL_TOL[kernel] * scale
+    return 2.0 * 2.0 ** (math.floor(math.log2(scale)) - 7) if scale > 0 else 0.0
 
 
 def _held(kernel: str, name: str, out: torch.Tensor, ref: torch.Tensor) -> float:
@@ -491,7 +492,7 @@ def _held(kernel: str, name: str, out: torch.Tensor, ref: torch.Tensor) -> float
         raise RuntimeError(f"{kernel} {name}: output {out.dtype}{tuple(out.shape)} is not finite "
                            f"or not shaped like the plain version's {ref.dtype}{tuple(ref.shape)}")
     err = float((out.float() - ref.float()).abs().max())
-    tol = _tolerance(kernel, ref)
+    tol = _tolerance(ref)
     log(f"[kernel] {kernel} {name}: {tuple(out.shape)} {str(out.dtype)[6:]} max|err| {err:.3e} (limit {tol:.3e})")
     if err > tol:
         raise RuntimeError(f"{kernel} {name}: the kernel disagrees with its plain version")
@@ -518,9 +519,14 @@ class ConvLayer:
     def kernel(self):
         return conv_kernel.fused_conv1d_s1(*self.args())
 
-    def legacy(self):
-        """The first version of the device code (one block per tile, wmma over an im2col tile)."""
-        return conv_kernel.fused_conv1d_s1(*self.args(), variant="legacy")
+    def regime(self):
+        """The kernel csrc/conv1d_s1.cu runs for this layer (None: none takes it)."""
+        return conv_kernel.REGIMES[build.load().conv1d_s1_regime(
+            self.x.shape[1], self.w.shape[0], self.spec.kernel_size, self.spec.dilation, self.left)]
+
+    def module(self):
+        """The layer's own SConv1d (with the act before it as forward_elu does)."""
+        return self.conv.forward_elu(self.x) if self.act == "elu" else self.conv(self.x)
 
     def plain(self):
         return conv_kernel.fused_conv1d_s1_reference(*self.args())
@@ -554,15 +560,12 @@ class ResblockCall:
     def kernel(self):
         return resblock_kernel.fused_resblock_tgn(self.x, *self.convs, **self.kwargs)
 
-    def legacy(self):
-        """The first version of the device code (one block per tile and sample)."""
-        return resblock_kernel.fused_resblock_tgn(self.x, *self.convs, variant="legacy")
-
     def plain(self):
         return resblock_kernel.fused_resblock_tgn_reference(self.x, *self.convs)
 
-    def unfused(self):
-        """The port's unfused block (cuDNN convs, F.group_norm); the flags are off."""
+    def module(self):
+        """The block's own forward: the fused kernel where FUSED_RESBLOCK is on
+        and one takes the block, else the unfused chain (cuDNN convs, norms)."""
         return self.block(self.x)
 
     def bound_ms(self):
@@ -614,7 +617,7 @@ def _extra_block(C, dil, causal, pad_mode, dtype, dev, seed):
 
 
 def _conv24x40(dev, seed):
-    """A zero-padded 24 -> 40 channel k3 d3 conv: channel counts the tensor-core kernels do not take."""
+    """A zero-padded 24 -> 40 channel k3 d3 conv: channel counts no kernel takes."""
     from funcodec_tpu_torch.ops.conv import ConvSpec, SConv1d
 
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -631,8 +634,6 @@ def seanet_kernel_phase(dev, calls):
         ConvLayer("dilated causal replicate elu 64->32 k3 d9",
                   _extra_block(64, 9, True, "replicate", bf, dev, 40).block[1], 64, 80_000, "elu", bf, dev, 41),
         ConvLayer("ragged elu 32->16 k3 T=160003", rb[0], 64, 160_003, "elu", bf, dev, 43),
-        ConvLayer("fp32 elu 128->64 k3", _extra_block(128, 1, False, "reflect", torch.float32, dev, 44).block[1],
-                  8, 20_000, "elu", torch.float32, dev, 45),
         # tiles shorter than one (256 steps) and one step longer, B = 1, T % 8 != 0 on every kernel
         ConvLayer("short elu 64->32 k3 T=100", rb[1], 2, 100, "elu", bf, dev, 46),
         ConvLayer("tile+1 elu 128->64 k3 T=257", rb[2], 2, 257, "elu", bf, dev, 47),
@@ -641,7 +642,11 @@ def seanet_kernel_phase(dev, calls):
         ConvLayer("ragged dec_last elu 32->1 k7 T=16001", heads[3].conv, 4, 16_001, "elu", bf, dev, 50),
         ConvLayer("ragged enc_last elu 512->128 k7 T=501", heads[1].conv, 2, 501, "elu", bf, dev, 51),
         ConvLayer("B=2 dec_first 128->512 k7 T=250", heads[2].conv, 2, 250, None, bf, dev, 52),
-        ConvLayer("legacy 24->40 channels gelu k3 d3", _conv24x40(dev, 53), 2, 3000, "gelu", bf, dev, 54),
+    ]
+    declined = [
+        ConvLayer("fp32 elu 128->64 k3", _extra_block(128, 1, False, "reflect", torch.float32, dev, 44).block[1],
+                  8, 20_000, "elu", torch.float32, dev, 45),
+        ConvLayer("24->40 channels k3 d3", _conv24x40(dev, 53), 2, 3000, None, bf, dev, 54),
     ]
     with torch.inference_mode():
         for layer in heads + rb_convs + extra_convs:
@@ -651,14 +656,12 @@ def seanet_kernel_phase(dev, calls):
             if not torch.equal(out, again):
                 raise RuntimeError(f"conv1d_s1 {layer.name}: two launches on the same input differ")
             del again
-            err = _held("conv1d_s1", layer.name, out, layer.plain())
-            if layer.x.dtype == torch.bfloat16:
-                errs["conv1d_s1"] = max(errs["conv1d_s1"], err)
+            errs["conv1d_s1"] = max(errs["conv1d_s1"], _held("conv1d_s1", layer.name, out, layer.plain()))
+        for layer in declined:
+            _declined("conv1d_s1", "FUSED_STRIDE1", layer)
         extra_blocks = [
             ResblockCall("ragged C=64 T=80003", _extra_block(64, 1, False, "reflect", torch.bfloat16, dev, 50),
                          64, 80_003, torch.bfloat16, dev, 51),
-            ResblockCall("fp32 C=128 T=20000", _extra_block(128, 1, False, "reflect", torch.float32, dev, 52),
-                         8, 20_000, torch.float32, dev, 53),
             # grids smaller than the card, tiles shorter than one and one step longer, a capped grid
             ResblockCall("B=16 C=32 T=16000", resblocks[0].block, 16, 16_000, torch.bfloat16, dev, 54),
             ResblockCall("B=1 C=64 T=8000", resblocks[1].block, 1, 8_000, torch.bfloat16, dev, 55),
@@ -670,7 +673,12 @@ def seanet_kernel_phase(dev, calls):
             ResblockCall("3 blocks C=64 T=4096", resblocks[1].block, 3, 4096, torch.bfloat16, dev, 61, max_blocks=3),
             ResblockCall("dilated causal C=256 T=1003",
                          _extra_block(256, 3, True, "replicate", torch.bfloat16, dev, 62), 2, 1003, torch.bfloat16, dev, 63),
-            ResblockCall("legacy C=32 T=2000", resblocks[0].block, 2, 2000, torch.bfloat16, dev, 64, variant="legacy"),
+        ]
+        declined_blocks = [
+            ResblockCall("fp32 C=128 T=20000", _extra_block(128, 1, False, "reflect", torch.float32, dev, 52),
+                         8, 20_000, torch.float32, dev, 53),
+            ResblockCall("C=48 T=2000", _extra_block(48, 1, False, "reflect", torch.bfloat16, dev, 64), 2, 2000,
+                         torch.bfloat16, dev, 65),
         ]
         for call in resblocks + extra_blocks:
             out = call.kernel()
@@ -679,18 +687,38 @@ def seanet_kernel_phase(dev, calls):
             if not torch.equal(out, again):
                 raise RuntimeError(f"resblock_tgn {call.name}: two launches on the same input differ")
             del again
-            err = _held("resblock_tgn", call.name, out, call.plain())
-            if call.x.dtype == torch.bfloat16:
-                errs["resblock_tgn"] = max(errs["resblock_tgn"], err)
+            errs["resblock_tgn"] = max(errs["resblock_tgn"], _held("resblock_tgn", call.name, out, call.plain()))
+        for call in declined_blocks:
+            _declined("resblock_tgn", "FUSED_RESBLOCK", call)
         errs["resblock_tgn_finalize"] = finalize_kernel_phase(dev, resblocks[0])
     return errs
+
+
+def _declined(kernel: str, flag: str, call) -> None:
+    """A call no kernel takes (fp32, widths the kernels are not built for): the
+    wrapper returns None and launches nothing, and the module with its flag on
+    gives what it gives with the flag off (the plain path), bit for bit."""
+    saved = getattr(conv_ops, flag)
+    before = read_counts()
+    out = call.kernel()
+    setattr(conv_ops, flag, True)
+    on = call.module()
+    setattr(conv_ops, flag, False)
+    off = call.module()
+    setattr(conv_ops, flag, saved)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in read_counts().items() if k != "tgn_norm"}
+    log(f"[kernel] {kernel} {call.name} {str(call.x.dtype)[6:]}: declined ({out is None}), launches {launched}, "
+        f"the module with {flag} on equals it off: {torch.equal(on, off)}")
+    if out is not None or any(launched.values()) or not torch.equal(on, off):
+        raise RuntimeError(f"{kernel} {call.name}: a call no kernel takes was not declined to the plain path")
 
 
 def _finalize_case(dev, call):
     """Seeded partials of one pass at the call's shape, and the affine tensor."""
     B, C, T = call.x.shape
     lib = build.load()
-    n_t = -(-T // lib.resblock_tgn_tile(C, C // 2, 3, 1, 1, 1, 0))
+    n_t = -(-T // lib.resblock_tgn_tile(C, C // 2, 3, 1, 1))
     gen = torch.Generator(device=dev).manual_seed(70)
     part = torch.rand(B, n_t, 4, device=dev, generator=gen, dtype=torch.float64) * 1e4
     part[:, :, 1::2] += part[:, :, 0::2] ** 2 / (C // 2 * 256)  # sumsq above sum^2 / n
@@ -1177,8 +1205,13 @@ REPLACES = {
 CLI_DIR = OUT_DIR / "cli"
 CLI_BATCH, CLI_BIT_WIDTH = 16, 16_000  # 32 quantizers
 CLI_UTTS, CLI_SECONDS = 32, (1.0, 12.0)  # the corpus: utterances of uniformly drawn length
-DECODE_PER_BATCH = {"conv1d_s1": 2, "resblock_tgn": 12, "resblock_tgn_finalize": 8, "rvq_encode": 0,
-                    "tgn_norm": 6, "convtr2d": 0}  # the decoder's half of EXPECT
+# the decode modes (decode, decode_emb) run the decoder on the fp32 codewords, which no SEANet
+# kernel takes: the unfused decoder, its 6 + 4 x 3 time_group_norms on the tgn kernels
+DECODE_PER_BATCH = {"conv1d_s1": 0, "resblock_tgn": 0, "resblock_tgn_finalize": 0, "rvq_encode": 0,
+                    "tgn_norm": 18, "convtr2d": 0}
+# the encoder's half of EXPECT[MAIN_PATH]: a bf16 encode and its RVQ (need_recon=False)
+ENCODE_MAIN = {"conv1d_s1": 2, "resblock_tgn": 12, "resblock_tgn_finalize": 8, "rvq_encode": 1, "tgn_norm": 6,
+               "convtr2d": 0}
 MIN_FP32_AGREE = 0.999
 
 
@@ -1371,8 +1404,8 @@ FUSED_GRAD_FP32_REL, FUSED_GRAD_BF16_FACTOR, FUSED_GRAD_BF16_MIN = 1e-2, 1.5, 0.
 CARD_CPU_REL, CARD_CPU_DISC_REL = 1e-3, 2e-2
 CARD_CPU_NEAR_TIE = 1e-4  # a code the CPU would choose otherwise: the two distances' gap, of |x|^2
 # the fused backwards against autograd through their plain versions, relative to the
-# largest gradient: fp32 summation order; bf16 the plain version's bf16 casts
-BACKWARD_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# largest gradient: the plain version's bf16 casts
+BACKWARD_REL = 2e-2
 NO_DRAWS = dict(kmeans_init=False, quantize_dropout=False, expiry_mode="reference")
 STEADY = dict(kmeans_init=False)  # initialized codebooks; the recipe's dropout and expiry
 
@@ -1484,7 +1517,8 @@ def _relative(a, b) -> float:
 def fused_grad_phase(dev):
     """The generator's gradients with both SEANet flags against without on
     one batch (no draws), in fp32 and in bf16; bf16 against fp32 as the
-    yardstick of the bf16 comparison."""
+    yardstick of the bf16 comparison. No kernel takes fp32: with the flags
+    on, the fp32 turn launches nothing and runs the plain path."""
     state, _ = build_trainer(dev, True, None, **NO_DRAWS)
     speech = _train_speech(dev, TRAIN_B, seed=41)
     names = [n for n, _ in state.model.named_parameters()]
@@ -1496,7 +1530,7 @@ def fused_grad_phase(dev):
             _, grads[dtype, fused] = generator_grads(state.model, state.discriminator, speech,
                                                      torch.Generator(device=dev).manual_seed(0), dtype)
             torch.cuda.synchronize()
-            if read_counts() != (TRAIN_EXPECT if fused else TRAIN_NONE):
+            if read_counts() != (TRAIN_EXPECT if fused and dtype == torch.bfloat16 else TRAIN_NONE):
                 raise RuntimeError(f"fused gradients {dtype} fused={fused}: launches {read_counts()} for one "
                                    "generator turn")
     _set_seanet_flags(False)
@@ -1666,46 +1700,53 @@ def _backward_bound(call) -> tuple:
 def backward_phase(dev, card: str):
     """Each fused kernel's forward against its plain version, and its backward
     against autograd through the plain version, at every flagship training
-    shape, in fp32 and bf16; then the backward timed (bf16) against the plain
-    version's. Returns the timing rows, the backwards' worst relative errors
-    (bf16) and the forwards' worst absolute errors (both types)."""
+    shape in bf16; then the backward timed against the plain version's. In
+    fp32, which no kernel takes, each of those calls is declined: None, no
+    launch. Returns the timing rows, the backwards' worst relative errors
+    and the forwards' worst absolute errors."""
     state, _ = build_trainer(dev, True, torch.bfloat16, **STEADY)
     model = state.model
     rows = {"conv1d_s1": [], "resblock_tgn": []}
     worst = {"conv1d_s1": 0.0, "resblock_tgn": 0.0}
     forward = {"conv1d_s1": 0.0, "resblock_tgn": 0.0}
-    for dtype in (torch.float32, torch.bfloat16):
-        heads, blocks = _training_calls(model, dtype, dev)
-        for call in heads + blocks:
-            kernel = "conv1d_s1" if isinstance(call, ConvLayer) else "resblock_tgn"
-            inputs, fused, plain = _grad_inputs(call, dtype)
-            y, y_ref = fused(), plain()
-            forward[kernel] = max(forward[kernel], _held(kernel, f"{call.name} B={TRAIN_B} (training)",
-                                                         y.detach(), y_ref.detach()))
-            cot = torch.randn(y.shape, device=dev, generator=torch.Generator(device=dev).manual_seed(5))
-            got = torch.autograd.grad(y, inputs, cot.to(y.dtype), retain_graph=True)
-            want = torch.autograd.grad(y_ref, inputs, cot.to(y_ref.dtype), retain_graph=True)
-            torch.cuda.synchronize()
-            errs = []
-            for g, r in zip(got, want):
-                scale = float(r.float().abs().max())
-                errs.append(float((g.float() - r.float()).abs().max()) / max(scale, 1e-30))
-            err = max(errs)
-            log(f"[backward] {kernel} {call.name} B={TRAIN_B} {str(dtype)[6:]}: max relative error of "
-                f"{len(got)} gradients {err:.3e} (limit {BACKWARD_REL[dtype]:.0e})")
-            if not all(torch.isfinite(g).all() for g in got) or err > BACKWARD_REL[dtype]:
-                raise RuntimeError(f"{kernel} {call.name}: the backward disagrees with autograd of the plain version")
-            if dtype == torch.bfloat16:
-                worst[kernel] = max(worst[kernel], err)
-                ms = _cuda_ms(lambda: torch.autograd.grad(y, inputs, cot.to(y.dtype), retain_graph=True), 5)
-                plain_ms = _cuda_ms(lambda: torch.autograd.grad(y_ref, inputs, cot.to(y_ref.dtype),
-                                                                retain_graph=True), 3)
-                row = _row(call.name, ms, plain_ms, _backward_bound(call), library_ms=None)
-                rows[kernel].append(row)
-                log(f"[time] {kernel} backward {call.name} B={TRAIN_B} bf16: {ms:.3f} ms, autograd of the plain "
-                    f"version {plain_ms:.3f} ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']}) ({card})")
-            del y, y_ref, got, want
-        torch.cuda.empty_cache()
+    heads, blocks = _training_calls(model, torch.float32, dev)
+    reset_counts()
+    declined = [_grad_inputs(call, torch.float32)[1]() is None for call in heads + blocks]
+    torch.cuda.synchronize()
+    log(f"[backward] fp32: {sum(declined)} of the {len(declined)} fused calls of a training forward declined "
+        f"(no kernel takes fp32), launches {read_counts()}")
+    if not all(declined) or read_counts() != TRAIN_NONE:
+        raise RuntimeError("backward: a fused wrapper took an fp32 training call")
+    del heads, blocks
+    heads, blocks = _training_calls(model, torch.bfloat16, dev)
+    for call in heads + blocks:
+        kernel = "conv1d_s1" if isinstance(call, ConvLayer) else "resblock_tgn"
+        inputs, fused, plain = _grad_inputs(call, torch.bfloat16)
+        y, y_ref = fused(), plain()
+        forward[kernel] = max(forward[kernel], _held(kernel, f"{call.name} B={TRAIN_B} (training)",
+                                                     y.detach(), y_ref.detach()))
+        cot = torch.randn(y.shape, device=dev, generator=torch.Generator(device=dev).manual_seed(5))
+        got = torch.autograd.grad(y, inputs, cot.to(y.dtype), retain_graph=True)
+        want = torch.autograd.grad(y_ref, inputs, cot.to(y_ref.dtype), retain_graph=True)
+        torch.cuda.synchronize()
+        errs = []
+        for g, r in zip(got, want):
+            scale = float(r.float().abs().max())
+            errs.append(float((g.float() - r.float()).abs().max()) / max(scale, 1e-30))
+        err = max(errs)
+        log(f"[backward] {kernel} {call.name} B={TRAIN_B} bfloat16: max relative error of "
+            f"{len(got)} gradients {err:.3e} (limit {BACKWARD_REL:.0e})")
+        if not all(torch.isfinite(g).all() for g in got) or err > BACKWARD_REL:
+            raise RuntimeError(f"{kernel} {call.name}: the backward disagrees with autograd of the plain version")
+        worst[kernel] = max(worst[kernel], err)
+        ms = _cuda_ms(lambda: torch.autograd.grad(y, inputs, cot.to(y.dtype), retain_graph=True), 5)
+        plain_ms = _cuda_ms(lambda: torch.autograd.grad(y_ref, inputs, cot.to(y_ref.dtype), retain_graph=True), 3)
+        row = _row(call.name, ms, plain_ms, _backward_bound(call), library_ms=None)
+        rows[kernel].append(row)
+        log(f"[time] {kernel} backward {call.name} B={TRAIN_B} bf16: {ms:.3f} ms, autograd of the plain "
+            f"version {plain_ms:.3f} ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']}) ({card})")
+        del y, y_ref, got, want
+    torch.cuda.empty_cache()
     return rows, worst, forward
 
 
@@ -1755,16 +1796,14 @@ VALID_UTTS, VALID_SECONDS = 8, (1.5, 2.5)
 TRAINER_CONF = dict(batch_size=16, num_iters_per_epoch=4, max_epoch=2, keep_nbest_models=1, num_valid_dump_wavs=2,
                     num_workers=4, log_interval=4, use_tensorboard=False)
 SERVE_UTTS = 4
-# fused against unfused validation on the same weights (fp32 masters, the fp32
-# RVQ scan in both): the resblock kernel's fp32 tolerance, of each stat's scale
-# (at least 1: the quality metrics in dB may sit near 0). The two encoders' latents
-# agree to rounding, which flips an RVQ code now and then at a near-tie, and one flip
-# can move a stat (si_snr_db) by more than the limit. So the unfused validation
-# quantizes with the fused one's codes, and a code of its own scan may differ only at
-# a near-tie: the two codewords' distances to the residual within VALID_REL of its
-# squared norm, at the frame's first differing stage
-VALID_REL = FP32_REL_TOL["resblock_tgn"]
-VALID_UPDATES = 4
+# two runs whose RVQ inputs agree to rounding may flip a code at a near-tie: a code may differ
+# only there, the two codewords' distances to the residual within VALID_REL of its squared
+# norm, at the frame's first differing stage (_code_flips)
+VALID_REL = 1e-4
+# in-place updates after which the trainer phase checks a bf16 copy's packs, and its flags-on
+# output against flags-off, of the flags-off bf16 output's distance from fp32: a fused path no
+# farther from fp32 than the unfused one reads at most 2 (the triangle inequality)
+SHADOW_UPDATES, SHADOW_FACTOR = 4, 2.0
 
 
 def _trainer_corpus(d: Path, n: int, seconds, seed: int, sr: int = SR) -> dict:
@@ -1791,8 +1830,9 @@ def _train_cli(dev, config: Path, out: Path, *extra) -> list:
 
 
 def _expected(steps: int, valid_batches: int) -> dict:
-    """Launches of `steps` fused training steps and `valid_batches` validation forwards (one encode + decode each)."""
-    return {k: steps * TRAIN_EXPECT[k] + valid_batches * EXPECT[MAIN_PATH][k] for k in TRAIN_EXPECT}
+    """Launches of `steps` fused training steps and `valid_batches` validation forwards (one encode +
+    decode each, on the fp32 masters, which no SEANet kernel takes: the unfused path's)."""
+    return {k: steps * TRAIN_EXPECT[k] + valid_batches * EXPECT["unfused"][k] for k in TRAIN_EXPECT}
 
 
 def _same_tree(a, b, path="") -> None:
@@ -1920,7 +1960,7 @@ def _back_to_back_rate(trainer, state, dev, B: int, steps: int) -> float:
 
 def trainer_phase(dev, card: str, train_rows):
     """cli/codec_train on the flagship (bf16, the three kernels on), resumed,
-    its validation fused against unfused after in-place updates, one
+    a bf16 copy's packs and fused output after in-place updates, one
     epoch from the device cache, and its weights served; returns its numbers."""
     import yaml
 
@@ -1965,7 +2005,7 @@ def trainer_phase(dev, card: str, train_rows):
     host_rate = steady["train_audio_s"] / steady["train_s"]
     log(f"[trainer] codec_train bf16 B={config['batch_size']}, {epochs} epochs x {iters} steps, {VALID_UTTS} valid "
         f"utterances: {wall:.2f} s (model build included); launches {counts} = {epochs * iters} steps x "
-        f"{TRAIN_EXPECT} + {epochs * v_batches} validation batches x {EXPECT[MAIN_PATH]}; every stat finite; "
+        f"{TRAIN_EXPECT} + {epochs * v_batches} fp32 validation batches x {EXPECT['unfused']}; every stat finite; "
         f"epoch {epochs} valid multi-spectral {stats[str(epochs)]['valid']['generator_multi_spectral_recon_loss']:.4f}, "
         f"stoi {stats[str(epochs)]['valid']['stoi']:.4f}")
     back_to_back = _back_to_back_rate(trainer, state, dev, config["batch_size"], iters)
@@ -1993,47 +2033,61 @@ def trainer_phase(dev, card: str, train_rows):
     log(f"[trainer] resume: the loaded state equals checkpoint.pth bit for bit; step {state.step}, epochs 1-{epochs} "
         f"unchanged in reporter.json, epoch 3 trained and validated")
 
-    # 3. stale packs: fused against unfused validation after each of a few more in-place updates
+    # 3. after each of a few more in-place updates of the fp32 masters, a bf16 copy of the SEANet encoder and
+    # decoder takes the new weights in place (load_state_dict, as a served model reloading a checkpoint
+    # does) and runs a batch with the SEANet flags on: its kernels' cached packs must be fresh packs of the
+    # current weights, its output must move with each update and sit within SHADOW_FACTOR of the flags-off
+    # bf16 output's distance from the masters' fp32 output
     args = codec_train.get_parser().parse_args(_train_cli(dev, conf, exp))
-    train_ds, valid_ds = codec_train.build_datasets(args, config)
+    train_ds, _ = codec_train.build_datasets(args, config)
+    # built anew: the trainer's modules hold its compute-type copies (the resblock pack's sources), which
+    # deepcopy refuses
+    fresh, _ = build_codec_model(config, device=dev)
+    shadow = torch.nn.ModuleDict(dict(encoder=fresh.encoder, decoder=fresh.decoder)).to(torch.bfloat16)
+    del fresh
 
-    def v_loader():
-        return PrefetchLoader(valid_ds, unsorted_batches(valid_ds.uttids, config["batch_size"], drop_last=False),
-                              collate_fn, num_workers=2)
+    def load_masters():
+        for name in ("encoder", "decoder"):
+            shadow[name].load_state_dict(getattr(state.model, name).state_dict())
 
-    _set_seanet_flags(True)
-    fused = trainer.validate(state, v_loader(), 100, 0)
-    worst = latent = gap = 0.0
-    flips = n_codes = 0
-    for u in range(VALID_UPDATES):
-        before = fused
+    speech = _train_speech(dev, config["batch_size"], seed=43)
+
+    def forward(encoder, decoder, fused: bool, path: str) -> torch.Tensor:
+        _set_seanet_flags(fused)
+        before, want = read_counts(), dict(EXPECT[path], rvq_encode=0)
+        with torch.no_grad():
+            y = decoder(encoder(speech.to(next(encoder.parameters()).dtype)))[..., 0].float()
+        _sync(dev)
+        got = {k: read_counts()[k] - before[k] for k in want}
+        if got != want:
+            raise RuntimeError(f"trainer: the {path} forward launched {got}, expected {want}")
+        return y
+
+    load_masters()
+    fused = forward(shadow["encoder"], shadow["decoder"], True, MAIN_PATH)
+    worst = yard = 0.0
+    for u in range(SHADOW_UPDATES):
+        previous = fused
         _set_seanet_flags(True)
         state, _ = trainer._train_step(state, {"speech": _train_speech(dev, config["batch_size"], seed=44 + u)},
                                        step_generator(dev, 0, state.step))
-        t0 = time.perf_counter()
-        with _rvq_calls() as fused_rvq:
-            fused = trainer.validate(state, v_loader(), 101, 0)
-        torch.cuda.synchronize()
-        if u == 0:
-            valid_wall = time.perf_counter() - t0
-        stale = _stale_packs(state.model)
-        _set_seanet_flags(False)
-        with _rvq_calls(forced=fused_rvq) as unfused_rvq:
-            unfused = trainer.validate(state, v_loader(), 102, 0)
-        worst = max(worst, *(abs(fused[k] - unfused[k]) / max(abs(unfused[k]), 1.0) for k in unfused))
-        latent = max(latent, *(_rel(f[0].cpu().numpy(), v[0].cpu().numpy()) for f, v in zip(fused_rvq, unfused_rvq)))
-        n_flips, n, g = _code_flips(fused_rvq, unfused_rvq)
-        flips, n_codes, gap = flips + n_flips, n_codes + n, max(gap, g)
-        moved = before["generator_multi_spectral_recon_loss"] != fused["generator_multi_spectral_recon_loss"]
-        if stale or not moved:
-            raise RuntimeError(f"trainer: after in-place update {u + 1}, stale packs {stale}, or the stats did not move")
-    log(f"[trainer] validation after each of {VALID_UPDATES} in-place updates, fused SEANet kernels against unfused "
-        f"(fp32 masters, fp32 RVQ scan, the unfused one on the fused one's codes): worst of {len(unfused)} stats "
-        f"{worst:.3e} of its scale, RVQ input {latent:.3e} relative L2; {flips} of {n_codes} codes of the unfused scan "
-        f"differ, the largest distance gap at a first differing stage {gap:.3e} of the residual's squared norm (each "
-        f"limit {VALID_REL:.0e}); no stale packs; every update moved the stats")
-    if max(worst, latent, gap) > VALID_REL:
-        raise RuntimeError("trainer: the fused validation disagrees with the unfused one")
+        load_masters()
+        fused = forward(shadow["encoder"], shadow["decoder"], True, MAIN_PATH)
+        stale = _stale_packs(shadow)
+        unfused = forward(shadow["encoder"], shadow["decoder"], False, "unfused")
+        masters = forward(state.model.encoder, state.model.decoder, False, "unfused")
+        err, base = _relative([fused], [unfused]), _relative([unfused], [masters])
+        if stale or torch.equal(fused, previous) or err > SHADOW_FACTOR * base:
+            raise RuntimeError(f"trainer: after in-place update {u + 1}, stale packs {stale}, the flags-on output "
+                               f"moved: {not torch.equal(fused, previous)}, flags on against off {err:.3e} "
+                               f"(limit {SHADOW_FACTOR} x bf16 against fp32 {base:.3e})")
+        worst, yard = max(worst, err / base), max(yard, base)
+    _set_seanet_flags(False)
+    log(f"[trainer] after each of {SHADOW_UPDATES} in-place updates, a bf16 copy of the encoder and decoder loaded "
+        f"in place, B={config['batch_size']} x {TRAIN_SECONDS} s: no stale packs; the flags-on output moved each "
+        f"time; flags on against off at most {worst:.3f} of bf16's distance from the fp32 masters' output (limit "
+        f"{SHADOW_FACTOR}; that distance at most {yard:.3e} relative L2)")
+    del shadow
     del trainer, state
     torch.cuda.empty_cache()
 
@@ -2103,8 +2157,7 @@ def trainer_phase(dev, card: str, train_rows):
                bare_step_audio_s_per_s=bare["audio_s_per_s"], host_loader_ratio=host_rate / bare["audio_s_per_s"],
                device_cache_ratio=cache_rate / bare["audio_s_per_s"], checkpoint_s=steady["checkpoint_s"],
                checkpoint_bytes=steady["checkpoint_bytes"], valid_s=steady["valid_s"],
-               valid_fused_s=valid_wall, valid_worst_relative=worst, valid_rvq_input_relative=latent,
-               valid_code_flips=flips, valid_codes=n_codes, valid_flip_gap=gap, back_to_back_audio_s_per_s=back_to_back,
+               shadow_relative=worst, shadow_bf16_vs_fp32=yard, back_to_back_audio_s_per_s=back_to_back,
                phase_s=time.perf_counter() - t_phase)
     log(f"[time] trainer loop, bf16 + the SEANet kernels, B={config['batch_size']} x {crop / SR} s, steady epoch "
         f"({iters} steps): host loader {host_rate:.1f} audio-s/s ({steady['train_s']:.3f} s), device cache + "
@@ -2133,7 +2186,7 @@ TTS_LOGIT_TOL = 1e-3
 TTS_FORCED = 32  # teacher-forced decode steps
 TTS_GREEDY = 48  # groups each request of the decode-mode check generates
 # one zero-shot request: the prompt's encode, then decode (AR tokens) and decode_emb (non-AR embeddings)
-TTS_EXPECT = {k: EXPECT[MAIN_PATH][k] + DECODE_PER_BATCH[k] for k in EXPECT[MAIN_PATH]}
+TTS_EXPECT = {k: ENCODE_MAIN[k] + 2 * DECODE_PER_BATCH[k] for k in ENCODE_MAIN}
 TTS_CLI_SECONDS = 2  # the CLI config's audio_max_duration: 50 groups a request (random weights never emit eos)
 # scripts/bench_tts_serving.py's workload: text length 40, caps uniform over 50..250 groups, 16 slots
 TTS_BENCH = dict(requests=48, text=40, caps=(50, 100, 150, 200, 250), slots=16, segment=25, single=250)
@@ -2385,13 +2438,17 @@ def _recorded_seanet_calls():
 
 
 def _held_calls(calls, what: str = "tts") -> dict:
-    """Each recorded call's wrapper against its plain version on the same
-    inputs (_held: 2 bf16 ulps, or FP32_REL_TOL of the output's scale for
-    fp32 inputs); these launches are not counted."""
+    """Each recorded bf16 call's wrapper against its plain version on the same
+    inputs (_held: 2 bf16 ulps of the output's scale); these launches are not
+    counted. A call in another type (the fp32 decoder of the decode modes,
+    fp32 weights) is declined by its wrapper, which launches nothing, and its
+    caller ran the plain path."""
     worst = {}  # only the kernels that were called: no error for a kernel that was not
     with torch.inference_mode():
         for i, (kernel, fn, x, args, kwargs) in enumerate(calls):
             out = fn(x, *args, **kwargs)
+            if out is None and x.dtype != torch.bfloat16:
+                continue
             if out is None:
                 raise RuntimeError(f"{what} {kernel} call {i}: the wrapper did not launch at {tuple(x.shape)}")
             worst[kernel] = max(worst.get(kernel, 0.0), _held(kernel, f"{what} call {i} B={x.shape[0]} C={x.shape[1]} "
@@ -2445,8 +2502,8 @@ def tts_kernels(dev, tokens) -> dict:
     if prompt_flips[1] > MAX_FLIP_ALL:
         raise RuntimeError(f"tts prompt tokens: kernels vs plain flip {prompt_flips[1]:.3f}")
     log(f"[tts] zero-shot request (text 20 words, 2 s prompt = {len(cont_k)} groups, {groups} groups, bf16 codec, "
-        f"the three kernels): launches {counts} exact; its {len(calls)} SEANet kernel calls (the encode's in bf16, the "
-        f"decodes' in fp32 over bf16 weights) each within its limit of the plain version on the same inputs (max|err| "
+        f"the three kernels): launches {counts} exact; of its {len(calls)} SEANet wrapper calls the encode's (bf16) "
+        f"each within its limit of the plain version on the same inputs, the decodes' (fp32 codewords) declined (max|err| "
         f"conv1d_s1 {held['conv1d_s1']:.3e}, resblock_tgn {held['resblock_tgn']:.3e}); prompt token flips vs plain q0 {prompt_flips[0]:.4f} all "
         f"{prompt_flips[1]:.4f}; relative L2 vs plain, same tokens: gen {res['gen']['kernels_vs_plain']:.3e} "
         f"(bf16 vs fp32 {res['gen']['bf16_vs_fp32']:.3e}), gen_only_lm {res['gen_only_lm']['kernels_vs_plain']:.3e} "
@@ -2516,8 +2573,6 @@ def tts_timing(dev, model, codec_fp, card: str) -> dict:
     """scripts/bench_tts_serving.py's workload (greedy) on the session and on
     lockstep decode_codec_batch, bf16 and fp32, and batch-1 / prefill /
     syn_audio times."""
-    import copy
-
     from funcodec_tpu_torch.models.tts_serving import LauraServingSession
 
     cfg = TTS_BENCH
@@ -3018,9 +3073,10 @@ def laura_synthesis(dev, exp: Path, tokens, phones, valid_lengths) -> dict:
         _sync(dev)
         wall = time.perf_counter() - t0
         counts = read_counts()
-    # every line: the AR tokens' decode and the dense embeddings' decode_emb; the prompt: one encode
-    expect = {k: 2 * LAURA_SYN_LINES * DECODE_PER_BATCH[k] + EXPECT[MAIN_PATH][k] - DECODE_PER_BATCH[k]
-              for k in EXPECT[MAIN_PATH]}
+    # every line: the AR tokens' decode and the dense embeddings' decode_emb; the prompt: one encode. The
+    # CLI's codec is fp32, which no SEANet kernel takes: the prompt's encode is the unfused one's half
+    expect = {k: 2 * LAURA_SYN_LINES * DECODE_PER_BATCH[k] + EXPECT["unfused"][k] - DECODE_PER_BATCH[k]
+              for k in EXPECT["unfused"]}
     if counts != expect:
         raise RuntimeError(f"laura stage 3: launches {counts}, expected {expect}")
     held = _held_calls(calls, "laura stage 3")
@@ -3037,8 +3093,8 @@ def laura_synthesis(dev, exp: Path, tokens, phones, valid_lengths) -> dict:
         raise RuntimeError("laura stage 3: no tts_eval.json")
     log(f"[laura] stage 3, cli/text2audio_inference --model_file exp/latest.pth: {LAURA_SYN_LINES} lines (one with "
         f"a {prompt_groups}-group zero-shot prompt from the valid corpus), top-k 25, <= {cap} groups, in {wall:.2f} s; "
-        f"launches {counts} exact; its {n_seanet} SEANet and {n_rvq} rvq_encode calls each within its limit of the "
-        f"plain version (max|err| {held}); 8 wavs and tts_eval.json")
+        f"launches {counts} exact; its {n_seanet} SEANet calls declined (an fp32 codec), its {n_rvq} rvq_encode "
+        f"calls each within its limit of the plain version (max|err| {held}); 8 wavs and tts_eval.json")
     return dict(wall_s=wall, launches=counts, max_abs_err=held, held_calls=n_seanet + n_rvq)
 
 
@@ -3366,9 +3422,7 @@ def freq_conv_rows(dev, s_bf, card: str) -> list:
             even = ConvLayer(layer.name, layer.conv, FREQ_TIME_B, FREQ_FRAMES - 1, layer.act, torch.bfloat16, dev, 16)
             row = _row(layer.name, _cuda_ms(layer.kernel, 20), _cuda_ms(layer.plain, 5), layer.bound_ms(),
                        library_ms=_cuda_ms(layer.library, 20), max_abs_err=err, t_minus_1_ms=_cuda_ms(even.kernel, 20),
-                       regime=conv_kernel.REGIMES[build.load().conv1d_s1_regime(
-                           layer.x.shape[1], layer.w.shape[0], layer.spec.kernel_size, layer.spec.dilation,
-                           layer.left, conv_kernel.DTYPES[layer.x.dtype], conv_kernel.VARIANTS["auto"])])
+                       regime=layer.regime())
             rows.append(row)
             log(f"[freq] conv1d_s1 {layer.name} B={FREQ_TIME_B} T={FREQ_FRAMES}: kernel {row['ms']:.4f} ms "
                 f"({row['regime']}; at T={FREQ_FRAMES - 1} {row['t_minus_1_ms']:.4f} ms), plain "
@@ -3460,8 +3514,8 @@ def freq_training(dev, card: str) -> dict:
 def freq_cli(dev, s_fp) -> dict:
     """cli/codec_inference.main on 4 seeded utterances of 1-3 s: bf16 encode on
     the main path (one conv1d_s1 a batch; the encode mode's token search is
-    the greedy fp32 scan, not rvq_encode), then decode of its codecs.txt (one
-    conv1d_s1 a batch); the frames the CLI writes (ceil(n / 320), its hop)
+    the greedy fp32 scan, not rvq_encode), then decode of its codecs.txt (no
+    conv1d_s1: the decoder runs in fp32); the frames the CLI writes (ceil(n / 320), its hop)
     and the decoded lengths (320 a frame, less the ISTFT's 160 for the
     longest of a batch; the CLI cuts the others at 320 a frame)."""
     FREQ_DIR.mkdir(parents=True, exist_ok=True)
@@ -3484,10 +3538,11 @@ def freq_cli(dev, s_fp) -> dict:
     _freq_flags("none")
     batches = 2
     # no convtr2d: the encode mode never decodes, and the decode mode's latents are the fp32
-    # codewords, so its decoder runs in fp32 and its transposed convs on cuDNN
+    # codewords, so its decoder runs in fp32: its 1D conv declined to the plain path (no kernel
+    # takes fp32) and its transposed convs on cuDNN
     expect = {"conv1d_s1": batches, "resblock_tgn": 0, "resblock_tgn_finalize": 0, "rvq_encode": 0,
               "tgn_norm": FREQ_NORMS * batches, "convtr2d": 0}
-    if enc_counts != expect or dec_counts != expect:
+    if enc_counts != expect or dec_counts != dict(expect, conv1d_s1=0):
         raise RuntimeError(f"freq cli: launches encode {enc_counts}, decode {dec_counts}")
     codes = _codecs(FREQ_DIR / "enc" / "codecs.txt")
     for key, n in want.items():
@@ -3665,15 +3720,12 @@ def timing_phase(dev, s_bf, s_fp, calls, card: str, ceiling: float):
     embed = _codebooks(gen, dev)
     x = torch.randn(64, 500, 128, device=dev, generator=gen) * 0.1
     rvq_plain = _cuda_ms(lambda: rvq_kernel.rvq_encode_reference(x, embed, 32), 5)
-    rvq_ab = _ab_ms(lambda: rvq_kernel.rvq_encode_fused(x, embed, 32),
-                    lambda: rvq_kernel.rvq_encode_fused(x, embed, 32, variant="legacy"), 10)
-    rvq_ms = rvq_ab[0]
+    rvq_ms = _cuda_ms(lambda: rvq_kernel.rvq_encode_fused(x, embed, 32), 10)
     N, n_q, bins, D = 32_000, 32, 1024, 128
     rvq_bound = _bound(N * D * 2 + n_q * bins * (D * 2 + 4) + n_q * N * 4 + N * D * 4,
                        2.0 * N * n_q * bins * D, PEAK_BF16)
-    rvq_row = _row("rvq_encode N=32000 n_q=32", rvq_ms, rvq_plain, rvq_bound, library_ms=None, legacy_ms=rvq_ab[1])
-    log(f"[time] rvq_encode N=32000 n_q=32: kernel {rvq_ms:.3f} ms (wgmma; new, old, old, new: "
-        f"{_ab_text(rvq_ab)}), the first, CUDA-core version {rvq_ab[1]:.3f} ms, plain torch {rvq_plain:.3f} ms, "
+    rvq_row = _row("rvq_encode N=32000 n_q=32", rvq_ms, rvq_plain, rvq_bound, library_ms=None)
+    log(f"[time] rvq_encode N=32000 n_q=32: kernel {rvq_ms:.3f} ms (wgmma), plain torch {rvq_plain:.3f} ms, "
         f"bound {rvq_bound[0]:.3f} ms ({rvq_bound[1]}) ({card})")
 
     heads, rb_convs, resblocks = calls
@@ -3681,25 +3733,19 @@ def timing_phase(dev, s_bf, s_fp, calls, card: str, ceiling: float):
     conv_ops.FUSED_STRIDE1 = conv_ops.FUSED_RESBLOCK = False
     with torch.inference_mode():
         for layer in heads + rb_convs:
-            ab = _ab_ms(layer.kernel, layer.legacy, 10)
-            row = _row(layer.name, ab[0], _cuda_ms(layer.plain, 5), layer.bound_ms(),
-                       library_ms=_cuda_ms(layer.library, 10), legacy_ms=ab[1], main_path=layer in heads,
-                       regime=conv_kernel.REGIMES[build.load().conv1d_s1_regime(
-                           layer.x.shape[1], layer.w.shape[0], layer.spec.kernel_size, layer.spec.dilation,
-                           layer.left, conv_kernel.DTYPES[layer.x.dtype], conv_kernel.VARIANTS["auto"])])
+            row = _row(layer.name, _cuda_ms(layer.kernel, 10), _cuda_ms(layer.plain, 5), layer.bound_ms(),
+                       library_ms=_cuda_ms(layer.library, 10), main_path=layer in heads, regime=layer.regime())
             conv_rows.append(row)
             log(f"[time] conv1d_s1 {layer.name} B={layer.x.shape[0]} T={layer.x.shape[-1]}: kernel "
-                f"{row['ms']:.4f} ms ({row['regime']}; new, old, old, new: {_ab_text(ab)}), the first version "
-                f"{row['legacy_ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, cuDNN {row['library_ms']:.4f} ms, "
-                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}){_shares(row, ceiling)} ({card})")
+                f"{row['ms']:.4f} ms ({row['regime']}), plain {row['plain_ms']:.3f} ms, cuDNN "
+                f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
+                f"{_shares(row, ceiling)} ({card})")
         for call in resblocks:
-            ab = _ab_ms(call.kernel, call.legacy, 5)
-            row = _row(call.name, ab[0], _cuda_ms(call.plain, 3), call.bound_ms(),
-                       library_ms=None, unfused_ms=_cuda_ms(call.unfused, 5), legacy_ms=ab[1])
+            row = _row(call.name, _cuda_ms(call.kernel, 5), _cuda_ms(call.plain, 3), call.bound_ms(),
+                       library_ms=None, unfused_ms=_cuda_ms(call.module, 5))
             rb_rows.append(row)
             log(f"[time] resblock_tgn {call.name} B={call.x.shape[0]}: kernel {row['ms']:.3f} ms "
-                f"(3 passes + 2 finalizes; new, old, old, new: {_ab_text(ab)}), the first version "
-                f"{row['legacy_ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, unfused block {row['unfused_ms']:.3f} ms, "
+                f"(3 passes + 2 finalizes), plain {row['plain_ms']:.3f} ms, unfused block {row['unfused_ms']:.3f} ms, "
                 f"bound {row['bound_ms']:.3f} ms ({row['bound_by']}){_shares(row, ceiling)} ({card})")
 
         part, aff, T, pairs = _finalize_case(dev, resblocks[0])
@@ -3858,8 +3904,6 @@ def laura_profile(dev) -> None:
 def tts_profile(dev) -> None:
     """torch.profiler over one 25-step segment of a 16-slot LauraTTS session
     (text 40, greedy) in fp32 and bf16, after admission and a warm segment."""
-    import copy
-
     from funcodec_tpu_torch.models.tts_serving import LauraServingSession
 
     codec_fp = Speech2Token(_flagship_config(), None, dtype="float32", device=dev)
@@ -3946,12 +3990,13 @@ def dp_gan(dev, dtype, speech, group=None, timed: int = 0, record: bool = False,
     """DP_STEPS shared steps of the flagship with both SEANet flags (the
     recipe's quantizer unless `quantizer` overrides it, the yaml's Adam
     unless `optim`) on `speech` (this rank's rows), step i drawing from
-    step_generator(dev, 0, i), each step's launches TRAIN_EXPECT, inside
+    step_generator(dev, 0, i), each step's launches TRAIN_EXPECT (none in
+    fp32, which no kernel takes), inside
     the context `scan` (a ScanCodes); then `timed` more steps, timed.
     Returns (the state's tensors on the host after the checked steps (as
     _gan_tensors), their stats, ms a timed step or None, the first step's
     SEANet kernel calls when `record`)."""
-    expect = TRAIN_EXPECT
+    expect = TRAIN_EXPECT if dtype == torch.bfloat16 else TRAIN_NONE  # no kernel takes fp32
     _set_seanet_flags(True)
     state, step = build_trainer(dev, True, dtype, group=group, optim=optim, **quantizer)
     stats, calls = [], []
@@ -4065,13 +4110,32 @@ def dp_laura(dev, group=None):
     return state, stats, int(batch["codec_lengths"].sum())
 
 
+@contextlib.contextmanager
+def _deterministic():
+    """torch's deterministic algorithms and cuDNN's inside the block (warn_only:
+    reflection_pad1d's backward has none, and its atomics add at most two terms
+    an element, which commute); the settings before it restored after."""
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[:2]
+        torch.use_deterministic_algorithms(saved[2], warn_only=saved[3])
+
+
 def _dp_rank(rank: int, world: int, init_method: str, device: str, out_dir: str) -> None:
     """One rank of the phase's gloo group, all on one card (NCCL refuses two
     ranks on one device; gloo moves CUDA tensors through the host). fp32
-    with TF32 off: the flagship's GAN steps (SGD, initialized codebooks)
+    with TF32 off and deterministic algorithms (no SEANet kernel takes
+    fp32, and the plain path's default algorithms move a step's stats by
+    about the DP tolerance from run to run on one batch): the
+    flagship's GAN steps (SGD, initialized codebooks)
     on its half of the batch with its codebook searches' codes recorded,
-    its kernel calls held against their plain versions, then the Laura
-    steps; rank 0 saves the states, every rank its codes and numbers."""
+    its fused calls declined (no kernel takes fp32), then the Laura steps;
+    rank 0 saves the states, every rank its codes and numbers."""
     from funcodec_tpu_torch.parallel import dist
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4083,10 +4147,13 @@ def _dp_rank(rank: int, world: int, init_method: str, device: str, out_dir: str)
         speech = dist.local_rows(_train_speech(dev, TRAIN_B), group)
         reset_counts()
         scan = ScanCodes()
-        gan, stats, ms, calls = dp_gan(dev, None, speech, group=group, timed=DP_TIMED, record=True, optim=DP_OPTIM,
-                                       scan=scan, **STEADY)
+        with _deterministic():
+            gan, stats, ms, calls = dp_gan(dev, None, speech, group=group, timed=DP_TIMED, record=True,
+                                           optim=DP_OPTIM, scan=scan, **STEADY)
         counts = read_counts()
-        held = _held_calls(calls, f"dp rank {rank}")
+        declined = sum(fn(x, *args, **kwargs) is None for _, fn, x, args, kwargs in calls)
+        if not calls or declined != len(calls):
+            raise RuntimeError(f"dp rank {rank}: {len(calls) - declined} of {len(calls)} fp32 fused calls launched")
         same_gan = _same_on_ranks(list(gan.values()), group)
         if rank == 0:
             torch.save(gan, Path(out_dir) / "gan_rank0.pt")
@@ -4098,7 +4165,7 @@ def _dp_rank(rank: int, world: int, init_method: str, device: str, out_dir: str)
         same_laura = _same_on_ranks(list(laura.values()), group)
         if rank == 0:
             torch.save(laura, Path(out_dir) / "laura_rank0.pt")
-        result = dict(rank=rank, rows=int(speech.shape[0]), stats=stats, ms=ms, launches=counts, held=held,
+        result = dict(rank=rank, rows=int(speech.shape[0]), stats=stats, ms=ms, launches=counts, declined=declined,
                       same_gan=same_gan, laura_stats=lstats, same_laura=same_laura, laura_tokens=ltokens,
                       jax_imported="jax" in sys.modules or "funcodec_tpu" in sys.modules)
         (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(result))
@@ -4236,8 +4303,9 @@ def dp_phase(dev, card: str) -> dict:
     """Data parallelism (parallel/dist.py) on the one card: the flagship's
     bf16 fused GAN steps at world 1 through an NCCL group against no group
     (bit for bit, exact launches; ms a step of each and of the gradient
-    all_reduce); fp32 at world 2 through gloo on the card against world 1
-    (ranks bit for bit, within JAX's DP tolerance), with the Laura trainer
+    all_reduce); fp32 at world 2 through gloo on the card against world 1,
+    both with deterministic algorithms (ranks bit for bit, within JAX's DP
+    tolerance), with the Laura trainer
     at full width; two serving replicas on the card."""
     from funcodec_tpu_torch.parallel import dist
 
@@ -4249,12 +4317,8 @@ def dp_phase(dev, card: str) -> dict:
 
     # 1. world 1: an NCCL group of one against no group, bit for bit (a deterministic process of its
     # own), then the steady step's ms with and without the group and the gradient all_reduce's here
-    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"  # read by the spawned process's cuBLAS
-    try:
-        dist.spawn_ranks(_dp_world1, 1, (dist.file_init_method(DP_DIR), str(dev), str(DP_DIR)),
-                         timeout_s=DP_RANKS_TIMEOUT_S)
-    finally:
-        del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+    dist.spawn_ranks(_dp_world1, 1, (dist.file_init_method(DP_DIR), str(dev), str(DP_DIR)),
+                     timeout_s=DP_RANKS_TIMEOUT_S)
     w1 = json.loads((DP_DIR / "world1.json").read_text())
     if w1["differ"] or not w1["stats_equal"] or w1["jax_imported"]:
         raise RuntimeError(f"dp world 1 ({w1['backend']}): {len(w1['differ'])} of {w1['n_tensors']} tensors differ "
@@ -4282,7 +4346,8 @@ def dp_phase(dev, card: str) -> dict:
           f"(discriminator) ({card})")
     res["world1"] = dict(w1, ms_per_step=steady, allreduce_ms=ar)
 
-    # 2. world 2 through gloo on the card (spawned ranks), against world 1 fp32
+    # 2. world 2 through gloo on the card (spawned ranks), against world 1 fp32; both with
+    # deterministic algorithms (_dp_rank)
     ranks_dev = str(dev)
     t_spawn = time.perf_counter()
     dist.spawn_ranks(_dp_rank, 2, (dist.file_init_method(DP_DIR), ranks_dev, str(DP_DIR)),
@@ -4291,7 +4356,7 @@ def dp_phase(dev, card: str) -> dict:
     ranks = [json.loads((DP_DIR / f"rank{r}.json").read_text()) for r in range(2)]
     if any(r["jax_imported"] for r in ranks):
         raise RuntimeError("a dp rank imported JAX")
-    want_launches = {k: (DP_STEPS + DP_TIMED) * v for k, v in TRAIN_EXPECT.items()}
+    want_launches = TRAIN_NONE  # fp32, which no kernel takes
     for r in ranks:
         if not (r["same_gan"] and r["same_laura"]) or r["launches"] != want_launches:
             raise RuntimeError(f"dp rank {r['rank']}: states equal to rank 0's: GAN {r['same_gan']}, Laura "
@@ -4301,8 +4366,9 @@ def dp_phase(dev, card: str) -> dict:
     # a code flipped at a near-tie (the latents differ in rounding) does not fork the trajectories
     rank_codes = [torch.load(DP_DIR / f"codes_rank{r}.pt", weights_only=True) for r in range(2)]
     forced = ScanCodes([torch.cat(c) for c in zip(*rank_codes)])
-    one, one_stats, one_ms, _ = dp_gan(dev, None, _train_speech(dev, TRAIN_B), timed=DP_TIMED, optim=DP_OPTIM,
-                                       scan=forced, **STEADY)
+    with _deterministic():
+        one, one_stats, one_ms, _ = dp_gan(dev, None, _train_speech(dev, TRAIN_B), timed=DP_TIMED, optim=DP_OPTIM,
+                                           scan=forced, **STEADY)
     if len(forced.codes) != len(forced.forced) or forced.gap > VALID_REL:
         raise RuntimeError(f"dp GAN: world 1 made {len(forced.codes)} codebook searches against the ranks' "
                            f"{len(forced.forced)}; {forced.flips} of its own codes differ from the ranks', the "
@@ -4319,15 +4385,15 @@ def dp_phase(dev, card: str) -> dict:
         raise RuntimeError("dp Laura: the ranks' rows hold equal codec token counts; the denominators go untested")
     del lone
     torch.cuda.empty_cache()
-    held = {k: max(r["held"][k] for r in ranks) for k in ranks[0]["held"]}
     log(f"[dp] world 2 through gloo on one card (two processes on {ranks_dev}; NCCL refuses two ranks on one "
-        f"device), fp32, TF32 off, global B={TRAIN_B}: GAN ranks bit for bit equal, {DP_STEPS} steps within "
+        f"device), fp32, TF32 off, deterministic algorithms, global B={TRAIN_B}: GAN ranks bit for bit equal, "
+        f"{DP_STEPS} steps within "
         f"{gan_worst['parameters']:.3f} (parameters), {gan_worst['codebooks']:.3f} (codebooks, each codeword) and "
         f"{gan_stats_worst:.3f} (stats) of the rtol {DP_RTOL} / atol {DP_ATOL} "
         f"tolerance of world 1 (SGD at the yaml's rates; world 1 on the ranks' codes of its {len(forced.codes)} "
         f"codebook searches: {forced.flips} of its own differ, the largest distance gap {forced.gap:.3e}, limit "
-        f"{VALID_REL:.0e}); launches per rank {ranks[0]['launches']}; each rank's first-step kernel calls "
-        f"against their plain versions: max|err| {held}; ms a step (steps {DP_STEPS + 1}-{DP_STEPS + DP_TIMED}): "
+        f"{VALID_REL:.0e}); launches per rank {ranks[0]['launches']}; each rank's {ranks[0]['declined']} first-step "
+        f"fused calls declined (fp32); ms a step (steps {DP_STEPS + 1}-{DP_STEPS + DP_TIMED}): "
         f"gloo world 2 on one card {ranks[0]['ms']:.1f} (rank 1 {ranks[1]['ms']:.1f}), world 1 no group "
         f"{one_ms:.1f}. Laura at full width, {DP_LAURA_STEPS} steps at B={DP_LAURA_B} (ranks' codec tokens "
         f"{[r['laura_tokens'] for r in ranks]}): ranks bit for bit equal, within "
@@ -4336,13 +4402,12 @@ def dp_phase(dev, card: str) -> dict:
     res["world2"] = dict(backend="gloo", device=ranks_dev, ranks=ranks, gan_worst=gan_worst, searches=len(forced.codes),
                          code_flips=forced.flips, flip_gap=forced.gap,
                          gan_stats_worst=gan_stats_worst, laura_worst=laura_worst,
-                         laura_stats_worst=laura_stats_worst, world1_fp32_ms=one_ms, held=held, ranks_s=spawn_s)
+                         laura_stats_worst=laura_stats_worst, world1_fp32_ms=one_ms, ranks_s=spawn_s)
 
     # 3. serving replicas on the card
     res["serving"] = dp_serving(dev, _flagship_config())
     res["launches"] = {k: w1["launches"][k] + res["serving"]["launches"][k] for k in COUNTERS}
-    res["max_abs_err"] = {k: max(held.get(k, 0.0), res["serving"]["max_abs_err"].get(k, 0.0))
-                          for k in res["serving"]["max_abs_err"]}
+    res["max_abs_err"] = dict(res["serving"]["max_abs_err"])
     res["phase_s"] = time.perf_counter() - t0
     log(f"[dp] phase {res['phase_s']:.1f} s; launches (the NCCL world-1 steps and the replicas' requests) "
         f"{res['launches']}")
@@ -4364,10 +4429,10 @@ RECIPE_ENCODE_B = 8  # the valid split in one batch
 PPG_DIM, PPG_DS_RATE, PPG_FRAMES_PER_S = 86, 2, 100
 PPG_MODES = ("residual", "addition", "concat", "supervision", "ptts")
 # the PPG layers' stride-1 convs with K > 1, which FUSED_STRIDE1 runs in conv1d_s1: the
-# downsampling stack's first conv in every mode, the concat fusion's conv, and (training
-# only: inference runs no classifier) the supervision classifier's first two convs; in
+# downsampling stack's first conv in every mode and the concat fusion's conv (the supervision
+# classifier's convs see the fp32 straight-through latents, which no kernel takes); in
 # inference the downsampling stack's first conv also takes the tgn kernels (its time_group_norm)
-PPG_CONVS = {"train": {"residual": 1, "addition": 1, "concat": 2, "supervision": 3, "ptts": 1},
+PPG_CONVS = {"train": {"residual": 1, "addition": 1, "concat": 2, "supervision": 1, "ptts": 1},
              "infer": {"residual": 1, "addition": 1, "concat": 2, "supervision": 1, "ptts": 1}}
 PPG_INFER_B, PPG_INFER_SECONDS = 8, 10.0
 RECIPE_TIMED = 6  # steady steps timed a side, in turns of 3 (without, with, with, without)
@@ -5445,6 +5510,9 @@ def jax_ckpt_phase(dev, card: str) -> dict:
 
 
 def main() -> int:
+    # cuBLAS' fixed workspace, read when this process and the ones it spawns first use cuBLAS: the
+    # data-parallel phase's deterministic runs (its world-1 references here, its ranks) need it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     dev = check_device()
     card = card_line(CARD)
     build_phase()
@@ -5495,19 +5563,16 @@ def main() -> int:
         indent=1))
     conv_main = _summed([r for r in conv_rows if r["main_path"]])
     conv_main["library_ms"] = sum(r["library_ms"] for r in conv_rows if r["main_path"])
-    conv_main["legacy_ms"] = sum(r["legacy_ms"] for r in conv_rows if r["main_path"])
     rb_main = _summed(rb_rows, n=2)  # the encoder's and the decoder's block at each width
     rb_main["library_ms"] = None
     rb_main["unfused_ms"] = 2 * sum(r["unfused_ms"] for r in rb_rows)
-    rb_main["legacy_ms"] = 2 * sum(r["legacy_ms"] for r in rb_rows)
     backward = {k: {f"backward_{m}": v for m, v in _summed(rows).items() if m != "bound_by"}
                 for k, rows in backward_rows.items()}
     kernels = [
         dict(name="rvq_encode", route="cuda", source="funcodec_tpu_torch/csrc/rvq_encode.cu",
              replaces="funcodec_tpu/quant/rvq_pallas.py:29", launches=counts["rvq_encode"],
              max_abs_err=rvq_err, ms=rvq_row["ms"], plain_ms=rvq_row["plain_ms"],
-             bound_ms=rvq_row["bound_ms"], bound_by=rvq_row["bound_by"], library_ms=None,
-             legacy_ms=rvq_row["legacy_ms"]),
+             bound_ms=rvq_row["bound_ms"], bound_by=rvq_row["bound_by"], library_ms=None),
         dict(name="conv1d_s1", route="cuda", source="funcodec_tpu_torch/csrc/conv1d_s1.cu",
              replaces="funcodec_tpu/ops/conv_pallas.py:59", launches=counts["conv1d_s1"],
              max_abs_err=seanet_errs["conv1d_s1"], **conv_main, **backward["conv1d_s1"],
@@ -5558,7 +5623,7 @@ def main() -> int:
         if k["name"] in laura["max_abs_err"]:
             k["laura_max_abs_err"] = laura["max_abs_err"][k["name"]]
         k["dp_launches"] = dp["launches"].get(k["name"], 0)
-        if k["name"] in dp["max_abs_err"]:  # the gloo ranks' own calls against the plain version
+        if k["name"] in dp["max_abs_err"]:  # the serving replicas' own calls against the plain version
             k["dp_max_abs_err"] = dp["max_abs_err"][k["name"]]
         k["recipe_launches"] = recipe["launches"].get(k["name"], 0)
         if k["name"] in recipe["max_abs_err"]:

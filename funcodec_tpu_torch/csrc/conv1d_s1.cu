@@ -85,25 +85,25 @@
 //     fits, the output tile lies over the window buffer and the time-major
 //     chunk the item's last stage used, so the k3 convs keep two blocks an SM.
 //
-// LEGACY (fp32, other channel counts or geometries, and variant "legacy"):
-//   the first kernel, conv1d_s1_legacy.cu.
+// NONE: no kernel takes fp32, other channel counts or geometries, or a
+//   tensor-core candidate that fits no SM; ops/conv_kernel.fused_conv1d_s1
+//   then declines the call, and the caller runs its plain pad + conv.
 
 #include "conv1d_s1.cuh"
 
 namespace funcodec {
 namespace conv {
 
-Plan plan_of(int Cin, int Cout, int K, int dil, int left, int dtype, int variant) {
-  const Plan legacy{LEGACY, 0, 0};
-  if (variant == 1 || dtype != 1) return legacy;
+Plan plan_of(int Cin, int Cout, int K, int dil, int left) {
+  const Plan none{NONE, 0, 0};
   if (thin_applies(Cin, Cout, K, dil, left)) return {THIN, 0, 0};
-  if (Cin % 16 != 0 || Cout % 16 != 0) return legacy;
+  if (Cin % 16 != 0 || Cout % 16 != 0) return none;
   const int no = Cout % 64 == 0 ? 64 : (Cout % 32 == 0 ? 32 : 16);
   // Candidates in order of preference: the weights resident (one output-
   // channel tile), then streamed; chunks of 32, then 16. The first that
   // keeps the most blocks on an SM wins: the heads' chunks of 16 run two
   // blocks an SM where 32 runs one, and measured faster.
-  Plan best = legacy;
+  Plan best = none;
   int best_blocks = 0;
   for (int resident = 1; resident >= 0; --resident)
     for (int cc = 32; cc >= 16; cc -= 16) {
@@ -127,29 +127,26 @@ int tc_launch(const Plan& p, int Cin, int Cout, int K, int dil, int left, const 
   return tc_dispatch(p.no, p.cc, resident, tc_layout(p.no, p.cc, Cin, Cout, K, dil, left, resident).total, a);
 }
 
-bool bad_args(int Cin, int Cout, int K, int dil, int left, int dtype, int variant) {
-  return Cin <= 0 || Cout <= 0 || K < 1 || dil < 1 || left < 0 || left > (K - 1) * dil || (dtype != 0 && dtype != 1) ||
-         variant < 0 || variant > 1;
+bool bad_args(int Cin, int Cout, int K, int dil, int left) {
+  return Cin <= 0 || Cout <= 0 || K < 1 || dil < 1 || left < 0 || left > (K - 1) * dil;
 }
 
 }  // namespace
 
 using namespace funcodec::conv;
 
-// x (B, Cin, T), bias (Cout) fp32, y (B, Cout, T), all contiguous and 16-byte
-// aligned on the current device; dtype 0: fp32, 1: bf16. w in x's type, laid
-// out for the regime (conv1d_s1_regime): (Cout, K, Cin) for the thin and
-// legacy kernels, (Cin / CC, Cout, K, CC) with CC = conv1d_s1_chunk(...)
-// for the tensor-core kernels. pad_mode 0/1/2 = reflect/replicate/zero, act
-// 0/1/2/3 = none/ELU/ReLU/GELU; variant 0 picks the kernel, 1 forces the
-// legacy one. Launches on `stream` and returns cudaGetLastError().
+// x (B, Cin, T) bf16, bias (Cout) fp32, y (B, Cout, T) bf16, all contiguous
+// and 16-byte aligned on the current device. w bf16, laid out for the regime
+// (conv1d_s1_regime): (Cout, K, Cin) for the thin kernels, (Cin / CC, Cout,
+// K, CC) with CC = conv1d_s1_chunk(...) for the tensor-core kernels. pad_mode
+// 0/1/2 = reflect/replicate/zero, act 0/1/2/3 = none/ELU/ReLU/GELU. Launches
+// on `stream` and returns cudaGetLastError(); cudaErrorInvalidValue where no
+// kernel takes the layer.
 extern "C" int conv1d_s1_launch(const void* x, const void* w, const void* bias, void* y, int B, int Cin, int Cout,
-                                int T_, int K, int dil, int left, int pad_mode, int act, int dtype, int variant,
-                                void* stream) {
-  if (B <= 0 || B > 65535 || T_ <= 0 || bad_args(Cin, Cout, K, dil, left, dtype, variant))
-    return (int)cudaErrorInvalidValue;
+                                int T_, int K, int dil, int left, int pad_mode, int act, void* stream) {
+  if (B <= 0 || B > 65535 || T_ <= 0 || bad_args(Cin, Cout, K, dil, left)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Plan p = plan_of(Cin, Cout, K, dil, left, dtype, variant);
+  const Plan p = plan_of(Cin, Cout, K, dil, left);
   switch (p.regime) {
     case THIN:
       return thin_launch(x, w, bias, y, B, Cin, Cout, T_, K, left, pad_mode, act, s);
@@ -159,48 +156,48 @@ extern "C" int conv1d_s1_launch(const void* x, const void* w, const void* bias, 
       return tc_launch(p, Cin, Cout, K, dil, left, &a);
     }
     default:
-      return legacy_launch(x, w, bias, y, B, Cin, Cout, T_, K, dil, left, pad_mode, act, dtype, s);
+      return (int)cudaErrorInvalidValue;
   }
 }
 
-// Which kernel conv1d_s1_launch runs: 0 legacy, 1 thin, 2 tensor cores with
+// Which kernel conv1d_s1_launch runs: 0 none, 1 thin, 2 tensor cores with
 // resident weights, 3 with streamed weights (-1 on bad arguments).
-extern "C" int conv1d_s1_regime(int Cin, int Cout, int K, int dil, int left, int dtype, int variant) {
-  if (bad_args(Cin, Cout, K, dil, left, dtype, variant)) return -1;
-  return (int)plan_of(Cin, Cout, K, dil, left, dtype, variant).regime;
+extern "C" int conv1d_s1_regime(int Cin, int Cout, int K, int dil, int left) {
+  if (bad_args(Cin, Cout, K, dil, left)) return -1;
+  return (int)plan_of(Cin, Cout, K, dil, left).regime;
 }
 
 // Input channels a chunk of the tensor-core kernels (the packed weights'
 // CC), output channels a work item (NO); 0 for the other regimes.
-extern "C" int conv1d_s1_chunk(int Cin, int Cout, int K, int dil, int left, int dtype, int variant) {
-  if (bad_args(Cin, Cout, K, dil, left, dtype, variant)) return -1;
-  return plan_of(Cin, Cout, K, dil, left, dtype, variant).cc;
+extern "C" int conv1d_s1_chunk(int Cin, int Cout, int K, int dil, int left) {
+  if (bad_args(Cin, Cout, K, dil, left)) return -1;
+  return plan_of(Cin, Cout, K, dil, left).cc;
 }
 
-extern "C" int conv1d_s1_out_tile(int Cin, int Cout, int K, int dil, int left, int dtype, int variant) {
-  if (bad_args(Cin, Cout, K, dil, left, dtype, variant)) return -1;
-  return plan_of(Cin, Cout, K, dil, left, dtype, variant).no;
+extern "C" int conv1d_s1_out_tile(int Cin, int Cout, int K, int dil, int left) {
+  if (bad_args(Cin, Cout, K, dil, left)) return -1;
+  return plan_of(Cin, Cout, K, dil, left).no;
 }
 
-// Dynamic shared memory a block requests for this layer.
-extern "C" int conv1d_s1_smem_bytes(int Cin, int Cout, int K, int dil, int left, int dtype, int variant) {
-  if (bad_args(Cin, Cout, K, dil, left, dtype, variant)) return -1;
-  const Plan p = plan_of(Cin, Cout, K, dil, left, dtype, variant);
+// Dynamic shared memory a block requests for this layer (0 where no kernel takes it).
+extern "C" int conv1d_s1_smem_bytes(int Cin, int Cout, int K, int dil, int left) {
+  if (bad_args(Cin, Cout, K, dil, left)) return -1;
+  const Plan p = plan_of(Cin, Cout, K, dil, left);
   switch (p.regime) {
     case THIN: return (int)thin_smem(Cin, Cout, K);
     case TC_RESIDENT:
     case TC_STREAMED:
       return (int)tc_layout(p.no, p.cc, Cin, Cout, K, dil, left, p.regime == TC_RESIDENT).total;
-    default: return legacy_smem_bytes(Cin, Cout, K, dil, dtype);
+    default: return 0;
   }
 }
 
 // Blocks of the persistent tensor-core kernel that share an SM (its grid is
 // SMs times this, at most one block a work item); 0 for the other regimes,
 // -1 on a CUDA error.
-extern "C" int conv1d_s1_blocks_per_sm(int Cin, int Cout, int K, int dil, int left, int dtype, int variant) {
-  if (bad_args(Cin, Cout, K, dil, left, dtype, variant)) return -1;
-  const Plan p = plan_of(Cin, Cout, K, dil, left, dtype, variant);
+extern "C" int conv1d_s1_blocks_per_sm(int Cin, int Cout, int K, int dil, int left) {
+  if (bad_args(Cin, Cout, K, dil, left)) return -1;
+  const Plan p = plan_of(Cin, Cout, K, dil, left);
   if (p.regime != TC_RESIDENT && p.regime != TC_STREAMED) return 0;
   return tc_launch(p, Cin, Cout, K, dil, left, nullptr);
 }

@@ -1,8 +1,7 @@
 // Shared by the fused stride-1 conv's sources: conv1d_s1.cu (the regime
 // choice and the C entries), conv1d_s1_thin.cu (one input or one output
-// channel), conv1d_s1_tc.cuh with conv1d_s1_tc.cu (the persistent
-// tensor-core kernel) and conv1d_s1_legacy.cu (the first kernel,
-// variant "legacy"). What the conv computes and the design of each kernel
+// channel) and conv1d_s1_tc.cuh with conv1d_s1_tc.cu (the persistent
+// tensor-core kernel). What the conv computes and the design of each kernel
 // are described at the top of conv1d_s1.cu.
 
 #pragma once
@@ -12,11 +11,12 @@
 namespace funcodec {
 namespace conv {
 
-// Which kernel a layer runs (conv1d_s1_regime). ops/conv_kernel.plan mirrors
+// Which kernel a layer runs (conv1d_s1_regime; NONE: no kernel takes it, and
+// the wrapper declines the call). ops/conv_kernel.plan mirrors
 // plan_of, tc_layout and tc_blocks_per_sm for the CPU tests; the card test
 // tests/test_torch_kernels.py::test_cuda_conv_plan_mirrors_the_launch is what
 // keeps the two copies in sync.
-enum Regime { LEGACY = 0, THIN = 1, TC_RESIDENT = 2, TC_STREAMED = 3 };
+enum Regime { NONE = 0, THIN = 1, TC_RESIDENT = 2, TC_STREAMED = 3 };
 
 constexpr int TC_TILE = 256;                  // time steps a tensor-core work item
 constexpr unsigned TC_MAX_SMEM = 232448;      // 227 KB a block
@@ -84,7 +84,7 @@ struct Plan {
   int no, cc;  // output channels a work item, input channels a chunk (tensor cores)
 };
 
-Plan plan_of(int Cin, int Cout, int K, int dil, int left, int dtype, int variant);
+Plan plan_of(int Cin, int Cout, int K, int dil, int left);
 
 struct TcArgs {
   const void *x, *w, *bias;
@@ -102,11 +102,6 @@ bool thin_applies(int Cin, int Cout, int K, int dil, int left);
 unsigned thin_smem(int Cin, int Cout, int K);
 int thin_launch(const void* x, const void* w, const void* bias, void* y, int B, int Cin, int Cout, int T_, int K,
                 int left, int pad_mode, int act, cudaStream_t s);
-
-// The first kernel. w is (Cout, K, Cin) in x's type.
-int legacy_launch(const void* x, const void* w, const void* bias, void* y, int B, int Cin, int Cout, int T_, int K,
-                  int dil, int left, int pad_mode, int act, int dtype, cudaStream_t s);
-int legacy_smem_bytes(int Cin, int Cout, int K, int dil, int dtype);
 
 }  // namespace conv
 }  // namespace funcodec

@@ -28,9 +28,9 @@
 // the flagship's 8 blocks at B = 64 x 10 s that is 7.1 GB (counted once) and
 // 0.83 TFLOP (counted once): 2.1 ms at 3.35 TB/s. The narrow blocks (C = 32,
 // T = 160,000) are memory-bound, the wide one (C = 256) compute-bound. What
-// held the first version (resblock_tgn_legacy.cu) at 45x that bound was not
-// bytes or FLOP but latency: 80,000 one-shot blocks a launch that each
-// reloaded the weights, staged the window with scalar, bank-conflicted
+// held a first, one-tile-per-block version of this kernel at 45x that bound
+// was not bytes or FLOP but latency: 80,000 one-shot blocks a launch that
+// each reloaded the weights, staged the window with scalar, bank-conflicted
 // transposing stores, and went through six block-wide barriers and three
 // fp32 round trips through shared memory with nothing in flight meanwhile.
 //
@@ -76,9 +76,10 @@
 //
 // (C, H) = (256, 128): 393 KB of weights do not fit, so
 // resblock_tgn_streamed.cu runs the same frame with K-slices of the weights
-// streamed through a cp.async ring (its header note says how). fp32 and
-// other widths run the legacy kernel (resblock_tgn_legacy.cu): one block per
-// (tile, sample), wmma fragments or the CUDA cores.
+// streamed through a cp.async ring (its header note says how). No kernel
+// takes fp32, other widths, or a layout that does not fit (resblock_tgn_kind
+// returns 0): ops/resblock_kernel.fused_resblock_tgn then declines the call,
+// and the caller runs the unfused block.
 
 #include "resblock_tgn.cuh"
 
@@ -298,17 +299,17 @@ resblock_tgn_persistent(const bf16* __restrict__ x,     // (B, C, T)
 
 // ---- host side ---------------------------------------------------------
 
-enum Kind { LEGACY = 0, RESIDENT = 1, STREAMED = 2 };
+enum Kind { NONE = 0, RESIDENT = 1, STREAMED = 2 };
 
 // 16-step row groups a warp of the resident kernel: a tile is 128 * MT steps.
 constexpr int mt_of(int C) { return C == 32 ? 2 : 1; }
 
 // Which kernel runs a block of these widths and this conv1.
-Kind kind_of(int C, int H, int K, int dil, int left, int dtype, int variant) {
-  if (variant == 1 || dtype != 1) return LEGACY;
+Kind kind_of(int C, int H, int K, int dil, int left) {
+  if (K < 1 || dil < 1 || left < 0 || left > (K - 1) * dil) return NONE;
   if ((C == 32 && H == 16) || (C == 64 && H == 32) || (C == 128 && H == 64))
-    return layout(C, H, mt_of(C), K, dil, left).total <= MAX_SMEM ? RESIDENT : LEGACY;
-  return streamed_applies(C, H, K, dil, left) ? STREAMED : LEGACY;
+    return layout(C, H, mt_of(C), K, dil, left).total <= MAX_SMEM ? RESIDENT : NONE;
+  return streamed_applies(C, H, K, dil, left) ? STREAMED : NONE;
 }
 
 template <int MODE>
@@ -385,55 +386,52 @@ resblock_tgn_finalize_kernel(const double* __restrict__ part, int n_t, float* __
 
 
 // One pass (mode 0/1/2, above). x (B, C, T), w1 (H, K, C), w2 (C, H), ws (C, C)
-// in x's type (dtype 0: fp32, 1: bf16); b1 (H), b2 (C), bs (C), aff (B, 6, C)
-// fp32; part (B, n_t, 4) fp64 with n_t = ceil(T / resblock_tgn_tile(...)); y
-// (B, C, T). All contiguous and 16-byte aligned on the current device.
-// variant 0 picks the kernel (a persistent one where it applies), 1 forces
-// the legacy kernel. max_blocks > 0 caps a persistent grid. Launches on
-// `stream` and returns cudaGetLastError().
+// bf16; b1 (H), b2 (C), bs (C), aff (B, 6, C) fp32; part (B, n_t, 4) fp64
+// with n_t = ceil(T / resblock_tgn_tile(...)); y (B, C, T) bf16. All
+// contiguous and 16-byte aligned on the current device. max_blocks > 0 caps
+// the persistent grid. Launches on `stream` and returns cudaGetLastError();
+// cudaErrorInvalidValue where no kernel takes the block (resblock_tgn_kind 0).
 extern "C" int resblock_tgn_launch(int mode, const void* x, const void* w1, const void* b1,
                                    const void* w2, const void* b2, const void* ws, const void* bs,
                                    const void* aff, void* part, void* y, int B, int C, int H,
-                                   int T_, int K, int dil, int left, int pad_mode, int dtype,
-                                   int variant, int max_blocks, void* stream) {
-  if (mode < 0 || mode > 2 || B <= 0 || B > 65535 || C <= 0 || H <= 0 || T_ <= 0 || K < 1 || dil < 1 ||
-      left < 0 || left > (K - 1) * dil || variant < 0 || variant > 1 || max_blocks < 0 ||
+                                   int T_, int K, int dil, int left, int pad_mode, int max_blocks,
+                                   void* stream) {
+  const Kind kind = kind_of(C, H, K, dil, left);
+  if (mode < 0 || mode > 2 || B <= 0 || B > 65535 || T_ <= 0 || max_blocks < 0 || kind == NONE ||
       (long long)B * T_ >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   const Args a{x, w1, b1, w2, b2, ws, bs, aff, part, y, B, T_, K, dil, left, pad_mode, max_blocks,
                static_cast<cudaStream_t>(stream)};
-  const Kind kind = kind_of(C, H, K, dil, left, dtype, variant);
-  if (kind == LEGACY) return legacy_launch(mode, a, C, H, dtype);
   return dispatch(mode, kind, C, H, K, dil, left, &a);
 }
 
-// Which kernel resblock_tgn_launch runs for these arguments: 0 the legacy
-// one, 1 the persistent kernel with resident weights, 2 with streamed weights.
-extern "C" int resblock_tgn_kind(int C, int H, int K, int dil, int left, int dtype, int variant) {
-  return (int)kind_of(C, H, K, dil, left, dtype, variant);
+// Which kernel resblock_tgn_launch runs for these arguments: 0 none, 1 the
+// persistent kernel with resident weights, 2 with streamed weights.
+extern "C" int resblock_tgn_kind(int C, int H, int K, int dil, int left) {
+  return (int)kind_of(C, H, K, dil, left);
 }
 
 // Blocks of the persistent kernel that share an SM in pass `mode` (the grid
-// is SMs times this, at most one block a work item); 0 where the legacy
-// kernel runs, -1 on a CUDA error.
-extern "C" int resblock_tgn_blocks_per_sm(int mode, int C, int H, int K, int dil, int left, int dtype, int variant) {
-  const Kind kind = kind_of(C, H, K, dil, left, dtype, variant);
-  if (mode < 0 || mode > 2 || kind == LEGACY) return 0;
+// is SMs times this, at most one block a work item); 0 where no kernel
+// takes the block, -1 on a CUDA error.
+extern "C" int resblock_tgn_blocks_per_sm(int mode, int C, int H, int K, int dil, int left) {
+  const Kind kind = kind_of(C, H, K, dil, left);
+  if (mode < 0 || mode > 2 || kind == NONE) return 0;
   return dispatch(mode, kind, C, H, K, dil, left, nullptr);
 }
 
-// Time steps per tile (the partials' n_t = ceil(T / tile)).
-extern "C" int resblock_tgn_tile(int C, int H, int K, int dil, int left, int dtype, int variant) {
-  const Kind kind = kind_of(C, H, K, dil, left, dtype, variant);
+// Time steps per tile (the partials' n_t = ceil(T / tile)); 0 where no kernel takes the block.
+extern "C" int resblock_tgn_tile(int C, int H, int K, int dil, int left) {
+  const Kind kind = kind_of(C, H, K, dil, left);
   if (kind == STREAMED) return streamed_tile();
-  return kind == RESIDENT ? WARPS * 16 * mt_of(C) : legacy_tile(C, H, dtype);
+  return kind == RESIDENT ? WARPS * 16 * mt_of(C) : 0;
 }
 
-// Dynamic shared memory a block requests.
-extern "C" int resblock_tgn_smem_bytes(int C, int H, int K, int dil, int left, int dtype, int variant) {
-  const Kind kind = kind_of(C, H, K, dil, left, dtype, variant);
+// Dynamic shared memory a block requests; 0 where no kernel takes the block.
+extern "C" int resblock_tgn_smem_bytes(int C, int H, int K, int dil, int left) {
+  const Kind kind = kind_of(C, H, K, dil, left);
   if (kind == STREAMED) return (int)streamed_smem_bytes(C, H, K, dil, left);
-  return kind == RESIDENT ? (int)layout(C, H, mt_of(C), K, dil, left).total : legacy_smem_bytes(C, H, K, dil, dtype);
+  return kind == RESIDENT ? (int)layout(C, H, mt_of(C), K, dil, left).total : 0;
 }
 
 // The affines of one or two normalisations from the partials of a pass:

@@ -298,12 +298,6 @@ int launch_or_count(Kernel kernel, unsigned smem, int tt, const Args* a) {
   return (int)cudaGetLastError();
 }
 
-// The legacy kernel (resblock_tgn_legacy.cu): one block per (tile, sample);
-// fp32, widths the persistent kernels are not compiled for, variant 1.
-int legacy_launch(int mode, const Args& a, int C, int H, int dtype);
-int legacy_tile(int C, int H, int dtype);
-int legacy_smem_bytes(int C, int H, int K, int dil, int dtype);
-
 // The streamed kernel (resblock_tgn_streamed.cu), compiled for (C, H) =
 // (256, 128): whether it takes this conv1, its tile, its shared memory, and
 // its launch (a == nullptr: the resident blocks an SM instead).

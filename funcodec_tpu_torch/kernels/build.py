@@ -42,19 +42,19 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # the stream pass as c_void_p, so ctypes never cuts them to 32 bits.
 SIGNATURES = {
     "funcodec_cuda_error_string": (ctypes.c_char_p, [_I]),
-    "rvq_encode_launch": (_I, [_P] * 6 + [_I] * 5 + [_P]),
-    "rvq_encode_smem_bytes": (_I, [_I]),
-    "conv1d_s1_launch": (_I, [_P] * 4 + [_I] * 11 + [_P]),
-    "conv1d_s1_regime": (_I, [_I] * 7),
-    "conv1d_s1_chunk": (_I, [_I] * 7),
-    "conv1d_s1_out_tile": (_I, [_I] * 7),
-    "conv1d_s1_smem_bytes": (_I, [_I] * 7),
-    "conv1d_s1_blocks_per_sm": (_I, [_I] * 7),
-    "resblock_tgn_launch": (_I, [_I] + [_P] * 10 + [_I] * 11 + [_P]),
-    "resblock_tgn_kind": (_I, [_I] * 7),
-    "resblock_tgn_blocks_per_sm": (_I, [_I] * 8),
-    "resblock_tgn_tile": (_I, [_I] * 7),
-    "resblock_tgn_smem_bytes": (_I, [_I] * 7),
+    "rvq_encode_launch": (_I, [_P] * 6 + [_I] * 4 + [_P]),
+    "rvq_encode_smem_bytes": (_I, []),
+    "conv1d_s1_launch": (_I, [_P] * 4 + [_I] * 9 + [_P]),
+    "conv1d_s1_regime": (_I, [_I] * 5),
+    "conv1d_s1_chunk": (_I, [_I] * 5),
+    "conv1d_s1_out_tile": (_I, [_I] * 5),
+    "conv1d_s1_smem_bytes": (_I, [_I] * 5),
+    "conv1d_s1_blocks_per_sm": (_I, [_I] * 5),
+    "resblock_tgn_launch": (_I, [_I] + [_P] * 10 + [_I] * 9 + [_P]),
+    "resblock_tgn_kind": (_I, [_I] * 5),
+    "resblock_tgn_blocks_per_sm": (_I, [_I] * 6),
+    "resblock_tgn_tile": (_I, [_I] * 5),
+    "resblock_tgn_smem_bytes": (_I, [_I] * 5),
     "resblock_tgn_finalize_launch": (_I, [_P, _I, _P] + [_I] * 4 + [_P, _P, _I, _I] * 2 + [_P]),
     "tgn_norm_launch": (_I, [_P, _P, _P, _I, _P, _P] + [_I] * 7 + [_P]),
     "convtr2d_launch": (_I, [_P] * 4 + [_I] * 8 + [_P]),

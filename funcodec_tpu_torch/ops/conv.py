@@ -26,7 +26,8 @@ Pallas kernel.
 kernel of ops/conv_kernel.py; ``FUSED_RESBLOCK`` routes each qualifying
 SEANet residual block to ops/resblock_kernel.py (models/seanet.py). Both are
 off by default, as their JAX counterparts ``PALLAS_STRIDE1`` and
-``PALLAS_RESBLOCK`` are.
+``PALLAS_RESBLOCK`` are. On a card, a call that no kernel takes (fp32, or
+widths the kernels are not built for) is declined and runs the plain path.
 
 A ``time_group_norm`` takes the hand-written kernels of ops/tgn_kernel.py
 by what its input shows, with no flag (the JAX norm has no Pallas kernel to
@@ -134,12 +135,18 @@ def weight_norm_fuse(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return (v.float() * (g.float().reshape(norm.shape) / norm.clamp_min(1e-12))).to(v.dtype)
 
 
+def _no_grad_needed(*tensors: Optional[torch.Tensor]) -> bool:
+    """Autograd does not need a result computed from these: grad mode is
+    off, or none of them (None skipped) requires grad."""
+    return not (torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors))
+
+
 def _tgn_on_card(spec: ConvSpec, y: torch.Tensor, norm_scale, norm_bias) -> bool:
     """A time_group_norm that the kernels of ops/tgn_kernel.py compute: y on
     a card and a result that autograd does not need."""
     if spec.norm != "time_group_norm" or y.device.type != "cuda":
         return False
-    return not (torch.is_grad_enabled() and (y.requires_grad or norm_scale.requires_grad or norm_bias.requires_grad))
+    return _no_grad_needed(y, norm_scale, norm_bias)
 
 
 def _convtr2d_on_card(spec: ConvSpec, x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor]) -> bool:
@@ -148,8 +155,7 @@ def _convtr2d_on_card(spec: ConvSpec, x: torch.Tensor, weight: torch.Tensor, bia
     not need. The kernel raises on a geometry it does not take."""
     if x.device.type != "cuda" or x.dtype != torch.bfloat16 or spec.groups == 1:
         return False
-    params = (weight,) if bias is None else (weight, bias)
-    return not (torch.is_grad_enabled() and (x.requires_grad or any(p.requires_grad for p in params)))
+    return _no_grad_needed(x, weight, bias)
 
 
 def _count_norm(route: str, y: torch.Tensor) -> None:

@@ -3,14 +3,14 @@
 Counterpart of funcodec_tpu/ops/conv_pallas.py. ``fused_conv1d_s1`` computes
 [act ->] pad -> stride-1 dilated "same" conv1d + bias on torch's (B, C, T)
 layout, reading x once and writing y once (csrc/conv1d_s1.cu). The launch
-picks one of three kernels from the shapes; ``plan`` mirrors that choice:
-a bytes-bound stream for one input or one output channel ("thin"), a
-persistent tensor-core kernel over (sample, time tile, output-channel tile)
-work items (``work_items`` mirrors their order) with the weights resident
-or streamed, and the first kernel ("legacy", csrc/conv1d_s1_legacy.cu) for
-fp32 and what the others do not take. ``variant="legacy"`` forces the first
-kernel (timing and tests). The weights reach the kernel as
-``packed_conv_weights`` lays them out, cached on the weight tensor. Its plain
+picks one of three bf16 kernels from the shapes; ``plan`` mirrors that
+choice: a bytes-bound stream for one input or one output channel ("thin"),
+or a persistent tensor-core kernel over (sample, time tile, output-channel
+tile) work items (``work_items`` mirrors their order) with the weights
+resident or streamed. Where none takes the layer (fp32, other channel
+counts or geometries), ``plan`` is None and a CUDA call declines. The
+weights reach the kernel as ``packed_conv_weights`` lays them out, cached
+on the weight tensor. Its plain
 version ``fused_conv1d_s1_reference`` does the same arithmetic in plain
 torch: the activation in fp32 rounded to x's type (ELU as exp(min(x, 0)) - 1),
 the pad, an fp32 sum of the tap products with the fp32 bias, one rounding to
@@ -25,8 +25,9 @@ channel-packed ``_plan``/``_pack_weights`` lowering and its 8-row alignment)
 are dropped: the CUDA kernel masks its own ragged time and channel tiles.
 
 The wrapper takes the plain version only for tensors on the CPU; for a
-CUDA tensor it launches the kernel or raises. Where an input requires grad,
-the call is a ``torch.autograd.Function`` (funcodec_tpu's ``custom_vjp``
+CUDA tensor it launches the kernel, or returns ``None`` where no kernel
+takes the layer, and the caller runs its plain pad + conv. Where an input
+requires grad, the call is a ``torch.autograd.Function`` (funcodec_tpu's ``custom_vjp``
 around the Pallas call): its forward is the kernel (the plain version on
 the CPU), and ``conv1d_s1_backward`` is its backward, fp32 transposes of the
 linear pad + conv through cuDNN's conv gradients and the activation's
@@ -36,6 +37,7 @@ this module and never replays the forward.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -50,11 +52,8 @@ LAUNCHES = 0
 
 PAD_MODES = {"reflect": 0, "replicate": 1, "constant": 2, "zero": 2}
 ACTS = {None: 0, "elu": 1, "relu": 2, "gelu": 3}
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the device code a call may ask for (csrc/conv1d_s1.cu conv1d_s1_launch)
-VARIANTS = {"auto": 0, "legacy": 1}
-# the kernels of csrc/conv1d_s1.cu, numbered as conv1d_s1_regime returns them
-REGIMES = ("legacy", "thin", "tc_resident", "tc_streamed")
+# the kernels of csrc/conv1d_s1.cu, numbered as conv1d_s1_regime returns them (0: none)
+REGIMES = (None, "thin", "tc_resident", "tc_streamed")
 
 # csrc/conv1d_s1.cuh: time steps a tensor-core work item, a block's shared memory,
 # an SM's (1 KB of it reserved for each resident block), blocks an SM at most
@@ -107,18 +106,21 @@ def thin_applies(cin: int, cout: int, K: int, dil: int, left: int) -> bool:
             and left in ((K - 1) - (K - 1) // 2, K - 1))
 
 
-def plan(cin: int, cout: int, K: int, dil: int, left: int, dtype: torch.dtype, variant: str = "auto") -> Plan:
-    """The kernel conv1d_s1_launch runs for a layer (csrc/conv1d_s1.cu plan_of)."""
-    if VARIANTS[variant] == 1 or dtype != torch.bfloat16:
-        return Plan("legacy", 0, 0)
+def plan(cin: int, cout: int, K: int, dil: int, left: int, dtype: torch.dtype) -> Optional[Plan]:
+    """The kernel conv1d_s1_launch runs for a layer (csrc/conv1d_s1.cu
+    plan_of), or None where no kernel takes it: a dtype other than bf16,
+    channel counts that are not multiples of 16 outside "thin", or no
+    tensor-core candidate that fits an SM."""
+    if dtype != torch.bfloat16:
+        return None
     if thin_applies(cin, cout, K, dil, left):
         return Plan("thin", 0, 0)
     if cin % 16 or cout % 16:
-        return Plan("legacy", 0, 0)
+        return None
     no = next(n for n in (64, 32, 16) if cout % n == 0)
     # the weights resident before streamed, chunks of 32 before 16: the first
     # that keeps the most blocks on an SM
-    best, best_blocks = Plan("legacy", 0, 0), 0
+    best, best_blocks = None, 0
     for resident in (True, False):
         for cc in (32, 16):
             if cin % cc or (resident and no != cout):
@@ -127,6 +129,17 @@ def plan(cin: int, cout: int, K: int, dil: int, left: int, dtype: torch.dtype, v
             if blocks > best_blocks:
                 best, best_blocks = Plan("tc_resident" if resident else "tc_streamed", no, cc), blocks
     return best
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_chunk(cin: int, cout: int, K: int, dil: int, left: int) -> Optional[int]:
+    """The input-channel chunk of the kernel conv1d_s1_launch runs for a bf16
+    layer (0 for "thin"), or None where no kernel takes it; asked of
+    csrc/conv1d_s1.cu once per layer geometry."""
+    lib = build.load()
+    if lib.conv1d_s1_regime(cin, cout, K, dil, left) <= 0:
+        return None
+    return lib.conv1d_s1_chunk(cin, cout, K, dil, left)
 
 
 def work_items(block: int, n_blocks: int, B: int, n_t: int, n_o: int) -> List[Tuple[int, int, int]]:
@@ -150,7 +163,7 @@ def _param_key(p: Optional[torch.Tensor]):
 
 def pack_weight(weight: torch.Tensor, dtype: torch.dtype, chunk: int) -> torch.Tensor:
     """weight (Cout, Cin, K) as a kernel reads it, in `dtype`: (Cout, K, Cin)
-    for the thin and legacy kernels (chunk 0); (Cin / chunk, Cout, K, chunk)
+    for the thin kernels (chunk 0); (Cin / chunk, Cout, K, chunk)
     for the tensor-core kernels, so a chunk's slice of an output-channel tile
     is contiguous rows."""
     w = weight.detach().to(dtype)
@@ -268,11 +281,11 @@ class _FusedConv1dS1(torch.autograd.Function):
     gradient in its input's type."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, left, right, dilation, pad_mode, act, variant):
+    def forward(ctx, x, weight, bias, left, right, dilation, pad_mode, act, chunk):
         ctx.save_for_backward(x, weight)
         ctx.geometry = (left, right, dilation, pad_mode, act)
         ctx.bias_dtype = None if bias is None else bias.dtype
-        return _conv1d_s1_forward(x, weight, bias, left, right, dilation, pad_mode, act, variant)
+        return _conv1d_s1_forward(x, weight, bias, left, right, dilation, pad_mode, act, chunk)
 
     @staticmethod
     def backward(ctx, g):
@@ -313,43 +326,42 @@ def fused_conv1d_s1(
     dilation: int = 1,
     pad_mode: str = "reflect",
     act: Optional[str] = None,
-    *,
-    variant: str = "auto",
 ) -> Optional[torch.Tensor]:
     """Fused [act ->] pad -> conv (stride 1). x (B, Cin, T), weight
-    (Cout, Cin, K) -> (B, Cout, T), or None when the layer does not qualify.
-    ``variant`` picks the device code ("auto": the kernel ``plan`` names;
-    "legacy": the first kernel); it exists for timing and tests and changes
-    no result beyond the summation order. Differentiable in x, weight and
-    bias (see conv1d_s1_backward)."""
+    (Cout, Cin, K) -> (B, Cout, T), or None when the layer does not qualify
+    or, for a CUDA tensor, no kernel takes it. Differentiable in x, weight
+    and bias (see conv1d_s1_backward)."""
     if x.dim() != 3 or weight.dim() != 3:
         return None
     if not qualifies(x.shape[-1], weight.shape[-1], left, right, dilation, pad_mode):
         return None
     if act not in ACTS:
         raise ValueError(f"unsupported fused act: {act}")
-    if variant not in VARIANTS:
-        raise ValueError(f"fused_conv1d_s1: variant {variant!r} is not one of {sorted(VARIANTS)}")
-    return _FusedConv1dS1.apply(x, weight, bias, left, right, dilation, pad_mode, act, variant)
+    chunk = None
+    if x.device.type == "cuda":
+        Cout, Cin, K = weight.shape
+        if Cin != x.shape[1]:
+            raise ValueError(f"fused_conv1d_s1: weight {tuple(weight.shape)} for x {tuple(x.shape)}")
+        if x.dtype != torch.bfloat16:
+            return None
+        chunk = kernel_chunk(Cin, Cout, K, dilation, left)
+        if chunk is None:
+            return None
+    return _FusedConv1dS1.apply(x, weight, bias, left, right, dilation, pad_mode, act, chunk)
 
 
-def _conv1d_s1_forward(x, weight, bias, left, right, dilation, pad_mode, act, variant) -> torch.Tensor:
-    """The plain version for a CPU tensor, the kernel for a CUDA one."""
+def _conv1d_s1_forward(x, weight, bias, left, right, dilation, pad_mode, act, chunk) -> torch.Tensor:
+    """The plain version for a CPU tensor, the kernel for a CUDA one (with
+    the chunk the gate found)."""
     if x.device.type == "cpu":
         return fused_conv1d_s1_reference(x, weight, bias, left, right, dilation, pad_mode, act)
     if x.device.type != "cuda":
         raise ValueError(f"fused_conv1d_s1: unsupported device {x.device}")
-    if x.dtype not in DTYPES:
-        raise ValueError(f"fused_conv1d_s1: x is {x.dtype}; the kernel takes float32 or bfloat16")
     B, Cin, T = x.shape
-    Cout, w_cin, K = weight.shape
-    if w_cin != Cin:
-        raise ValueError(f"fused_conv1d_s1: weight {tuple(weight.shape)} for x {tuple(x.shape)}")
-    xc = x.contiguous()
-    chunk = build.load().conv1d_s1_chunk(Cin, Cout, K, dilation, left, DTYPES[x.dtype], VARIANTS[variant])
+    Cout = weight.shape[0]
     pack = packed_conv_weights(weight, bias, x.dtype, chunk)
     y = torch.empty((B, Cout, T), dtype=x.dtype, device=x.device)
-    launch_conv1d_s1(xc, pack["w"], pack["bias"], y, dilation, left, pad_mode, act, variant)
+    launch_conv1d_s1(x.contiguous(), pack["w"], pack["bias"], y, dilation, left, pad_mode, act)
     return y
 
 
@@ -362,27 +374,27 @@ def launch_conv1d_s1(
     left: int,
     pad_mode: str,
     act: Optional[str],
-    variant: str = "auto",
 ) -> None:
     """Launch csrc/conv1d_s1.cu on the current stream of x's device.
 
-    x (B, Cin, T), bias (Cout,) fp32, w in x's type as pack_weight lays it
-    out for the kernel the launch runs: (Cout, K, Cin), or (Cin / CC, Cout,
-    K, CC) for a tensor-core kernel; writes y (B, Cout, T)."""
+    x (B, Cin, T) bf16, bias (Cout,) fp32, w bf16 as pack_weight lays it out
+    for the kernel the launch runs: (Cout, K, Cin), or (Cin / CC, Cout, K,
+    CC) for a tensor-core kernel; writes y (B, Cout, T). Raises where no
+    kernel takes the layer (``plan`` None)."""
     global LAUNCHES
     B, Cin, T = x.shape
-    if variant not in VARIANTS:
-        raise ValueError(f"conv1d_s1: variant {variant!r} is not one of {sorted(VARIANTS)}")
     Cout, K = (w.shape[1], w.shape[2]) if w.dim() == 4 else (w.shape[0], w.shape[1])
-    lib = build.load()
-    dt, v = DTYPES.get(x.dtype, -1), VARIANTS[variant]
-    chunk = lib.conv1d_s1_chunk(Cin, Cout, K, dilation, left, dt, v) if dt >= 0 else 0
+    chunk = kernel_chunk(Cin, Cout, K, dilation, left)
+    if chunk is None:
+        raise ValueError(f"conv1d_s1: no kernel takes {Cin} -> {Cout} channels, K={K}, dilation={dilation}, "
+                         f"left={left}")
     w_shape = (Cin // chunk, Cout, K, chunk) if chunk > 0 else (Cout, K, Cin)
+    bf = torch.bfloat16
     expect = {
-        "x": (x, x.dtype, (B, Cin, T)),
-        "w": (w, x.dtype, w_shape),
+        "x": (x, bf, (B, Cin, T)),
+        "w": (w, bf, w_shape),
         "bias": (bias, torch.float32, (Cout,)),
-        "y": (y, x.dtype, (B, Cout, T)),
+        "y": (y, bf, (B, Cout, T)),
     }
     for name, (t, dtype, shape) in expect.items():
         if t.device != x.device or t.device.type != "cuda":
@@ -392,9 +404,10 @@ def launch_conv1d_s1(
                              f"16-byte aligned {dtype}{shape}")
     if B > 65535 or T >= 2**31:
         raise ValueError(f"conv1d_s1: x {tuple(x.shape)} exceeds the kernel's grid")
+    lib = build.load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.conv1d_s1_launch(x.data_ptr(), w.data_ptr(), bias.data_ptr(), y.data_ptr(), B, Cin, Cout,
-                                  T, K, dilation, left, PAD_MODES[pad_mode], ACTS[act], dt, v, stream)
+                                  T, K, dilation, left, PAD_MODES[pad_mode], ACTS[act], stream)
     build.check(lib, rc, "conv1d_s1_launch")
     LAUNCHES += 1

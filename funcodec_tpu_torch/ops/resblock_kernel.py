@@ -9,11 +9,13 @@ kernel of the same source (``launch_resblock_finalize``) turns the per-tile
 fp64 (sum, sumsq) partials into per-sample, per-channel affines, so each
 normalisation in the kernel is one multiply-add and the host launches five
 kernels a block and computes nothing. No intermediate (B, C, T) tensor is
-written. For bf16 blocks of the flagship's widths the passes are persistent
-kernels (a grid of SMs x resident blocks walking (sample, tile) work items
-in the order of ``work_items``); other widths and fp32 run the first,
-one-tile-per-block kernel. The weights reach the kernel as
-``packed_weights`` lays them out, cached on the block's first conv.
+written. The passes are persistent bf16 kernels (a grid of SMs x resident
+blocks walking (sample, tile) work items in the order of ``work_items``) for
+the widths (C, H) of (32, 16), (64, 32), (128, 64) and (256, 128); no
+kernel takes fp32, other widths or a layout that does not fit
+(``resblock_tgn_kind`` 0), and a CUDA call then declines. The weights reach
+the kernel as ``packed_weights`` lays them out, cached on the block's first
+conv.
 
 ``fused_resblock_tgn_reference`` repeats the kernel's arithmetic in plain
 torch, with its rounding points (resblock_pallas.py:116-160): b rounded to
@@ -33,8 +35,9 @@ are dropped: the kernel computes its halo by index arithmetic and masks the
 ragged last tile.
 
 The wrapper takes the plain version only for tensors on the CPU; for a CUDA
-tensor it launches the kernel or raises. Where an input requires grad, the
-call is a ``torch.autograd.Function`` (funcodec_tpu's ``fused_fn``
+tensor it launches the kernel, or returns ``None`` where no kernel takes the
+block, and the caller runs the unfused chain. Where an input requires grad,
+the call is a ``torch.autograd.Function`` (funcodec_tpu's ``fused_fn``
 custom_vjp): its forward is the kernel (the plain version on the CPU); its
 backward replays the plain chain from the saved x and parameters under
 autograd and returns the gradients of x and of every conv and norm
@@ -43,13 +46,14 @@ parameter, launching no kernel of this module.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from funcodec_tpu_torch.kernels import build
-from funcodec_tpu_torch.ops.conv_kernel import DTYPES, PAD_MODES, apply_act
+from funcodec_tpu_torch.ops.conv_kernel import PAD_MODES, apply_act
 from funcodec_tpu_torch.ops.pad import conv_padding_total, pad1d_time, split_padding
 
 # Launches of a pass since the last reset (three per block); a run sets it to 0
@@ -59,8 +63,6 @@ LAUNCHES = 0
 FINALIZE_LAUNCHES = 0
 
 MAX_C = 256
-# the device code a call may ask for (csrc/resblock_tgn.cu resblock_tgn_launch)
-VARIANTS = {"auto": 0, "legacy": 1}
 EPS = 1e-5
 
 
@@ -107,6 +109,14 @@ def _plan(x: torch.Tensor, conv1, conv2, shortcut) -> Optional[Tuple[int, int, i
     if T <= max(left, right):  # pad1d small-input fixup regime
         return None
     return K, d, left, right
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_tile(C: int, H: int, K: int, dil: int, left: int) -> int:
+    """Time steps a tile of the kernel resblock_tgn_launch runs for a bf16
+    block, 0 where no kernel takes it; asked of csrc/resblock_tgn.cu once
+    per block geometry."""
+    return build.load().resblock_tgn_tile(C, H, K, dil, left)
 
 
 def _bias(b: Optional[torch.Tensor], n: int, like: torch.Tensor) -> torch.Tensor:
@@ -228,21 +238,28 @@ def resblock_chain(x: torch.Tensor, params, d: int, left: int, right: int, pad_m
     return cn + sn
 
 
-def fused_resblock_tgn(
-    x: torch.Tensor, conv1, conv2, shortcut, *, variant: str = "auto", max_blocks: int = 0
-) -> Optional[torch.Tensor]:
+def fused_resblock_tgn(x: torch.Tensor, conv1, conv2, shortcut, *, max_blocks: int = 0) -> Optional[torch.Tensor]:
     """One fused residual block; conv1 (K, d), conv2 (1x1) and shortcut (1x1)
     are the block's SConv1d modules. x (B, C, T) -> (B, C, T), or None when
-    the block does not qualify. ``variant`` picks the device code ("auto":
-    a persistent kernel where one applies; "legacy": the one-tile-per-block
-    kernel) and ``max_blocks`` > 0 caps a persistent grid; both exist for
-    timing and tests and change no result beyond the tile sums' grouping.
-    Differentiable in x and in the block's parameters."""
+    the block does not qualify or, for a CUDA tensor, no kernel takes it.
+    ``max_blocks`` > 0 caps the persistent grid; it exists for tests and
+    changes no result beyond the tile sums' grouping. Differentiable in x
+    and in the block's parameters."""
+    if max_blocks < 0:
+        raise ValueError(f"fused_resblock_tgn: max_blocks={max_blocks} is negative")
     plan = _plan(x, conv1, conv2, shortcut)
     if plan is None:
         return None
+    tile = 0
+    if x.device.type == "cuda":  # declined unless bf16 at widths and a layout that a kernel takes
+        K, d, left, _ = plan
+        if x.dtype != torch.bfloat16:
+            return None
+        tile = kernel_tile(x.shape[1], conv1.spec.out_channels, K, d, left)
+        if tile == 0:
+            return None
     params = _block_params(conv1, conv2, shortcut)
-    return _FusedResblockTGN.apply(x, (conv1, conv2, shortcut, plan, variant, max_blocks), *params)
+    return _FusedResblockTGN.apply(x, (conv1, conv2, shortcut, plan, tile, max_blocks), *params)
 
 
 class _FusedResblockTGN(torch.autograd.Function):
@@ -251,10 +268,10 @@ class _FusedResblockTGN(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, call, *params):
-        conv1, conv2, shortcut, plan, variant, max_blocks = call
+        conv1, conv2, shortcut, plan, tile, max_blocks = call
         ctx.save_for_backward(x, *params)
         ctx.geometry = (plan[1], plan[2], plan[3], conv1.spec.pad_mode)
-        return _resblock_forward(x, conv1, conv2, shortcut, plan, variant, max_blocks)
+        return _resblock_forward(x, conv1, conv2, shortcut, plan, tile, max_blocks)
 
     @staticmethod
     def backward(ctx, g):
@@ -269,29 +286,22 @@ class _FusedResblockTGN(torch.autograd.Function):
         return (out[0], None, *out[1:])
 
 
-def _resblock_forward(x, conv1, conv2, shortcut, plan, variant, max_blocks) -> torch.Tensor:
-    """The plain version for a CPU tensor, the kernel for a CUDA one."""
+def _resblock_forward(x, conv1, conv2, shortcut, plan, tile, max_blocks) -> torch.Tensor:
+    """The plain version for a CPU tensor, the kernel for a CUDA one (with
+    the tile the gate found)."""
     K, d, left, _ = plan
     if x.device.type == "cpu":
         return fused_resblock_tgn_reference(x, conv1, conv2, shortcut)
     if x.device.type != "cuda":
         raise ValueError(f"fused_resblock_tgn: unsupported device {x.device}")
-    if x.dtype not in DTYPES:
-        raise ValueError(f"fused_resblock_tgn: x is {x.dtype}; the kernel takes float32 or bfloat16")
-    if variant not in VARIANTS:
-        raise ValueError(f"fused_resblock_tgn: variant {variant!r} is not one of {sorted(VARIANTS)}")
-    if max_blocks < 0:
-        raise ValueError(f"fused_resblock_tgn: max_blocks={max_blocks} is negative")
     B, C, T = x.shape
     xc = x.contiguous()
     w = packed_weights(conv1, conv2, shortcut, x.dtype)
-    H = w["w1"].shape[0]
     geometry = (K, d, left, PAD_MODES[conv1.spec.pad_mode])
-    tile = build.load().resblock_tgn_tile(C, H, K, d, left, DTYPES[x.dtype], VARIANTS[variant])
     part = torch.empty((B, -(-T // tile), 4), dtype=torch.float64, device=x.device)
     aff = torch.zeros((B, 6, C), dtype=torch.float32, device=x.device)
     y = torch.empty_like(xc)
-    args = dict(x=xc, aff=aff, part=part, y=y, geometry=geometry, variant=variant, max_blocks=max_blocks,
+    args = dict(x=xc, aff=aff, part=part, y=y, geometry=geometry, max_blocks=max_blocks,
                 **{k: w[k] for k in ("w1", "b1", "w2", "b2", "ws", "bs")})
 
     launch_resblock_tgn(0, **args)
@@ -312,38 +322,43 @@ def _check(what: str, x: torch.Tensor, expect: dict) -> None:
 
 
 def launch_resblock_tgn(mode: int, *, x, w1, b1, w2, b2, ws, bs, aff, part, y, geometry,
-                        variant: str = "auto", max_blocks: int = 0) -> None:
+                        max_blocks: int = 0) -> None:
     """Launch one pass (mode 0/1/2) of csrc/resblock_tgn.cu on the current
     stream of x's device. x, y (B, C, T) and w1 (H, K, C), w2 (C, H),
-    ws (C, C) in x's type; b1, b2, bs, aff (B, 6, C) fp32; part (B, n_t, 4) fp64."""
+    ws (C, C) bf16; b1, b2, bs, aff (B, 6, C) fp32; part (B, n_t, 4) fp64.
+    Raises where no kernel takes the block (``resblock_tgn_kind`` 0)."""
     global LAUNCHES
     K, dilation, left, pad_mode = geometry
     B, C, T = x.shape
     H = w1.shape[0]
-    if variant not in VARIANTS or max_blocks < 0:
-        raise ValueError(f"resblock_tgn: variant {variant!r}, max_blocks {max_blocks}")
-    lib = build.load()
-    n_t = -(-T // lib.resblock_tgn_tile(C, H, K, dilation, left, DTYPES[x.dtype], VARIANTS[variant]))
+    if max_blocks < 0:
+        raise ValueError(f"resblock_tgn: max_blocks {max_blocks}")
+    tile = kernel_tile(C, H, K, dilation, left)
+    if tile <= 0:
+        raise ValueError(f"resblock_tgn: no kernel takes C={C}, H={H}, K={K}, dilation={dilation}, left={left}")
+    n_t = -(-T // tile)
+    bf = torch.bfloat16
     _check("resblock_tgn", x, {
-        "x": (x, x.dtype, (B, C, T)),
-        "w1": (w1, x.dtype, (H, K, C)),
+        "x": (x, bf, (B, C, T)),
+        "w1": (w1, bf, (H, K, C)),
         "b1": (b1, torch.float32, (H,)),
-        "w2": (w2, x.dtype, (C, H)),
+        "w2": (w2, bf, (C, H)),
         "b2": (b2, torch.float32, (C,)),
-        "ws": (ws, x.dtype, (C, C)),
+        "ws": (ws, bf, (C, C)),
         "bs": (bs, torch.float32, (C,)),
         "aff": (aff, torch.float32, (B, 6, C)),
         "part": (part, torch.float64, (B, n_t, 4)),
-        "y": (y, x.dtype, (B, C, T)),
+        "y": (y, bf, (B, C, T)),
     })
-    if not (0 < C <= MAX_C and 0 < H <= MAX_C) or B > 65535 or B * T >= 2**31:
-        raise ValueError(f"resblock_tgn: C={C}, H={H}, B={B}, T={T} outside the kernel's range")
+    if B > 65535 or B * T >= 2**31:
+        raise ValueError(f"resblock_tgn: B={B}, T={T} outside the kernel's range")
+    lib = build.load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.resblock_tgn_launch(
             mode, x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), ws.data_ptr(),
             bs.data_ptr(), aff.data_ptr(), part.data_ptr(), y.data_ptr(), B, C, H, T, K, dilation, left,
-            pad_mode, DTYPES[x.dtype], VARIANTS[variant], max_blocks, stream)
+            pad_mode, max_blocks, stream)
     build.check(lib, rc, "resblock_tgn_launch")
     LAUNCHES += 1
 

@@ -24,8 +24,6 @@ LAUNCHES = 0
 
 KERNEL_DIM = 128  # the latent width csrc/rvq_encode.cu is compiled for
 CHUNK = 128  # codewords a ring stage of the kernel holds (csrc/rvq_encode.cu CHUNK)
-# the device code a call may ask for (csrc/rvq_encode.cu rvq_encode_launch)
-VARIANTS = {"wgmma": 0, "legacy": 1}
 
 
 def embed_sq(embed: torch.Tensor, n_q: int) -> torch.Tensor:
@@ -126,12 +124,9 @@ def rvq_encode_reference(
     return torch.stack(idxs).reshape(n_q, B, T), quant.reshape(B, T, D)
 
 
-def rvq_encode_fused(
-    x: torch.Tensor, embed: torch.Tensor, n_q: int, *, variant: str = "wgmma"
-) -> Tuple[torch.Tensor, torch.Tensor]:
+def rvq_encode_fused(x: torch.Tensor, embed: torch.Tensor, n_q: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused greedy RVQ encode. x (B, T, D), embed (>=n_q, bins, D) ->
-    (indices (n_q, B, T) int32, quantized (B, T, D) fp32). ``variant``
-    "legacy" runs the first, CUDA-core kernel (kept for timing and tests)."""
+    (indices (n_q, B, T) int32, quantized (B, T, D) fp32)."""
     if x.device.type == "cpu":
         return rvq_encode_reference(x, embed, n_q)
     if x.device.type != "cuda":
@@ -144,8 +139,6 @@ def rvq_encode_fused(
         raise ValueError(f"rvq_encode_fused: D={embed.shape[-1]}; the kernel is compiled for D={KERNEL_DIM}")
     if embed.device != x.device:
         raise ValueError(f"rvq_encode_fused: embed on {embed.device}, x on {x.device}")
-    if variant not in VARIANTS:
-        raise ValueError(f"rvq_encode_fused: variant {variant!r} is not one of {sorted(VARIANTS)}")
     B, T, D = x.shape
     N = B * T
     xb = x.reshape(N, D).to(torch.bfloat16).contiguous()
@@ -153,7 +146,7 @@ def rvq_encode_fused(
     idx = torch.empty((n_q, N), dtype=torch.int32, device=x.device)
     quant = torch.empty((N, D), dtype=torch.float32, device=x.device)
     if N > 0:
-        launch_rvq_encode(xb, cb["embed"][:n_q], cb["arranged"][:n_q], cb["esq"][:n_q], idx, quant, variant=variant)
+        launch_rvq_encode(xb, cb["embed"][:n_q], cb["arranged"][:n_q], cb["esq"][:n_q], idx, quant)
     return idx.reshape(n_q, B, T), quant.reshape(B, T, D)
 
 
@@ -164,8 +157,6 @@ def launch_rvq_encode(
     esq: torch.Tensor,
     idx: torch.Tensor,
     quant: torch.Tensor,
-    *,
-    variant: str = "wgmma",
 ) -> None:
     """Launch csrc/rvq_encode.cu on the current stream of x's device.
 
@@ -174,8 +165,6 @@ def launch_rvq_encode(
     makes them; writes idx (n_q, N) int32 and quant (N, 128) fp32.
     """
     global LAUNCHES
-    if variant not in VARIANTS:
-        raise ValueError(f"rvq_encode: variant {variant!r} is not one of {sorted(VARIANTS)}")
     N, D = x.shape
     n_q, bins, _ = embed.shape
     n_ch = -(-bins // CHUNK)
@@ -200,6 +189,6 @@ def launch_rvq_encode(
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.rvq_encode_launch(x.data_ptr(), embed.data_ptr(), arranged.data_ptr(), esq.data_ptr(),
-                                   idx.data_ptr(), quant.data_ptr(), N, n_q, bins, n_ch, VARIANTS[variant], stream)
+                                   idx.data_ptr(), quant.data_ptr(), N, n_q, bins, n_ch, stream)
     build.check(lib, rc, "rvq_encode_launch")
     LAUNCHES += 1

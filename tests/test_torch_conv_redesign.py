@@ -55,8 +55,7 @@ def test_plan_of_every_flagship_conv():
     for (cin, cout, K, dil, left), expect in FLAGSHIP_PLANS.items():
         p = ck.plan(cin, cout, K, dil, left, torch.bfloat16)
         assert tuple(p) == expect, (cin, cout, p)
-        assert ck.plan(cin, cout, K, dil, left, torch.float32) == ck.Plan("legacy", 0, 0)
-        assert ck.plan(cin, cout, K, dil, left, torch.bfloat16, "legacy") == ck.Plan("legacy", 0, 0)
+        assert ck.plan(cin, cout, K, dil, left, torch.float32) is None  # no kernel takes fp32
         if p.chunk:
             resident = p.regime == "tc_resident"
             assert ck.tc_layout(p.out_tile, p.chunk, cin, cout, K, dil, left, resident) <= ck.MAX_SMEM
@@ -78,14 +77,20 @@ def test_plan_keeps_the_most_blocks_on_an_sm():
 
 @pytest.mark.parametrize(
     "cin,cout,K,dil,left,regime",
-    [(24, 40, 3, 3, 3, "legacy"), (1, 32, 7, 2, 6, "legacy"), (1, 32, 7, 1, 6, "thin"), (32, 1, 3, 1, 2, "thin"),
-     (1, 1, 5, 1, 2, "thin"), (1, 32, 9, 1, 4, "legacy"), (16, 32, 3, 1, 1, "tc_resident"),
-     (48, 96, 5, 2, 4, "tc_streamed"), (8, 32, 3, 1, 1, "legacy"), (64, 32, 3, 9, 18, "tc_resident"),
-     (512, 512, 7, 1, 3, "tc_streamed"), (64, 32, 3, 1000, 2000, "legacy")],
+    [(24, 40, 3, 3, 3, None), (1, 32, 7, 2, 6, None), (1, 32, 7, 1, 6, "thin"), (32, 1, 3, 1, 2, "thin"),
+     (1, 1, 5, 1, 2, "thin"), (1, 32, 9, 1, 4, None), (16, 32, 3, 1, 1, "tc_resident"),
+     (48, 96, 5, 2, 4, "tc_streamed"), (8, 32, 3, 1, 1, None), (64, 32, 3, 9, 18, "tc_resident"),
+     (512, 512, 7, 1, 3, "tc_streamed"), (64, 32, 3, 1000, 2000, None)],
 )
 def test_plan_of_other_shapes(cin, cout, K, dil, left, regime):
+    """None: no kernel takes the layer (channels no multiple of 16 outside
+    "thin", a thin geometry it is not built for, no tensor-core candidate
+    that fits an SM), so a CUDA call declines."""
     p = ck.plan(cin, cout, K, dil, left, torch.bfloat16)
-    assert p.regime == regime
+    if regime is None:
+        assert p is None
+        return
+    assert p.regime == regime and regime in ck.REGIMES
     if regime.startswith("tc"):
         assert cout % p.out_tile == 0 and cin % p.chunk == 0 and p.chunk in (16, 32)
         assert ck.tc_layout(p.out_tile, p.chunk, cin, cout, K, dil, left, regime == "tc_resident") <= ck.MAX_SMEM
@@ -193,15 +198,15 @@ def test_packed_conv_weights_zero_bias_and_parameters():
     assert not again["w"].requires_grad
 
 
-@pytest.mark.parametrize("variant", ["auto", "legacy"])
-def test_cpu_tensors_take_the_plain_version(variant):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_cpu_tensors_take_the_plain_version(dtype):
+    """A CPU tensor runs the plain version in either type (fp32 too, which no
+    kernel takes) and launches nothing."""
     w, b = _conv(seed=5)
-    x = torch.from_numpy(np.random.RandomState(6).randn(2, 32, 100).astype(np.float32)).to(torch.bfloat16)
+    x = torch.from_numpy(np.random.RandomState(6).randn(2, 32, 100).astype(np.float32)).to(dtype)
     before = ck.LAUNCHES
-    y = ck.fused_conv1d_s1(x, w, b, 1, 1, 1, "reflect", "elu", variant=variant)
+    y = ck.fused_conv1d_s1(x, w, b, 1, 1, 1, "reflect", "elu")
     assert ck.LAUNCHES == before
-    assert torch.equal(y, ck.fused_conv1d_s1_reference(x, w, b, 1, 1, 1, "reflect", "elu"))
-    with pytest.raises(ValueError, match="variant"):
-        ck.fused_conv1d_s1(x, w, b, 1, 1, 1, "reflect", "elu", variant="wgmma")
-    assert set(ck.VARIANTS) == {"auto", "legacy"} and ck.REGIMES == ("legacy", "thin", "tc_resident", "tc_streamed")
+    assert y.dtype == dtype and torch.equal(y, ck.fused_conv1d_s1_reference(x, w, b, 1, 1, 1, "reflect", "elu"))
+    assert ck.REGIMES == (None, "thin", "tc_resident", "tc_streamed")
 

@@ -198,6 +198,5 @@ def test_new_arguments_are_rejected_on_bad_values():
         rk.fused_resblock_tgn(x, *convs)
     with pytest.raises(ValueError, match="1 or 2"):
         rk.launch_resblock_finalize(torch.zeros(1, 1, 4, dtype=torch.float64), torch.zeros(1, 6, 32), 8, [])
-    with pytest.raises(ValueError, match="variant"):
-        rvq_kernel.launch_rvq_encode(*[torch.zeros(1)] * 6, variant="fp8")
-    assert set(rk.VARIANTS) == {"auto", "legacy"} and set(rvq_kernel.VARIANTS) == {"wgmma", "legacy"}
+    with pytest.raises(ValueError, match="max_blocks"):
+        rk.fused_resblock_tgn(torch.zeros(1, 32, 64), *convs, max_blocks=-1)
