@@ -62,10 +62,13 @@ In phases that each raise on failure:
    chain it replaces; two FreqCodec gr8 2D norms against the plain version.
    Then the sync check: one B = 64 x 5.825 s main-path request (int16 in,
    PCM16 out, as the benchmark serves it) under
-   torch.cuda.set_sync_debug_mode("warn") with a profiler active; every
-   synchronising call must fall in a program span marked wait
-   (utils/profiling.py), and the spans must lie inside the trace's events
-   of their names, 0.1 ms from them in the median.
+   torch.cuda.set_sync_debug_mode("warn") with a profiler active; dispatch
+   must make no synchronising call, collect must wait in one d2h span (marked
+   wait, utils/profiling.py) a replica and nowhere else, and the spans must
+   lie inside the trace's events of their names, 0.1 ms from them in the
+   median; the same for FreqCodec gr8's request; then each model serves 24
+   such batches two in flight, as the benchmark does, and the share of
+   collects that found their batch's copies done (cli.COLLECTS) is printed.
 5. probe: the HBM copy probes (csrc/copy_probe.cu, ops/copy_kernel.py).
    scale_copy (several tiles and row counts) and dma_copy (several chunk
    sizes, one too large for a ring of 4 slots) held bit for bit to x * 2 in bf16 and fp32 at
@@ -1018,22 +1021,66 @@ def postnorm_phase(dev, s_bf, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 SYNC_B, SYNC_SECONDS = 64, 5.825  # the benchmark's batch: 64 utterances at LibriTTS's mean length
+SYNC_PIPELINED = 24  # batches served two in flight for the COLLECTS ready share
 SPAN_CLOCK_TOL_NS = 100_000  # a span's own stamps against the trace's event of the same name
 SYNC_WARNING = "called a synchronizing CUDA operation"  # torch.cuda.set_sync_debug_mode("warn")'s
 
 
 def sync_phase(dev, s_bf) -> dict:
-    """One bf16 B = 64 x 5.825 s main-path request, int16 in and PCM16 out as
-    the benchmark serves it, dispatched and collected under
+    """The sync check of the flagship's main path (`_sync_checked`), then
+    FreqCodec gr8's, then each model's COLLECTS ready share when served two
+    batches in flight (`_ready_share`)."""
+    set_flags(MAIN_PATH)
+    pcm = np.round(_speech(17, SYNC_B, SYNC_SECONDS) * 32767).astype(np.int16)
+    ilens = [pcm.shape[1]] * SYNC_B
+    out = dict(encodec=_sync_checked("encodec", s_bf, pcm, ilens))
+    out["encodec"]["ready_share"] = _ready_share("encodec", s_bf, pcm, ilens)
+    freq = build_freq(dev, 8, "bfloat16")
+    _freq_flags(FREQ_MAIN)
+    out["freqcodec_gr8"] = _sync_checked("freqcodec_gr8", freq, pcm, ilens)
+    out["freqcodec_gr8"]["ready_share"] = _ready_share("freqcodec_gr8", freq, pcm, ilens)
+    set_flags(MAIN_PATH)
+    del freq
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ready_share(what: str, s2t, pcm, ilens) -> float:
+    """SYNC_PIPELINED batches dispatched and collected as the benchmark
+    serves them (batch n + 1 dispatched before batch n is collected): the
+    share of collects whose batch's copies had completed when collect began."""
+    cli.COLLECTS.update(ready=0, waited=0)
+    pending = []
+    t0 = time.perf_counter()
+    for _ in range(SYNC_PIPELINED):
+        pending.append(s2t.dispatch(pcm, bit_width=None, pcm16_ilens=ilens))
+        if len(pending) == 2:
+            s2t.collect(pending.pop(0), need_sub_quants=False)
+    s2t.collect(pending.pop(0), need_sub_quants=False)
+    seconds = time.perf_counter() - t0
+    counts = dict(cli.COLLECTS)
+    if sum(counts.values()) != SYNC_PIPELINED:
+        raise RuntimeError(f"sync {what}: COLLECTS {counts} over {SYNC_PIPELINED} collects of one replica")
+    share = counts["ready"] / SYNC_PIPELINED
+    log(f"[sync] {what}: {SYNC_PIPELINED} batches of {SYNC_B} x {SYNC_SECONDS} s two in flight, COLLECTS {counts}, "
+        f"ready share {share:.3f}; {SYNC_PIPELINED * SYNC_B * SYNC_SECONDS / seconds:.1f} audio-s/s "
+        f"(no profiler)")
+    return share
+
+
+def _sync_checked(what: str, s2t, pcm, ilens) -> dict:
+    """One bf16 request of B = 64 x 5.825 s, int16 in and PCM16 out as the
+    benchmark serves it, dispatched and collected under
     ``torch.cuda.set_sync_debug_mode("warn")`` with a profiler active: each
-    synchronising call with the innermost program span it fell in (raises
-    if one falls outside a span marked ``wait``); each span against the
-    trace's ``funcodec::`` event of the same name (raises where a span is
-    more than SPAN_CLOCK_TOL_NS outside its event or, in the median, that
-    far from it: the spans and the trace must share a clock), and the
-    trace's device copies of those ranges flagged as annotations (the
-    benchmark counts no annotation as device work); each span's host, self
-    and device ms."""
+    synchronising call with the call it fell in (dispatch or collect) and
+    the innermost program span (raises if one falls in dispatch, or in
+    collect outside a span marked ``wait``, or if collect has other than
+    one ``d2h`` span, its wait); each span against the trace's
+    ``funcodec::`` event of the same name (raises where a span is more than
+    SPAN_CLOCK_TOL_NS outside its event or, in the median, that far from
+    it: the spans and the trace must share a clock), and the trace's device
+    copies of those ranges flagged as annotations (the benchmark counts no
+    annotation as device work); each span's host, self and device ms."""
     import traceback
     import warnings
 
@@ -1041,14 +1088,17 @@ def sync_phase(dev, s_bf) -> dict:
 
     from funcodec_tpu_torch.utils import profiling
 
-    set_flags(MAIN_PATH)
-    pcm = np.round(_speech(17, SYNC_B, SYNC_SECONDS) * 32767).astype(np.int16)
-    ilens = [pcm.shape[1]] * SYNC_B
+    phase = {"in": None}
 
     def request():
-        return s_bf.collect(s_bf.dispatch(pcm, bit_width=None, pcm16_ilens=ilens), need_sub_quants=False)
+        phase["in"] = "dispatch"
+        out = s2t.dispatch(pcm, bit_width=None, pcm16_ilens=ilens)
+        phase["in"] = "collect"
+        got = s2t.collect(out, need_sub_quants=False)
+        phase["in"] = None
+        return got
 
-    for _ in range(2):  # cuDNN plans and allocations made before the checked request
+    for _ in range(2):  # cuDNN plans, allocations and pinned blocks made before the checked request
         request()
     with torch.profiler.profile(activities=[ProfilerActivity.CPU]):
         with profiling.span("warm-up"):  # a process's first record_function is slow to enter
@@ -1062,8 +1112,8 @@ def sync_phase(dev, s_bf) -> dict:
             return show(message, category, filename, lineno, file, line)
         s = profiling.current()
         stack = [f"{Path(f.filename).name}:{f.lineno} {f.name}" for f in traceback.extract_stack(limit=8)[:-1]]
-        syncs.append(dict(span=s and s.name, wait=bool(s and s.wait), at=f"{Path(filename).name}:{lineno}",
-                          stack=stack))
+        syncs.append(dict(call=phase["in"], span=s and s.name, wait=bool(s and s.wait),
+                          at=f"{Path(filename).name}:{lineno}", stack=stack))
 
     profiling.clear()
     with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1076,9 +1126,11 @@ def sync_phase(dev, s_bf) -> dict:
             finally:
                 torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
-    frames = -(-pcm.shape[1] // 320)
-    if codes[0].shape != (32, SYNC_B, frames) or recon.shape != pcm.shape or recon.dtype != np.int16:
-        raise RuntimeError(f"sync: tokens {codes[0].shape}, recon {recon.shape} {recon.dtype}")
+    frames = codes[0].shape[2]
+    if codes[0].shape[:2] != (32, SYNC_B) or abs(frames - pcm.shape[1] / 320) > 1 or recon.shape != pcm.shape \
+            or recon.dtype != np.int16 or codes[0].dtype != np.int32:
+        raise RuntimeError(f"sync {what}: tokens {codes[0].shape} {codes[0].dtype}, recon {recon.shape} "
+                           f"{recon.dtype}")
     got = profiling.spans()
     host_events, device_events = {}, []
     for ev in prof.profiler.kineto_results.events():
@@ -1108,25 +1160,34 @@ def sync_phase(dev, s_bf) -> dict:
         if s.events is not None:
             row["device_ms"] = (row["device_ms"] or 0.0) + s.device_ms()
     for name, row in table.items():
-        log(f"[sync] span {name}: n {row['n']}, host {row['host_ms']:.3f} ms, self {row['self_ms']:.3f} ms, "
+        log(f"[sync] {what} span {name}: n {row['n']}, host {row['host_ms']:.3f} ms, self {row['self_ms']:.3f} ms, "
             f"device {row['device_ms'] if row['device_ms'] is None else round(row['device_ms'], 3)} ms"
             f"{' (wait)' if row['wait'] else ''}")
     for sync in syncs:
-        log(f"[sync] synchronising call at {sync['at']} in span {sync['span']} (wait {sync['wait']})"
-            + ("" if sync["wait"] else f"; stack {' <- '.join(reversed(sync['stack']))}"))
-    log(f"[sync] {len(syncs)} synchronising calls in one request; spans' stamps {median / 1e3:.1f} us from the "
-        f"trace's events in the median, {worst / 1e3:.1f} us at most ({worst_name}), {out_of / 1e3:.1f} us outside "
-        f"them at most; {len(device_events)} device copies of the spans' ranges, {len(unflagged)} not flagged "
-        f"as annotations")
+        log(f"[sync] {what}: synchronising call at {sync['at']} in {sync['call']}, span {sync['span']} "
+            f"(wait {sync['wait']})" + ("" if sync["wait"] else f"; stack {' <- '.join(reversed(sync['stack']))}"))
+    waits = [s for s in got if s.wait]
+    log(f"[sync] {what}: {len(syncs)} synchronising calls in one request ({sum(x['call'] == 'dispatch' for x in syncs)}"
+        f" in dispatch), {len(waits)} wait spans ({', '.join(f'{s.name} in {s.parent}' for s in waits)}); spans' "
+        f"stamps {median / 1e3:.1f} us from the trace's events in the median, {worst / 1e3:.1f} us at most "
+        f"({worst_name}), {out_of / 1e3:.1f} us outside them at most; {len(device_events)} device copies of the "
+        f"spans' ranges, {len(unflagged)} not flagged as annotations")
+    in_dispatch = [x for x in syncs if x["call"] == "dispatch"]
+    if in_dispatch:
+        raise RuntimeError(f"sync {what}: synchronising calls in dispatch: {in_dispatch}")
     outside = [x for x in syncs if not x["wait"]]
     if outside:
-        raise RuntimeError(f"sync: synchronising calls outside a wait span: {outside}")
+        raise RuntimeError(f"sync {what}: synchronising calls outside a wait span: {outside}")
+    if [(s.name, s.parent) for s in waits] != [("d2h", "collect")]:
+        raise RuntimeError(f"sync {what}: wait spans {[(s.name, s.parent) for s in waits]}, expected collect's one "
+                           f"d2h")
     # a descheduled or collecting process widens a span's gap to its event, never reverses it
     if median > SPAN_CLOCK_TOL_NS or out_of > SPAN_CLOCK_TOL_NS:
-        raise RuntimeError(f"sync: spans {median} ns off the trace's events of their names in the median; a span "
-                           f"is {out_of} ns outside its event")
+        raise RuntimeError(f"sync {what}: spans {median} ns off the trace's events of their names in the median; "
+                           f"a span is {out_of} ns outside its event")
     if unflagged:
-        raise RuntimeError(f"sync: device copies of the spans' ranges not flagged as annotations: {unflagged[:4]}")
+        raise RuntimeError(f"sync {what}: device copies of the spans' ranges not flagged as annotations: "
+                           f"{unflagged[:4]}")
     profiling.clear()
     return dict(syncs=syncs, clock_median_ns=median, clock_worst_ns=worst, clock_outside_ns=out_of,
                 device_annotations=len(device_events), spans=table)

@@ -11,9 +11,10 @@ N cards (or on an explicit ``devices`` list), each serving a contiguous
 block of every batch's rows. Utterances are length-sorted into wrap-padded buckets;
 CUDA work is queued asynchronously, so the main thread dispatches batch i+1
 before it collects batch i, while a reader pool decodes the next batches and
-a writer thread and wav pool write the last ones. Two copies synchronise:
-``collect``'s to the host, and with ``pcm16_ilens`` the upload of the valid
-lengths in ``pcm16``, which waits for the batch's own encode and decode.
+a writer thread and wav pool write the last ones. ``dispatch`` makes no
+synchronising call: on a card each batch ends by copying what ``collect``
+returns into pinned host memory without blocking, behind one CUDA event, and
+``collect`` waits on that event alone (``COLLECTS`` counts whether it had to).
 Each layer is a span of ``utils/profiling.py``, seen in any
 ``torch.profiler`` trace as ``funcodec::<layer>``.
 
@@ -52,6 +53,10 @@ from funcodec_tpu_torch.utils.profiling import span
 _UNSET = object()
 RUN_MODS = ("inference", "encode", "decode", "decode_emb")
 INIT_SEED = 0  # random weights when no model file is given
+
+# Collects of a replica's batch on a card since the last reset: "ready" where the
+# batch's host copies had completed when collect() began, "waited" where it waited.
+COLLECTS = {"ready": 0, "waited": 0}
 
 
 def load_codec_json(json_str: str) -> np.ndarray:
@@ -173,9 +178,12 @@ class Speech2Token:
         run_mod: str = "inference",
         pcm16_ilens=None,
     ) -> Dict[str, Any]:
-        """Run one batch and return the model's out dict of device tensors
-        without copying to the host (CUDA work is queued asynchronously).
-        Pair with collect().
+        """Run one batch and return the model's out dict without waiting for
+        the device (CUDA work is queued asynchronously). Pair with collect().
+        On a card, what collect() returns to the host (the codes as int32,
+        the PCM16 or float32 recon) is copied into pinned host tensors
+        without blocking, and the dict holds those and one CUDA event
+        recorded after the copies; the code embeddings stay on the device.
 
         speech: (B, T) waveform (float, or int16 PCM that is dequantized on
         the device), (B, T, n_q) tokens for decode, (B, T, D) embeddings for
@@ -245,15 +253,21 @@ class Speech2Token:
             out = dict(out)
             if pcm16_ilens is not None and out.get("recon_speech") is not None:
                 out["recon_pcm16"] = pcm16(out.pop("recon_speech"), pcm16_ilens)
+            if device.type == "cuda":
+                _copy_to_host(out, device)
         return out
 
     @staticmethod
     def collect(out: Dict[str, Any], need_sub_quants: bool = True):
-        """Copy a dispatched batch to the host: (code_indices [int32 (n_q, B, T)],
-        code_embeddings (device tensors), recon, sub_quants). recon is int16
-        PCM if the batch was dispatched with pcm16_ilens, else float32 (B, T).
-        The replicas' blocks are joined in row order (the code embeddings on
-        the first replica's device) and the pad rows stripped."""
+        """The host outputs of a dispatched batch: (code_indices [int32 (n_q,
+        B, T)], code_embeddings (device tensors), recon, sub_quants). recon is
+        int16 PCM if the batch was dispatched with pcm16_ilens, else float32
+        (B, T). On a card each replica's batch waits on its dispatch's event
+        alone, and the codes and recon are numpy views of its pinned copies;
+        the sub_quants, which only the caller knows it wants, are copied
+        here, a blocking copy. The replicas' blocks are joined in row order
+        (the code embeddings on the first replica's device) and the pad rows
+        stripped."""
         with span("collect", request_id=out.get("_request_id")):
             return Speech2Token._collect(out, need_sub_quants)
 
@@ -261,20 +275,22 @@ class Speech2Token:
     def _collect(out: Dict[str, Any], need_sub_quants: bool):
         if "_replicas" in out:
             return _joined([Speech2Token._collect(o, need_sub_quants) for o in out["_replicas"]], out["_rows"])
-        codes = out.get("code_indices")
-        if codes is not None and codes[0] is not None:
-            with span("d2h", wait=True):  # each copy waits for the batch's work on the device
-                codes = [c.cpu().numpy().astype(np.int32) for c in codes]
-        recon = out.get("recon_pcm16")
-        if recon is not None:
-            with span("d2h", wait=True):
+        copied = out.get("_copied")
+        if copied is not None:
+            COLLECTS["ready" if copied.query() else "waited"] += 1
+        with span("d2h", wait=True):  # waits for the batch's work on the device
+            if copied is not None:
+                copied.synchronize()
+            codes = out.get("code_indices")
+            if codes is not None and codes[0] is not None:
+                codes = [c.cpu().numpy().astype(np.int32, copy=False) for c in codes]
+            recon = out.get("recon_pcm16")
+            if recon is None and out.get("recon_speech") is not None:
+                recon = out["recon_speech"].float()
+            if recon is not None:
                 recon = recon.cpu().numpy()
-        elif out.get("recon_speech") is not None:
-            with span("d2h", wait=True):
-                recon = out["recon_speech"].float().cpu().numpy()
-        sub_quants = out.get("sub_quants") if need_sub_quants else None
-        if sub_quants is not None and sub_quants[0] is not None:
-            with span("d2h", wait=True):
+            sub_quants = out.get("sub_quants") if need_sub_quants else None
+            if sub_quants is not None and sub_quants[0] is not None:
                 sub_quants = [s.float().cpu().numpy() for s in sub_quants]
         return codes, out.get("code_embeddings"), recon, sub_quants
 
@@ -329,13 +345,32 @@ def _joined(parts, n: int):
     return frames(0, 1), embs, recon, frames(3, 1)
 
 
+def _copy_to_host(out: Dict[str, Any], device: torch.device) -> None:
+    """Start the copies of a batch's host-bound outputs on the card: each
+    into a pinned host tensor without blocking (the codes cast to int32
+    first, exact below 2**31), then one event behind them, out["_copied"]."""
+
+    def pinned(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return torch.empty(t.shape, dtype=dtype, pin_memory=True).copy_(t.to(dtype), non_blocking=True)
+
+    codes = out.get("code_indices")
+    if codes is not None and codes[0] is not None:
+        out["code_indices"] = [pinned(c, torch.int32) for c in codes]
+    for key, dtype in (("recon_pcm16", torch.int16), ("recon_speech", torch.float32)):
+        if out.get(key) is not None:
+            out[key] = pinned(out[key], dtype)
+    copied = torch.cuda.Event()
+    copied.record(torch.cuda.current_stream(device))
+    out["_copied"] = copied
+
+
 def pcm16(recon: torch.Tensor, ilens) -> torch.Tensor:
     """save_audio(rescale=True) on the device: per-utterance peak over the
     valid samples only, scaled down to |x| <= 0.99, rounded to int16."""
     with span("pcm16", device=recon.device):
         r = recon.float()
-        with span("pcm16.lengths", wait=True):  # a blocking copy from pageable memory
-            n = torch.as_tensor(np.asarray(ilens, np.int64), device=r.device)
+        with span("pcm16.lengths"):
+            n = Speech2Token._to_device(np.asarray(ilens, np.int64), r.device)
         mask = torch.arange(r.shape[1], device=r.device)[None, :] < n[:, None]
         peak = (r.abs() * mask).amax(dim=1, keepdim=True)
         scale = torch.where(peak > 0.99, 0.99 / peak.clamp_min(1e-12), torch.ones_like(peak))

@@ -2,8 +2,9 @@
 hann_window, frame_signal, stft, istft, mel_filterbank, audio_to_mel,
 phase_aug).
 
-``stft`` and ``istft`` are ``torch.stft`` / ``torch.istft`` (cuFFT on the
-card) with torchaudio's window normalization; the JAX package's
+``stft`` is ``torch.stft`` and ``istft`` torch.istft's ops without its
+per-call host check (cuFFT on the card), with torchaudio's window
+normalization; the JAX package's
 windowed-DFT matmuls were a TPU workaround for XLA's FFT. The spectra and
 the resynthesis are computed in fp32 whatever the input's type, and
 autograd differentiates through both. ``mel_filterbank`` is a numpy copy
@@ -134,22 +135,53 @@ def istft(
 ) -> torch.Tensor:
     """Inverse STFT of complex (..., n_fft//2+1, n_frames) -> (..., T), fp32.
 
-    torch.istft over the periodic hann window: the windowed overlap-add of
-    each frame's inverse real DFT divided by the summed squared window, the
+    torch.istft's steps, op for op, over the periodic hann window: each
+    frame's inverse real DFT times the window, overlap-added
+    (``unfold_backward``), divided by the summed squared window, the
     n_fft//2 samples of the center padding trimmed from each end, then cut
-    to `length` (the JAX version's semantics; torch.istft raises where the
-    envelope falls below 1e-11, which the JAX version clamps, and which no
-    hann window with hop <= win_length / 2 reaches inside the trimmed span).
+    to `length` (the JAX version's semantics). The same bits as torch.istft
+    without its per-call host check of the envelope, which waits for the
+    device: ``_envelope`` makes that check once per geometry (torch.istft
+    raises where the envelope falls below 1e-11, which the JAX version
+    clamps, and which no hann window with hop <= win_length / 2 reaches
+    inside the trimmed span).
     """
     win_length = win_length or n_fft
-    window = hann_window(win_length, device=spec.device)
-    lead = spec.shape[:-2]
+    lead, n_frames = spec.shape[:-2], spec.shape[-1]
     flat = spec.to(torch.complex64).reshape(-1, *spec.shape[-2:])
-    out = torch.istft(flat, n_fft, hop_length, win_length, window, center=center, normalized=False,
-                      onesided=True, return_complex=False)
+    frames = torch.fft.irfft(flat.transpose(1, 2), n_fft, dim=-1) * _window(n_fft, win_length, flat.device)
+    signal_len = n_fft + hop_length * (n_frames - 1)
+    out = torch.ops.aten.unfold_backward(frames, [flat.shape[0], signal_len], 1, n_fft, hop_length)
+    start, end = (n_fft // 2, signal_len - n_fft // 2) if center else (0, signal_len)
+    out = out[:, start:end] / _envelope(n_fft, hop_length, win_length, n_frames, center, flat.device)
     if length is not None:
         out = out[..., :length]
     return out.reshape(*lead, out.shape[-1])
+
+
+def _window(n_fft: int, win_length: int, device) -> torch.Tensor:
+    """The periodic hann window of `win_length`, zero-padded to n_fft in the
+    middle (torch.istft's)."""
+    window = hann_window(win_length, device=device)
+    left = (n_fft - win_length) // 2
+    return F.pad(window, (left, n_fft - win_length - left)) if win_length != n_fft else window
+
+
+@functools.lru_cache(maxsize=64)
+def _envelope(n_fft: int, hop_length: int, win_length: int, n_frames: int, center: bool,
+              device: torch.device) -> torch.Tensor:
+    """torch.istft's summed squared window over the kept span, (1, T),
+    checked once: the check reads it back on the host. Made outside
+    inference mode, so a later call with grad can save it."""
+    with torch.inference_mode(False), torch.no_grad():
+        squares = _window(n_fft, win_length, device).pow(2).expand(1, n_frames, n_fft)
+        signal_len = n_fft + hop_length * (n_frames - 1)
+        env = torch.ops.aten.unfold_backward(squares, [1, signal_len], 1, n_fft, hop_length)
+        env = env[:, n_fft // 2:signal_len - n_fft // 2] if center else env
+    if bool(env.abs().min() < 1e-11):
+        raise ValueError(f"istft: the squared window's overlap-add falls below 1e-11 (n_fft {n_fft}, hop "
+                         f"{hop_length}, win_length {win_length})")
+    return env
 
 
 def phase_aug(

@@ -8,7 +8,7 @@ and ships no profiler traces.
 **Spans.** ``span(name)`` marks a layer of the program where its work
 happens: the codec serving path (``Speech2Token.dispatch`` / ``collect``,
 the host-to-device copy, ``Encodec``'s encode, quantize and decode, the
-on-device PCM16 and the device-to-host copies) and two once-a-process
+on-device PCM16 and collect's wait for the device-to-host copies) and two once-a-process
 set-up steps (``Speech2Token``'s construction, the kernel library's load).
 An operator sees them in any ``torch.profiler`` session: each is a
 ``record_function`` range named ``funcodec::<name>`` in the session's trace
@@ -21,7 +21,8 @@ CUDA events around its device work: ``spans()``, ``device_ms()`` and
 with, so a span lines up with the trace's kernels. With no session active a
 span records nothing and costs one check; the set-up spans
 (``always=True``) are recorded either way. A span marked ``wait`` is one in
-which the host waits for the device (a synchronising copy).
+which the host waits for the device (collect's ``d2h``: the wait for a
+batch's copies to the host).
 
 **Trace capture.** ``StepTraceCapture`` captures a ``torch.profiler`` trace
 (host ops and, on a card, its kernels) around a chosen window of steps and

@@ -39,19 +39,19 @@ ILENS = [800, 700, 600, 500]
 # kineto event of that range
 CLOCK_TOL_NS = 100_000
 
-# (span, parent) of one request, dispatch and collect, by run mode; d2h once a copy
+# (span, parent) of one request, dispatch and collect, by run mode; d2h once a replica
 INFERENCE = [("h2d", "dispatch"), ("encode", "dispatch"), ("quantize", "dispatch"), ("decode", "dispatch"),
              ("pcm16.lengths", "pcm16"), ("pcm16", "dispatch"), ("dispatch", None),
-             ("d2h", "collect"), ("d2h", "collect"), ("collect", None)]
+             ("d2h", "collect"), ("collect", None)]
 EXPECTED = {
     ("inference", 1): INFERENCE,
-    ("inference", 2): INFERENCE[:6] * 2 + INFERENCE[6:7] + INFERENCE[7:9] * 2 + INFERENCE[9:],
+    ("inference", 2): INFERENCE[:6] * 2 + INFERENCE[6:7] + INFERENCE[7:8] * 2 + INFERENCE[8:],
     ("encode", 1): [("h2d", "dispatch"), ("encode", "dispatch"), ("quantize", "dispatch"), ("dispatch", None),
                     ("d2h", "collect"), ("collect", None)],
     ("decode", 1): [("h2d", "dispatch"), ("quantize", "dispatch"), ("decode", "dispatch"), ("pcm16.lengths", "pcm16"),
                     ("pcm16", "dispatch"), ("dispatch", None), ("d2h", "collect"), ("collect", None)],
 }
-WAITS = {"pcm16.lengths", "d2h"}
+WAITS = {"d2h"}  # collect's wait for the batch; dispatch waits for nothing
 
 
 @pytest.fixture(scope="module")
@@ -59,15 +59,20 @@ def models():
     return {n: Speech2Token(CONFIG, None, bit_width=None, devices=["cpu"] * n) for n in (1, 2)}
 
 
-def _request(s2t: Speech2Token, run_mod: str = "inference"):
-    rs = np.random.RandomState(3)
+def _batch(run_mod: str, seed: int = 3) -> np.ndarray:
+    rs = np.random.RandomState(seed)
     if run_mod == "decode":
-        x = rs.randint(0, 32, (len(ILENS), max(ILENS) // 8, 4))  # tokens at the hop of 8
-    else:
-        x = (rs.randn(len(ILENS), max(ILENS)) * 3000).astype(np.int16)
+        return rs.randint(0, 32, (len(ILENS), max(ILENS) // 8, 4))  # tokens at the hop of 8
+    return (rs.randn(len(ILENS), max(ILENS)) * 3000).astype(np.int16)
+
+
+def _dispatch(s2t: Speech2Token, x: np.ndarray, run_mod: str):
     recon = run_mod != "encode"  # as inference_pipeline serves each mode
-    out = s2t.dispatch(x, need_recon=recon, run_mod=run_mod, pcm16_ilens=ILENS if recon else None)
-    return s2t.collect(out, need_sub_quants=False)
+    return s2t.dispatch(x, need_recon=recon, run_mod=run_mod, pcm16_ilens=ILENS if recon else None)
+
+
+def _request(s2t: Speech2Token, run_mod: str = "inference"):
+    return s2t.collect(_dispatch(s2t, _batch(run_mod), run_mod), need_sub_quants=False)
 
 
 def _profiled(fn):
@@ -115,6 +120,36 @@ def test_serving_spans_and_parents(models, run_mod, replicas):
     assert all(s.wait == (s.name in WAITS) for s in got)
     assert all(s.t0_ns <= s.t1_ns and s.events is None for s in got)
     assert profiling.device_ms("encode") is None  # no CUDA events on the CPU
+
+
+@pytest.mark.parametrize("run_mod", ["inference", "encode", "decode"])
+def test_pipelined_batches_equal_each_served_alone(models, monkeypatch, run_mod):
+    """Two batches in flight, collected in order (as inference_pipeline and
+    the benchmark serve), give the codes and PCM16 of each batch served
+    alone, and the codes of __call__; on the CPU no collect is counted."""
+    from funcodec_tpu_torch.cli import codec_inference
+
+    monkeypatch.setattr(codec_inference, "COLLECTS", {"ready": 0, "waited": 0})
+    s2t = models[1]
+    batches = [_batch(run_mod, seed) for seed in (5, 6)]
+    outs = [_dispatch(s2t, x, run_mod) for x in batches]
+    pipelined = [s2t.collect(o, need_sub_quants=False) for o in outs]
+    for x, (codes, _, recon, _) in zip(batches, pipelined):
+        alone = s2t.collect(_dispatch(s2t, x, run_mod), need_sub_quants=False)
+        called = s2t(x, need_recon=run_mod != "encode", run_mod=run_mod)
+        if run_mod == "decode":
+            assert codes is None and called[0] is None
+        else:
+            assert codes[0].dtype == np.int32 and codes[0].shape == (4, len(ILENS), 100)
+            np.testing.assert_array_equal(codes[0], alone[0][0])
+            np.testing.assert_array_equal(codes[0], called[0][0])
+        if run_mod == "encode":
+            assert recon is None and alone[2] is None
+        else:
+            assert recon.dtype == np.int16 and recon.shape == (len(ILENS), max(ILENS))
+            np.testing.assert_array_equal(recon, alone[2])
+            assert called[2].dtype == np.float32 and called[2].shape == recon.shape
+    assert codec_inference.COLLECTS == {"ready": 0, "waited": 0}
 
 
 def test_request_ids_count_batches(models):

@@ -128,6 +128,34 @@ def test_istft_matches_jax(n_fft, hop, win, length):
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("n_fft,hop,win,frames,lead", [
+    (512, 160, 512, 609, (3,)),  # FreqCodec's transform at the benchmark's 97,280-sample bucket
+    (32, 16, 32, 65, (2, 4)),  # the tiny FreqCodec configs'
+    (256, 64, 200, 40, (2,)),  # win < n_fft
+])
+def test_istft_is_torch_istft_bit_for_bit(n_fft, hop, win, frames, lead):
+    """torch.istft's ops without its host check of the envelope: the same bits."""
+    spec = torch.randn(*lead, n_fft // 2 + 1, frames, generator=torch.Generator().manual_seed(frames),
+                       dtype=torch.complex64)
+    flat = spec.reshape(-1, n_fft // 2 + 1, frames)
+    ref = torch.istft(flat, n_fft, hop, win, tstft.hann_window(win), center=True, return_complex=False)
+    with torch.inference_mode():  # as the codec serves: the cached envelope must still serve autograd
+        got = tstft.istft(spec, n_fft, hop, win)
+    assert torch.equal(got, ref.reshape(*lead, ref.shape[-1]))
+    x = spec.clone().requires_grad_()
+    tstft.istft(x, n_fft, hop, win).sum().backward()
+    assert torch.isfinite(torch.view_as_real(x.grad)).all()
+
+
+def test_istft_refuses_an_envelope_that_vanishes():
+    """center=False keeps a hann window's zero first sample, which torch.istft refuses too."""
+    spec = torch.zeros(1, 257, 30, dtype=torch.complex64)
+    with pytest.raises(RuntimeError, match="window overlap add min"):
+        torch.istft(spec, 512, 128, 512, tstft.hann_window(512), center=False, return_complex=False)
+    with pytest.raises(ValueError, match="below 1e-11"):
+        tstft.istft(spec, 512, 128, 512, center=False)
+
+
 def test_istft_inverts_stft_with_leading_axes():
     x = np.random.RandomState(3).randn(2, 3, 3200).astype(np.float32)
     spec = tstft.stft(torch.from_numpy(x), 512, 160)
