@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py             # the smoke run below
     python3 chip_smoke.py --freq      # checks, build, then the FreqCodec phase alone
+    python3 chip_smoke.py --tts       # checks, build, then the LauraTTS serving phase alone
     python3 chip_smoke.py --profile   # checks, build, then a torch.profiler table of
                                       # one B = 64 x 10 s request per serving path,
                                       # of one bf16 shared training step (B = 16), of
@@ -145,7 +146,11 @@ In phases that each raise on failure:
    Text2Audio with the three codec kernels, launches exact (the prompt's
    encode, decode and decode_emb), each of its SEANet kernel calls against
    the plain version on its own inputs, gen and gen_only_lm against the
-   kernels off; the CLI with --serving_slots 4 and --batch_size 1 on an 8-line
+   kernels off; Text2Audio's incremental API in bf16 (LM, KV cache and
+   codec; start_serving / submit / poll, 12 requests through 4 slots, a
+   tick's finished requests synthesised together), launches exact a
+   synthesis batch (its bf16 decode_emb), each SEANet kernel call against the plain version on
+   its own inputs; the CLI with --serving_slots 4 and --batch_size 1 on an 8-line
    text_scp under build/chip_smoke/tts/; and the timing of
    scripts/bench_tts_serving.py's workload (48 requests, caps 50-250, 16
    slots) on the session (best of 3) and on lockstep batches (one timed
@@ -1266,10 +1271,14 @@ REPLACES = {
 CLI_DIR = OUT_DIR / "cli"
 CLI_BATCH, CLI_BIT_WIDTH = 16, 16_000  # 32 quantizers
 CLI_UTTS, CLI_SECONDS = 32, (1.0, 12.0)  # the corpus: utterances of uniformly drawn length
-# the decode modes (decode, decode_emb) run the decoder on the fp32 codewords, which no SEANet
-# kernel takes: the unfused decoder, its 6 + 4 x 3 time_group_norms on the tgn kernels
-DECODE_PER_BATCH = {"conv1d_s1": 0, "resblock_tgn": 0, "resblock_tgn_finalize": 0, "rvq_encode": 0,
-                    "tgn_norm": 18, "convtr2d": 0}
+# the decode modes (decode, decode_emb) of an fp32 codec: no SEANet kernel takes fp32, so the
+# unfused decoder, its 6 + 4 x 3 time_group_norms on the tgn kernels
+DECODE_FP32 = {"conv1d_s1": 0, "resblock_tgn": 0, "resblock_tgn_finalize": 0, "rvq_encode": 0,
+               "tgn_norm": 18, "convtr2d": 0}
+# those of a bf16 codec, which casts the codewords (decode) or embeddings (decode_emb) to bf16:
+# the decoder's half of EXPECT[MAIN_PATH]
+DECODE_MAIN = {"conv1d_s1": 2, "resblock_tgn": 12, "resblock_tgn_finalize": 8, "rvq_encode": 0, "tgn_norm": 6,
+               "convtr2d": 0}
 # the encoder's half of EXPECT[MAIN_PATH]: a bf16 encode and its RVQ (need_recon=False)
 ENCODE_MAIN = {"conv1d_s1": 2, "resblock_tgn": 12, "resblock_tgn_finalize": 8, "rvq_encode": 1, "tgn_norm": 6,
                "convtr2d": 0}
@@ -1385,7 +1394,7 @@ def cli_phase(dev, config, s_fp, card: str):
                        ("decode_ark", f"{CLI_DIR / 'ark' / 'indices.scp'},speech,kaldi_ark")):
         reset_counts()
         walls[name] = _run_cli(CLI_DIR / name, data, *bf16, "--run_mod", "decode")
-        dec_expect = {k: n_batches * v for k, v in DECODE_PER_BATCH.items()}
+        dec_expect = {k: n_batches * v for k, v in DECODE_MAIN.items()}
         if read_counts() != dec_expect:
             raise RuntimeError(f"cli {name}: launches {read_counts()}, expected {dec_expect}")
         _check_wavs(CLI_DIR / name, dec_want, SR, name)
@@ -1393,7 +1402,7 @@ def cli_phase(dev, config, s_fp, card: str):
         if (CLI_DIR / "decode_json" / f"{key}.wav").read_bytes() != (CLI_DIR / "decode_ark" / f"{key}.wav").read_bytes():
             raise RuntimeError(f"cli decode: {key}.wav differs between codecs.txt and indices.ark input")
     log(f"[cli] decode from codecs.txt {walls['decode_json']:.3f} s and from indices.ark {walls['decode_ark']:.3f} s: "
-        f"equal wavs, launches {n_batches} batches x {DECODE_PER_BATCH}")
+        f"equal wavs, launches {n_batches} batches x {DECODE_MAIN}")
 
     # two 24 kHz files, read and written at their own rate
     hz24 = _write_corpus(CLI_DIR / "corpus24k", (1.3, 2.7), 24_000, seed=22)
@@ -2247,7 +2256,7 @@ TTS_LOGIT_TOL = 1e-3
 TTS_FORCED = 32  # teacher-forced decode steps
 TTS_GREEDY = 48  # groups each request of the decode-mode check generates
 # one zero-shot request: the prompt's encode, then decode (AR tokens) and decode_emb (non-AR embeddings)
-TTS_EXPECT = {k: ENCODE_MAIN[k] + 2 * DECODE_PER_BATCH[k] for k in ENCODE_MAIN}
+TTS_EXPECT = {k: ENCODE_MAIN[k] + 2 * DECODE_MAIN[k] for k in ENCODE_MAIN}
 TTS_CLI_SECONDS = 2  # the CLI config's audio_max_duration: 50 groups a request (random weights never emit eos)
 # scripts/bench_tts_serving.py's workload: text length 40, caps uniform over 50..250 groups, 16 slots
 TTS_BENCH = dict(requests=48, text=40, caps=(50, 100, 150, 200, 250), slots=16, segment=25, single=250)
@@ -2501,9 +2510,8 @@ def _recorded_seanet_calls():
 def _held_calls(calls, what: str = "tts") -> dict:
     """Each recorded bf16 call's wrapper against its plain version on the same
     inputs (_held: 2 bf16 ulps of the output's scale); these launches are not
-    counted. A call in another type (the fp32 decoder of the decode modes,
-    fp32 weights) is declined by its wrapper, which launches nothing, and its
-    caller ran the plain path."""
+    counted. A call in another type (an fp32 codec's) is declined by its
+    wrapper, which launches nothing, and its caller ran the plain path."""
     worst = {}  # only the kernels that were called: no error for a kernel that was not
     with torch.inference_mode():
         for i, (kernel, fn, x, args, kwargs) in enumerate(calls):
@@ -2563,13 +2571,75 @@ def tts_kernels(dev, tokens) -> dict:
     if prompt_flips[1] > MAX_FLIP_ALL:
         raise RuntimeError(f"tts prompt tokens: kernels vs plain flip {prompt_flips[1]:.3f}")
     log(f"[tts] zero-shot request (text 20 words, 2 s prompt = {len(cont_k)} groups, {groups} groups, bf16 codec, "
-        f"the three kernels): launches {counts} exact; of its {len(calls)} SEANet wrapper calls the encode's (bf16) "
-        f"each within its limit of the plain version on the same inputs, the decodes' (fp32 codewords) declined (max|err| "
+        f"the three kernels): launches {counts} exact; its {len(calls)} SEANet wrapper calls (bf16: the prompt's encode, "
+        f"decode and decode_emb) each within its limit of the plain version on the same inputs (max|err| "
         f"conv1d_s1 {held['conv1d_s1']:.3e}, resblock_tgn {held['resblock_tgn']:.3e}); prompt token flips vs plain q0 {prompt_flips[0]:.4f} all "
         f"{prompt_flips[1]:.4f}; relative L2 vs plain, same tokens: gen {res['gen']['kernels_vs_plain']:.3e} "
         f"(bf16 vs fp32 {res['gen']['bf16_vs_fp32']:.3e}), gen_only_lm {res['gen_only_lm']['kernels_vs_plain']:.3e} "
         f"(bf16 vs fp32 {res['gen_only_lm']['bf16_vs_fp32']:.3e})")
     return res
+
+
+TTS_SERVICE = dict(requests=12, slots=4, caps=(20, 61), text=(10, 41))
+
+
+def tts_service(dev, tokens) -> dict:
+    """Text2Audio's incremental API in bf16 (the LM, its KV cache and the
+    codec; the three kernels on): 12 requests of 20-60 groups through 4
+    slots, the requests that finish at a tick synthesised together behind the
+    next tick's segment. Exact SEANet launches a synthesis batch (its one
+    decode_emb: the decoder's half of the main path), every kernel call of
+    the syntheses against its plain version on the same inputs, each gen cut
+    to its groups."""
+    from funcodec_tpu_torch.cli.text2audio_inference import Text2Audio
+
+    cfg = TTS_SERVICE
+    pipe = Text2Audio(str(TTS_DIR / "laura.yaml"), str(TTS_DIR / "laura.pth"), str(TTS_DIR / "codec.yaml"),
+                      str(TTS_DIR / "codec.pth"), token_list=str(TTS_DIR / "tokens.txt"), token_type="word",
+                      device=dev, dtype="bfloat16")
+    if pipe.model.cache_dtype != torch.bfloat16 or next(pipe.codec.model.decoder.parameters()).dtype != torch.bfloat16:
+        raise RuntimeError("tts service: the bf16 pipeline holds another type")
+    rs = np.random.RandomState(55)
+    caps = rs.randint(*cfg["caps"], cfg["requests"])
+    texts = [" ".join(tokens[i] for i in rs.randint(0, TTS_VOCAB, int(rs.randint(*cfg["text"]))))
+             for _ in range(cfg["requests"])]
+    pipe.start_serving(cfg["slots"], max_length=int(caps.max()), prefix_budget=cfg["text"][1] + 2)
+    set_flags(MAIN_PATH)
+    served, batches = {}, []
+    launch = pipe._launch_synth
+    pipe._launch_synth = lambda done: batches.append(launch(done)) or batches[-1]
+    with _recorded_seanet_calls() as calls:
+        _sync(dev)
+        reset_counts()
+        for i, (text, cap) in enumerate(zip(texts, caps)):
+            pipe.submit(f"q{i}", text, cap=int(cap))
+        while pipe.serving_busy:
+            served.update(pipe.poll())
+        counts = read_counts()
+    del pipe._launch_synth
+    stats = pipe.stats
+    n = stats["synthesized"]
+    decodes = sum(b is not None and b[1] is not None for b in batches)  # one decode_emb a synthesis batch
+    expect = {k: decodes * v for k, v in DECODE_MAIN.items()}
+    if n != cfg["requests"] or stats["admitted"] != n or counts != expect:
+        raise RuntimeError(f"tts service: {n} synthesised in {decodes} batches, {stats['admitted']} admitted, "
+                           f"launches {counts}, expected {expect}")
+    for i, cap in enumerate(caps):
+        out = served[f"q{i}"]
+        G = len(out["tokens"])
+        if (not 0 < G <= cap or out["gen"].shape != (G * pipe.codec.hop_length,) or not np.isfinite(out["gen"]).all()
+                or "gen_only_lm" in out):
+            raise RuntimeError(f"tts service q{i}: {G} groups (cap {cap}), gen {out['gen'].shape}, keys {sorted(out)}")
+    held = _held_calls(calls, "tts service")
+    conv_ops.FUSED_STRIDE1 = conv_ops.FUSED_RESBLOCK = rvq.FUSED_RVQ = False
+    log(f"[tts] service, bf16 LM and codec: {cfg['requests']} requests of {caps.min()}-{caps.max()} groups through "
+        f"{cfg['slots']} slots (start_serving / submit / poll), {stats['segments']} segments, slot occupancy "
+        f"{stats['live_steps'] / stats['slot_steps']:.3f}; {n} synthesised in {decodes} batches, launches {counts} = "
+        f"{decodes} x {DECODE_MAIN} exact; "
+        f"{len(calls)} SEANet wrapper calls each within its limit of the plain version (max|err| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in held.items()) + ")")
+    return dict(launches=counts, per_batch=DECODE_MAIN, batches=decodes, stats=stats, max_abs_err=held,
+                held_calls=len(calls))
 
 
 def tts_cli(dev, tokens) -> dict:
@@ -2754,11 +2824,13 @@ def tts_phase(dev, card: str) -> dict:
     kernels = tts_kernels(dev, tokens)
     conv_ops.FUSED_STRIDE1 = conv_ops.FUSED_RESBLOCK = rvq.FUSED_RVQ = False
     lap("kernels")
+    service = tts_service(dev, tokens)
+    lap("service")
     cli_walls = tts_cli(dev, tokens)
     lap("cli")
     timing = tts_timing(dev, model, codec_fp, card)
     lap("timing")
-    out = dict(parity=parity, modes=modes, kernels=kernels, cli_wall_s=cli_walls, timing=timing,
+    out = dict(parity=parity, modes=modes, kernels=kernels, service=service, cli_wall_s=cli_walls, timing=timing,
                phase_s=time.perf_counter() - t_phase, part_s=walls)
     log(f"[tts] phase {out['phase_s']:.1f} s: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
         + f" ({card})")
@@ -3136,7 +3208,7 @@ def laura_synthesis(dev, exp: Path, tokens, phones, valid_lengths) -> dict:
         counts = read_counts()
     # every line: the AR tokens' decode and the dense embeddings' decode_emb; the prompt: one encode. The
     # CLI's codec is fp32, which no SEANet kernel takes: the prompt's encode is the unfused one's half
-    expect = {k: 2 * LAURA_SYN_LINES * DECODE_PER_BATCH[k] + EXPECT["unfused"][k] - DECODE_PER_BATCH[k]
+    expect = {k: 2 * LAURA_SYN_LINES * DECODE_FP32[k] + EXPECT["unfused"][k] - DECODE_FP32[k]
               for k in EXPECT["unfused"]}
     if counts != expect:
         raise RuntimeError(f"laura stage 3: launches {counts}, expected {expect}")
@@ -3598,12 +3670,11 @@ def freq_cli(dev, s_fp) -> dict:
     dec_counts = read_counts()
     _freq_flags("none")
     batches = 2
-    # no convtr2d: the encode mode never decodes, and the decode mode's latents are the fp32
-    # codewords, so its decoder runs in fp32: its 1D conv declined to the plain path (no kernel
-    # takes fp32) and its transposed convs on cuDNN
+    # no convtr2d in the encode mode, which never decodes; the decode mode casts the codewords to
+    # the model's bf16, so its decoder takes its 1D conv kernel and the four transposed 2D convs
     expect = {"conv1d_s1": batches, "resblock_tgn": 0, "resblock_tgn_finalize": 0, "rvq_encode": 0,
               "tgn_norm": FREQ_NORMS * batches, "convtr2d": 0}
-    if enc_counts != expect or dec_counts != dict(expect, conv1d_s1=0):
+    if enc_counts != expect or dec_counts != dict(expect, convtr2d=4 * batches):
         raise RuntimeError(f"freq cli: launches encode {enc_counts}, decode {dec_counts}")
     codes = _codecs(FREQ_DIR / "enc" / "codecs.txt")
     for key, n in want.items():
@@ -4704,7 +4775,7 @@ def recipe_serve(dev, exp: Path, avg: Path, lengths: dict, held: dict) -> dict:
     if logged.tree() != codec_flops_tree(model, samples=SR):
         raise RuntimeError("recipe encode: --stat_flops logged another tree than codec_flops_tree's")
     del model
-    _held_part("decode", _launches(DECODE_PER_BATCH, n_batches), lambda: cli.main(
+    _held_part("decode", _launches(DECODE_MAIN, n_batches), lambda: cli.main(
         common + ["--output_dir", str(RECIPE_DIR / "decode"), "--data_path_and_name_and_type",
                   f"{RECIPE_DIR / 'codes' / 'codecs.txt'},speech,codec_json", "--run_mod", "decode"]), held)
     _check_wavs(RECIPE_DIR / "decode", {k: f * 320 for k, f in frames.items()}, SR, "recipe decode")
@@ -5582,6 +5653,9 @@ def main() -> int:
         return 0
     if "--freq" in sys.argv[1:]:
         freq_phase(dev, card)
+        return 0
+    if "--tts" in sys.argv[1:]:
+        tts_phase(dev, card)
         return 0
     config, s_bf, s_fp = build_models(dev)
     calls = flagship_calls(s_bf, dev)

@@ -78,8 +78,10 @@ class Speech2Token:
     are PyTorch files); without one the weights are random,
     drawn from a torch.Generator seeded with INIT_SEED. dtype "bfloat16" casts
     the parameters but not the codebooks (fp32 buffers, as in the JAX
-    package); "float32" also turns off TF32 in cuDNN and cuBLAS, which would
-    break the fp32 path's token exactness.
+    package), and the decode modes cast the codewords (decode) or the
+    embeddings (decode_emb) to it, so a bf16 model decodes in bf16; "float32"
+    also turns off TF32 in cuDNN and cuBLAS, which would break the fp32
+    path's token exactness.
 
     The positional arguments mean what they mean in the JAX package.
     `data_parallel` N serves one batch over N cards from this one process,
@@ -233,10 +235,12 @@ class Speech2Token:
                     nq = int(max(bit_width // self.bits_per_quant, 1))
                 with span("h2d", device=device):
                     tokens = self._to_device(speech, device, torch.int64)[:, :, :nq]
-                out = model.inference_decoding(tokens)
+                with span("quantize", device=device):  # the codewords (fp32 codebooks) in the model's type
+                    codes = model.quantizer.decode(tokens.permute(2, 0, 1)).to(self.dtype)
+                out = model.inference_decoding_emb(codes)
             elif run_mod == "decode_emb":
                 with span("h2d", device=device):
-                    emb = self._to_device(speech, device)
+                    emb = self._to_device(speech, device).to(self.dtype)
                 out = model.inference_decoding_emb(emb)
             else:
                 with span("h2d", device=device):

@@ -12,6 +12,22 @@ tts_eval.json. Three decode modes: batch-1 (decode_codec), lockstep batches
 Request k of a run (in scp order) samples with seed `seed + k` in every
 mode, so the three modes give the same tokens.
 
+`dtype` ("float32" or "bfloat16", --dtype) is the LM's weights and KV cache
+and the codec's (Speech2Token's dtype; its decode modes then run in it);
+logits and sampling stay fp32.
+
+Continuous batching is also a service: ``start_serving`` opens a session,
+``submit`` queues a request at any time and each ``poll`` runs one
+scheduling tick. The requests that finished at a tick are synthesised
+together behind the next tick's decode segment and returned by it (``gen``
+only): the text and codec encoders once over all of them (the padding
+masked), then one decode_emb over their embeddings, each wrap-padded with
+its own frames to the session's cap in multiples of the codec CLI's 16-frame
+bucket, so the shapes come from a finite set and a waveform does not depend
+on the requests beside it; each waveform is cut to its request's frames.
+Each batch is a ``synth`` span (utils/profiling): CUDA events, its first
+request's number as its id.
+
     python -m funcodec_tpu_torch.cli.text2audio_inference --device cpu \\
         --config_file laura.yaml --model_file laura.pth \\
         --codec_config_file codec.yaml --codec_model_file codec.pth \\
@@ -25,7 +41,7 @@ import argparse
 import json
 import logging
 import os
-from typing import Dict, List, Optional, Union
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -38,36 +54,47 @@ from funcodec_tpu_torch.models.laura import Sampling, pad_requests
 from funcodec_tpu_torch.models.tts_serving import LauraServingSession
 from funcodec_tpu_torch.tasks.text2audio import INIT_SEED, build_laura_model
 from funcodec_tpu_torch.train.checkpoint import load_laura_weights
+from funcodec_tpu_torch.utils.profiling import span
 from funcodec_tpu_torch.utils.tts_quality import tts_metrics
 
 EMPTY = {"gen": np.zeros((0,), np.float32), "gen_only_lm": np.zeros((0,), np.float32)}
+SYNTH_BUCKET = 16  # the service's syntheses pad to multiples of the codec CLI's 16-frame bucket
 
 
 class Text2Audio:
     """The composed TTS pipeline. `device` defaults to the card; without a
     model file the LM's weights are random, drawn with seed INIT_SEED. The
     LM's and the codec's model files are PyTorch state_dicts (.pth, .pt,
-    .bin) or the JAX package's .ckpt files, by the suffix."""
+    .bin) or the JAX package's .ckpt files, by the suffix. The configs are
+    yaml paths or loaded dicts, the token list a file or a list."""
 
     def __init__(
         self,
-        config_file: str,
+        config_file: Union[str, Mapping[str, Any]],
         model_file: Optional[str],
-        codec_config_file: str,
+        codec_config_file: Union[str, Mapping[str, Any]],
         codec_model_file: Optional[str],
-        token_list: Optional[str] = None,
+        token_list: Optional[Union[str, Sequence[str]]] = None,
         token_type: Optional[str] = None,
         sampling: Sampling = 25,  # top-k 25, as the demo
         seed: int = 0,
         *,
         device: Union[str, torch.device] = "cuda",
+        dtype: str = "float32",
     ):
-        with open(config_file) as f:
-            self.config = yaml.safe_load(f)
+        if dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
+        if isinstance(config_file, Mapping):
+            self.config = dict(config_file)
+        else:
+            with open(config_file) as f:
+                self.config = yaml.safe_load(f)
         tokens = None
-        if token_list:
+        if isinstance(token_list, str):
             with open(token_list, encoding="utf-8") as f:
                 tokens = [line.strip() for line in f if line.strip()]
+        elif token_list:
+            tokens = list(token_list)
         self.model = build_laura_model(self.config, token_list=tokens, device=device)
         self.device = self.model.device
         self.tokenizer = build_tokenizer(token_type) if token_type and tokens else None
@@ -76,7 +103,10 @@ class Text2Audio:
             load_laura_weights(model_file, self.model)
         else:
             logging.warning("no LM checkpoint %s; random init (seed %d)", model_file, INIT_SEED)
-        self.codec = Speech2Token(codec_config_file, codec_model_file, dtype="float32", device=self.device)
+        if dtype == "bfloat16":
+            self.model.to(torch.bfloat16)
+        self.codec = Speech2Token(codec_config_file, codec_model_file, dtype=dtype, device=self.device)
+        self.session: Optional[LauraServingSession] = None
         self.sampling = sampling
         self.seed = int(seed)
         self.requests = 0  # requests decoded so far: request k samples with seed + k
@@ -158,7 +188,8 @@ class Text2Audio:
     def serving_synthesize(self, items, max_length: Optional[int] = None, num_slots: int = 8):
         """Continuous batching over a LauraServingSession: a row that finishes
         frees its slot for a queued request; each request's audio is made
-        as it finishes. {'gen', 'gen_only_lm'} dicts in input order."""
+        as it finishes, alone and unpadded (the batch-1 mode's and the JAX
+        package's waveforms). {'gen', 'gen_only_lm'} dicts in input order."""
         preps = [self._prep_item(it) for it in items]
         budget = max(f.shape[1] + 2 + p.shape[0] for f, p in preps)
         sess = LauraServingSession(self.model, num_slots=min(num_slots, len(items)),
@@ -177,6 +208,98 @@ class Text2Audio:
                 feats, prompt = preps[i]
                 outs[i] = self._synthesize_tokens(np.asarray(tokens)[None], feats, prompt.shape[0])
         return outs
+
+    # -- the service: start_serving, then submit / poll ------------------------
+
+    def start_serving(self, num_slots: int = 8, max_length: Optional[int] = None, prefix_budget: int = 256,
+                      segment_steps: int = 25) -> LauraServingSession:
+        """Open a LauraServingSession of `num_slots` slots over the LM: caps of
+        up to max_length groups (default the config's audio_max_duration),
+        prefixes of up to prefix_budget positions ([sos, text, task])."""
+        self.session = LauraServingSession(self.model, num_slots=num_slots, max_new=self._max_length(max_length),
+                                           prefix_budget=prefix_budget, sampling=self.sampling,
+                                           segment_steps=segment_steps)
+        self.synth_frames = -(-self.session.max_new // SYNTH_BUCKET) * SYNTH_BUCKET
+        self._pending: Dict[str, tuple] = {}  # uid -> (text features, request number)
+        self._done: Dict[str, np.ndarray] = {}  # finished at the last tick: synthesised at the next
+        self._submitted = self.synthesized = 0
+        return self.session
+
+    def submit(self, uid: str, text, seed: Optional[int] = None, cap: Optional[int] = None) -> None:
+        """Queue one request: its text (a string, ids or features), a seed
+        (default the next of seed + k) and a cap on its groups (default the
+        session's)."""
+        feats = self._text_to_features(text)
+        self.session.submit(uid, feats[0], self._next_seeds(1)[0] if seed is None else int(seed), max_new=cap)
+        self._submitted += 1
+        self._pending[uid] = (feats, self._submitted)
+
+    @property
+    def serving_busy(self) -> bool:
+        """Requests queued, decoding or waiting for their synthesis."""
+        return self.session.busy or bool(self._done)
+
+    def poll(self) -> Dict[str, Dict[str, np.ndarray]]:
+        """One scheduling tick of the session. The requests that finished at
+        the tick before are synthesised behind this tick's decode segment
+        (the host queues their work while the card decodes) and returned:
+        {uid: {'tokens' (T, nq) int32 (eos removed), 'gen' (T * hop,)}}. A
+        request comes back one tick after its last group."""
+        done, launched = self._done, []
+        self._done = self.session.poll(lambda: launched.append(self._launch_synth(done)))
+        return self._collect_synth(*launched[0]) if launched and launched[0] else {}
+
+    @torch.inference_mode()
+    def _launch_synth(self, done: Dict[str, np.ndarray]):
+        """Queue the synthesis of finished requests, together and without
+        waiting for the card, in one ``synth`` span: the text encoder and the
+        NAR codec encoder over all of them (text and frames padded to the
+        longest of the batch in multiples of SYNTH_BUCKET, each row's true
+        lengths masking its padding), each row's embedding wrap-padded with
+        its own frames to synth_frames (the session's cap in multiples of
+        SYNTH_BUCKET, as the codec CLI wrap-pads a batch's rows), and one
+        decode_emb over the rows. Returns (rows, decode_emb's dispatch)."""
+        if not done:
+            return None
+        cfg, model, b, L = self.model.cfg, self.model, SYNTH_BUCKET, self.synth_frames
+        rows = [(uid, np.asarray(tokens), *self._pending.pop(uid)) for uid, tokens in done.items()]
+        with span("synth", device=self.device, request_id=rows[0][3]):
+            voiced = [r for r in rows if len(r[1])]
+            if not voiced:
+                return rows, None
+            n, first = len(voiced), voiced[0][2]
+            lt = [f.shape[1] for _, _, f, _ in voiced]
+            frames = [len(t) for _, t, _, _ in voiced]
+            fill = cfg.ignore_id if first.dtype.kind in "iu" else 0
+            text = np.full((n, -(-max(lt) // b) * b) + first.shape[2:], fill, first.dtype)
+            codec = np.zeros((n, -(-max(frames) // b) * b, cfg.predict_nq), np.int64)
+            for i, (_, t, f, _) in enumerate(voiced):
+                text[i, : lt[i]] = f[0]
+                codec[i, : frames[i]] = t[:, : cfg.predict_nq]
+            up = lambda a: Speech2Token._to_device(a, self.device)  # noqa: E731
+            lengths = up(np.array([lt, frames], np.int64))
+            emb = model.dense_embedding(up(codec), lengths[1], up(text), lengths[0])
+            wrap = torch.arange(L, device=self.device)[None, :] % lengths[1][:, None]
+            emb = emb.gather(1, wrap[..., None].expand(n, L, emb.shape[-1]))
+            return rows, self.codec.dispatch(emb, run_mod="decode_emb")
+
+    def _collect_synth(self, rows: list, decoded) -> Dict[str, Dict[str, np.ndarray]]:
+        """The launched syntheses' gen waveforms, each cut to its frames."""
+        recon = None if decoded is None else np.asarray(self.codec.collect(decoded)[2])
+        out, i, hop = {}, 0, self.codec.hop_length
+        for uid, tokens, _, _ in rows:
+            if len(tokens):
+                gen, i = recon[i, : len(tokens) * hop], i + 1
+            else:
+                gen = EMPTY["gen"]
+            self.synthesized += 1
+            out[uid] = {"tokens": tokens, "gen": gen}
+        return out
+
+    @property
+    def stats(self) -> Dict[str, int]:
+        """The session's counters and the requests synthesised."""
+        return dict(self.session.stats, synthesized=self.synthesized)
 
 
 def _parse_sampling(s: str) -> Sampling:
@@ -208,6 +331,8 @@ def get_parser() -> argparse.ArgumentParser:
                              "slots (rel_pos/none-PE LMs only)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to run on (default: cuda; cpu runs on the host)")
+    parser.add_argument("--dtype", type=str, default="float32", choices=["float32", "bfloat16"],
+                        help="the LM's weights and KV cache and the codec's (logits and sampling stay fp32)")
     return parser
 
 
@@ -216,7 +341,7 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     pipeline = Text2Audio(args.config_file, args.model_file, args.codec_config_file, args.codec_model_file,
                           token_list=args.token_list, token_type=args.token_type,
-                          sampling=_parse_sampling(args.sampling), device=args.device)
+                          sampling=_parse_sampling(args.sampling), device=args.device, dtype=args.dtype)
     os.makedirs(args.output_dir, exist_ok=True)
     texts = read_2column_text(args.text_scp)
     prompts_wav = read_2column_text(args.prompt_wav_scp) if args.prompt_wav_scp else {}

@@ -705,13 +705,21 @@ class LauraGenModel(nn.Module):
         outs = gather_window(h, text_lengths, first_nq_emb.shape[1])
         return outs * make_pad_mask_bool(codec_lengths, outs.shape[1])[..., None], codec_lengths
 
+    def dense_embedding(self, codec, codec_lengths, text, text_lengths) -> torch.Tensor:
+        """The non-AR stage: the text encoder and the codec encoder over AR
+        tokens (B, T, >= nq) -> the dense embedding (B, T, D), zero past
+        codec_lengths; the text past text_lengths and the frames past
+        codec_lengths are padding, masked out."""
+        cfg = self.cfg
+        codec = codec.long()[:, :, : cfg.predict_nq]
+        prob = F.one_hot(codec.clamp(0, cfg.codebook_size - 1), cfg.codebook_size).float()
+        text_h, tl = self.encode_text(text, text_lengths)
+        return self.cal_codec_emb(text_h, tl, prob, codec_lengths)[0]
+
     @torch.inference_mode()
     def syn_audio(self, codec, text, text_lengths, codec_decoder: Callable, continual_length: Optional[int] = None):
         """Non-AR dense prediction -> `codec_decoder`(emb (1, T, D)) (a waveform)."""
-        cfg = self.cfg
-        codec = self._tensor(codec).long()[:, :, : cfg.predict_nq]
-        prob = F.one_hot(codec.clamp(0, cfg.codebook_size - 1), cfg.codebook_size).float()
-        codec_lengths = torch.tensor([codec.shape[1]], device=self.device)
-        text_h, tl = self.encode_text(self._tensor(text), self._tensor(np.asarray(text_lengths).reshape(-1)))
-        codec_emb, _ = self.cal_codec_emb(text_h, tl, prob, codec_lengths)
+        codec = self._tensor(codec)
+        codec_emb = self.dense_embedding(codec, torch.tensor([codec.shape[1]], device=self.device), self._tensor(text),
+                                         self._tensor(np.asarray(text_lengths).reshape(-1)))
         return codec_decoder(codec_emb[:, continual_length or 0:])

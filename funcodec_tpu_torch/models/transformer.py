@@ -73,9 +73,11 @@ def rel_pe(length: int, d_model: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=64)
 def _device_table(kind: str, length: int, d_model: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
-    pe = sinusoidal_pe(length, d_model) if kind == "abs" else rel_pe(length, d_model)
+    pe = torch.from_numpy(np.array(sinusoidal_pe(length, d_model) if kind == "abs" else rel_pe(length, d_model)))
     with torch.inference_mode(False):  # a normal tensor, usable outside inference mode too
-        return torch.from_numpy(np.array(pe)).to(device=device, dtype=dtype)
+        if device.type == "cuda":  # through pinned memory: made mid-stream, it does not wait for the card
+            return pe.pin_memory().to(device=device, non_blocking=True).to(dtype)
+        return pe.to(device=device, dtype=dtype)
 
 
 def table(kind: str, length: int, like: torch.Tensor) -> torch.Tensor:

@@ -65,6 +65,28 @@ def test_session_equals_single_decode_with_sampling(pair, bucket):
                                         for r in reqs)
 
 
+def test_staged_admissions_take_the_slots_their_segment_frees(pair):
+    """A segment as long as the longest cap ends every row: the queue's next
+    requests are prefilled behind it for those slots (staged) and take them
+    at the next tick, with the tokens of a batch-1 decode."""
+    _, _, tm = pair
+    reqs = _requests(6, seed=5)
+    sess = LauraServingSession(tm, num_slots=2, max_new=10, prefix_budget=16, sampling=5, segment_steps=10)
+    for r in reqs:
+        sess.submit(r["uid"], r["text"], r["seed"], prompt=r["prompt"], max_new=r["cap"])
+    out = sess.poll()
+    assert sorted(out) == ["r0", "r1"]
+    assert [q[0] for q in sess._staged["reqs"]] == ["r2", "r3"] and [q[0] for q in sess._queue] == ["r4", "r5"]
+    assert sess.stats["admitted"] == 2
+    out.update(sess.poll())
+    assert sess.stats["admitted"] == 4 and sorted(out) == ["r0", "r1", "r2", "r3"]
+    assert [q[0] for q in sess._staged["reqs"]] == ["r4", "r5"] and not sess._queue
+    out.update(sess.drain())
+    assert sess._staged is None and sess.stats["admitted"] == len(reqs)
+    for r in reqs:
+        np.testing.assert_array_equal(out[r["uid"]], _single(tm, r, 5), err_msg=r["uid"])
+
+
 def test_greedy_session_equals_jax_session():
     jm, params, tm = laura_pair(tiny_config("uni"), seed=4, eos_bias=-10.0)
     reqs = _requests(5, seed=1)
